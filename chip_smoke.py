@@ -1,0 +1,546 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, in order (any failure ends the run with a nonzero exit):
+  1. the card's name and power limit; build every CUDA kernel from
+     ``src/repro_torch/csrc/`` with nvcc (sm_90a) and report the build time;
+  2. hold each kernel against its plain PyTorch version on the card:
+     mpmm on all 27 cells x 3 output kinds at a small shape and on the five
+     main-path (N, K) at M = 4 and 16 (bit-exact); paged_scatter (bit-exact,
+     scratch page excluded); paged_attn on bf16 / kv8 / kv4, with and without
+     a window (tolerance ATTN_TOL);
+  3. the main path: ServeEngine serving internlm2-1.8b at full width under
+     policy w4a8 with an 8-bit KV cache (weights from a seeded
+     torch.Generator on the card), 4 greedy requests, first on the slot cache
+     and then on the paged cache; the token streams must be identical and
+     every kernel must have launched;
+  4. a teacher-forced decode step at full width, kernel path against plain
+     path from the same cache (largest logit difference, argmax agreement);
+  5. each kernel's time per decode step beside its bound and its plain
+     version's time.
+
+The line before the last is the kernels JSON, the last line the result
+JSON.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_FLOPS_PER_S = 67e12
+
+#: paged_attn kernel vs plain version: both follow the same page-blocked
+#: softmax; only the order of the f32 sums inside each dot differs, so the
+#: reference's own fused-vs-twin bound applies (tests/test_paged_attn.py)
+ATTN_TOL = 1e-5
+
+PROMPT_LENS = (128, 256, 384, 512)
+MAX_NEW = 32
+N_SLOTS, S_MAX, PAGE_SIZE = 4, 1024, 16
+SEED = 0
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def main_path_mm_shapes(cfg):
+    """(N, K, calls per decode step) of every projection on the main path."""
+    d, f, kv = cfg.d_model, cfg.d_ff, cfg.kv_heads * cfg.head_dim
+    L = cfg.n_layers
+    return [(cfg.n_heads * cfg.head_dim, d, L), (kv, d, 2 * L), (d, cfg.n_heads * cfg.head_dim, L),
+            (f, d, 2 * L), (d, f, L), (cfg.vocab_padded, d, 1)]
+
+
+def check_mpmm(torch, dev, cfg, report):
+    from repro_torch.core import pack as P
+    from repro_torch.core import quant as Q
+    from repro_torch.core.policy import PERMUTATIONS
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def operands(M, N, K, xb, wb):
+        x = torch.randint(0, 1 << xb, (M, K), generator=g, device=dev, dtype=torch.int32)
+        w = torch.randint(-(1 << (wb - 1)), 1 << (wb - 1), (N, K), generator=g, device=dev,
+                          dtype=torch.int32)
+        return P.pack(x.to(torch.uint8), xb), P.pack(w.to(torch.int8), wb)
+
+    worst = 0
+    n = 0
+    # all cells x kinds x signedness at a small ragged shape, and at K % 16 != 0
+    for (M, N, K) in ((37, 40, 96), (3, 24, 44)):
+        for xb, wb, yb in PERMUTATIONS:
+            if K % (8 // xb) or K % (8 // wb):
+                continue
+            x_p, w_p = operands(M, N, K, xb, wb)
+            rq = Q.make_requant_params(y_bits=yb, eps_phi=2.0**-9, eps_y=1.0, lam=3.0)
+            for kind in ("packed", "int32", "f32"):
+                if kind == "packed" and N % (8 // yb):
+                    continue
+                for signed in (False, True):
+                    kw = dict(x_bits=xb, w_bits=wb, y_bits=yb, x_signed=signed, out_kind=kind,
+                              out_scale=torch.tensor(0.0123, device=dev))
+                    a = ops.mpmm(x_p, w_p, rq, impl="cuda", **kw)
+                    b = ops.mpmm(x_p, w_p, rq, impl="torch", **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"mpmm mismatch cell {(xb, wb, yb)} {kind} "
+                                             f"signed={signed} shape {(M, N, K)}")
+                    n += 1
+    # the main path's cell (8, 4, 8), signed, f32 out, at its shapes
+    for M in (4, 16):
+        for N, K, _ in main_path_mm_shapes(cfg):
+            x_p, w_p = operands(M, N, K, 8, 4)
+            kw = dict(x_bits=8, w_bits=4, y_bits=8, x_signed=True, out_kind="f32",
+                      out_scale=torch.tensor(3.1e-4, device=dev))
+            a = ops.mpmm(x_p, w_p, None, impl="cuda", **kw)
+            b = ops.mpmm(x_p, w_p, None, impl="torch", **kw)
+            torch.cuda.synchronize()
+            worst = max(worst, float((a - b).abs().max()))
+            if not torch.equal(a, b):
+                raise AssertionError(f"mpmm mismatch at main-path shape M={M} N={N} K={K}")
+            n += 1
+    report["mpmm"] = {"max_abs_err": worst, "checks": n}
+    log(f"mpmm: {n} comparisons bit-exact (27 cells x 3 kinds x signedness; main-path shapes)")
+
+
+def make_pool(torch, g, dev, P_, ps, hkv, d, bits):
+    """A random quantized K or V page pool and its scales."""
+    if bits is None:
+        return (torch.randn((P_, ps, hkv, d), generator=g, device=dev).to(torch.bfloat16), None)
+    r = 8 // bits
+    q = torch.randint(-128, 128, (P_, ps, hkv, d // r), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.int8)
+    s = torch.rand((P_, ps, hkv), generator=g, device=dev) * 0.05 + 1e-3
+    return q, s
+
+
+def attn_case(torch, dev, cfg, bits, g):
+    """Main-path shapes: 4 slots, Hq 16, Hkv 8, D 128, pages of 16 rows,
+    positions as after the serving run (prompt + max_new - 1)."""
+    B, ps = N_SLOTS, PAGE_SIZE
+    nb = S_MAX // ps
+    P_ = B * nb + 1
+    k, ks = make_pool(torch, g, dev, P_, ps, cfg.kv_heads, cfg.head_dim, bits)
+    v, vs = make_pool(torch, g, dev, P_, ps, cfg.kv_heads, cfg.head_dim, bits)
+    q = torch.randn((B, cfg.n_heads, cfg.head_dim), generator=g, device=dev)
+    perm = torch.randperm(P_ - 1, generator=g, device=dev)[: B * nb] + 1
+    bt = perm.reshape(B, nb).to(torch.int32).contiguous()
+    pos = torch.tensor([n + MAX_NEW - 1 for n in PROMPT_LENS], dtype=torch.int32, device=dev)
+    return q, k, ks, v, vs, pos, bt
+
+
+def check_paged_attn(torch, dev, cfg, report):
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    worst = 0.0
+    for bits in (None, 8, 4):
+        q, k, ks, v, vs, pos, bt = attn_case(torch, dev, cfg, bits, g)
+        for window in (None, 100):
+            kw = dict(bits=bits, block_table=bt, window=window)
+            a = ops.paged_attn(q, k, ks, v, vs, pos, impl="cuda", **kw)
+            b = ops.paged_attn(q, k, ks, v, vs, pos, impl="torch", **kw)
+            torch.cuda.synchronize()
+            err = float((a - b).abs().max())
+            tol = ATTN_TOL * (1 + float(b.abs().max()))
+            log(f"paged_attn bits={bits} window={window}: max |kernel - plain| = {err:.3e}")
+            if not torch.isfinite(a).all() or err > tol:
+                raise AssertionError(f"paged_attn bits={bits} window={window}: err {err} > {tol}")
+            worst = max(worst, err)
+        # the dense slot layout through the identity-table view
+        dk = k[1:].reshape(N_SLOTS, S_MAX, *k.shape[2:])
+        dks = None if ks is None else ks[1:].reshape(N_SLOTS, S_MAX, *ks.shape[2:])
+        dv = v[1:].reshape(N_SLOTS, S_MAX, *v.shape[2:])
+        dvs = None if vs is None else vs[1:].reshape(N_SLOTS, S_MAX, *vs.shape[2:])
+        a = ops.paged_attn(q, dk, dks, dv, dvs, pos, bits=bits, impl="cuda")
+        b = ops.paged_attn(q, dk, dks, dv, dvs, pos, bits=bits, impl="torch")
+        torch.cuda.synchronize()
+        err = float((a - b).abs().max())
+        if err > ATTN_TOL * (1 + float(b.abs().max())):
+            raise AssertionError(f"paged_attn dense view bits={bits}: err {err}")
+        worst = max(worst, err)
+    report["paged_attn"] = {"max_abs_err": worst, "tol": ATTN_TOL}
+
+
+def check_paged_scatter(torch, dev, cfg, report):
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    nb = S_MAX // PAGE_SIZE
+    P_ = N_SLOTS * nb + 1
+    leaves = ((torch.int8, (cfg.kv_heads, cfg.head_dim)), (torch.float32, (cfg.kv_heads,)),
+              (torch.bfloat16, (cfg.kv_heads, cfg.head_dim)))
+    for dtype, tail in leaves:
+        pool = torch.randn((P_, PAGE_SIZE, *tail), generator=g, device=dev).mul(40)
+        pool = pool.clamp(-100, 100).to(dtype)
+        for S_new in (1, 16):
+            new = torch.randn((N_SLOTS, S_new, *tail), generator=g, device=dev).mul(40)
+            new = new.clamp(-100, 100).to(dtype)
+            bt = torch.randperm(P_ - 1, generator=g, device=dev)[: N_SLOTS * nb] + 1
+            bt = bt.reshape(N_SLOTS, nb).to(torch.int32)
+            bt[0, 5:] = 0  # unallocated entries land in the scratch page
+            # slot 2's rows run past its table
+            pos = torch.tensor([0, 37, S_MAX - 8, 70], dtype=torch.int32, device=dev)
+            a = ops.paged_scatter(pool.clone(), new, pos, bt, impl="cuda")
+            b = ops.paged_scatter(pool.clone(), new, pos, bt, impl="torch")
+            torch.cuda.synchronize()
+            if not torch.equal(a[1:], b[1:]):
+                raise AssertionError(f"paged_scatter mismatch dtype={dtype} S_new={S_new}")
+    report["paged_scatter"] = {"max_abs_err": 0.0}
+    log("paged_scatter: bit-exact on int8 / f32 / bf16 leaves (scratch page excluded)")
+
+
+# ------------------------------------------------------------- phase 3 / 4
+
+
+def requests(cfg, Request):
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    return [Request(rid=i, prompt=rng.randint(1, cfg.vocab, size=n).astype(np.int32),
+                    max_new=MAX_NEW) for i, n in enumerate(PROMPT_LENS)]
+
+
+def serve(torch, dev, cfg, policy, params, cache):
+    from repro_torch.serve import Request, ServeEngine
+
+    eng = ServeEngine(params, cfg, policy, n_slots=N_SLOTS, s_max=S_MAX, cache=cache,
+                      page_size=PAGE_SIZE if cache == "paged" else None, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = eng.run(requests(cfg, Request))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    m = eng.metrics()
+    toks = m["tokens_generated"]
+    log(f"serve[{cache}]: {toks} tokens in {dt:.3f} s ({toks / dt:.2f} tokens/s end to end), "
+        f"{m['decode_steps']} decode steps, step EMA {m['step_ema_s'] * 1e3:.2f} ms, "
+        f"TTFT p50 {m['slo/ttft_p50_s']:.3f} s, TPOT p50 {m['slo/tpot_p50_s'] * 1e3:.2f} ms, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for rid, t in out.items():
+        if len(t) != MAX_NEW or not all(0 <= x < cfg.vocab_padded for x in t):
+            raise AssertionError(f"request {rid}: bad output {t}")
+    return out, m
+
+
+def teacher_forced(torch, dev, cfg, policy, params, report):
+    """One decode step from the same prefilled cache, kernel path vs plain."""
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request
+    from repro_torch.serve.cache import SlotCache
+    from repro_torch.serve.prefill import ChunkedPrefill
+
+    cache = SlotCache(cfg, policy, N_SLOTS, S_MAX, device=dev)
+    pre = ChunkedPrefill(params, cfg, policy, chunk=16, device=dev)
+    reqs = requests(cfg, Request)
+    for s, r in enumerate(reqs):
+        cache.acquire(len(r.prompt) + MAX_NEW)
+        pre.prefill(cache, s, r.prompt)
+    toks = torch.tensor([[int(r.prompt[-1])] for r in reqs], dtype=torch.int32, device=dev)
+    pos = torch.from_numpy(cache.pos.copy()).to(dev)
+    out = {}
+    for impl in ("auto", "torch"):
+        caches = [{k: a.clone() for k, a in layer.items()} for layer in cache.caches]
+        out[impl] = M.decode_step(params, toks, pos, caches, cfg, policy, impl=impl,
+                                  fused_attn=True)[:, -1].float()
+    torch.cuda.synchronize()
+    a, b = out["auto"], out["torch"]
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        raise AssertionError("teacher-forced logits are not finite")
+    diff = float((a - b).abs().max())
+    agree = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+    log(f"teacher-forced decode step (full width): max |logit kernel - plain| = {diff:.4g}, "
+        f"argmax agree: {agree}, logit scale {float(b.abs().max()):.4g}")
+    report["teacher_forced"] = {"max_logit_diff": diff, "argmax_agree": agree}
+
+
+# ---------------------------------------------------------------- phase 5
+
+
+def device_ms(fn, reps: int = 5, warmup: int = 2) -> tuple[float, float, str]:
+    """Medians over ``reps`` calls of ``fn()``: the device time of the
+    kernels it launches (torch.profiler, CUPTI, one window per call) and the
+    wall time between CUDA events. Falls back to the events where the
+    profiler shows no device time."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    walls, devs = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(start.elapsed_time(end))
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        devs.append(sum(getattr(e, "self_device_time_total", 0) or 0
+                        for e in prof.key_averages()) / 1e3)
+    wall = statistics.median(walls)
+    if min(devs) <= 0:
+        return wall, wall, "events"
+    return statistics.median(devs), wall, "profiler"
+
+
+def linears(params):
+    """Every projection of one decode step, in call order: (params, K)."""
+    out = []
+    for layer in params["layers"]:
+        a, m = layer["attn"], layer["mlp"]
+        out += [a["wq"], a["wk"], a["wv"], a["wo"], m["up"], m["gate"], m["down"]]
+    return out + [params["head"]]
+
+
+def kernel_table(torch, dev, cfg, params, launches, report):
+    """Per decode step (4 slots): each kernel's calls timed on the card over
+    the step's real operands (every layer's own weights and cache, so the
+    50 MB L2 holds none of them between uses), beside their bound and their
+    plain version's time."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    B, L = N_SLOTS, cfg.n_layers
+    rows = []
+
+    # mpmm: the 169 projections of one decode step, cell (8, 4, 8), f32 out
+    lin = linears(params)
+
+    def mm_step(M, impl):
+        xs = {}
+        for p in lin:
+            K = p["w_packed"].shape[1] * 2
+            if K not in xs:
+                xs[K] = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                                      dtype=torch.int32).to(torch.int8)
+        kw = dict(x_bits=8, w_bits=4, y_bits=8, x_signed=True, out_kind="f32")
+        return lambda: [ops.mpmm(xs[p["w_packed"].shape[1] * 2], p["w_packed"], None,
+                                 out_scale=p["eps_w"], impl=impl, **kw) for p in lin]
+
+    for N, K, calls in main_path_mm_shapes(cfg):
+        p = next(q for q in lin if tuple(q["w_packed"].shape) == (N, K // 2))
+        for M in (B, 16):
+            x = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+            one, _, _ = device_ms(lambda: ops.mpmm(
+                x, p["w_packed"], None, x_bits=8, w_bits=4, y_bits=8, x_signed=True,
+                out_kind="f32", out_scale=p["eps_w"], impl="cuda"))
+            log(f"  mpmm M={M} N={N} K={K}: {one * 1e3:.1f} us device per call "
+                f"(weights L2-warm), x{calls} per decode step")
+    t, tw, how = device_ms(mm_step(B, "cuda"))
+    tp, tpw, _ = device_ms(mm_step(B, "torch"), reps=3, warmup=1)
+    t16, t16w, _ = device_ms(mm_step(16, "cuda"))
+    log(f"  mpmm, one decode step (169 calls, M={B}): {t:.3f} ms device ({how}), {tw:.3f} ms "
+        f"wall; plain {tp:.3f} ms device, {tpw:.3f} ms wall; at M=16 (a prefill chunk's "
+        f"shapes): {t16:.3f} ms device, {t16w:.3f} ms wall")
+    nbytes = sum(B * p["w_packed"].shape[1] * 2 + p["w_packed"].numel()
+                 + B * p["w_packed"].shape[0] * 4 + 4 for p in lin)
+    nops = sum(2 * B * p["w_packed"].shape[0] * p["w_packed"].shape[1] * 2 for p in lin)
+    rows.append(dict(name="mpmm", route="cuda", source="src/repro_torch/csrc/mpmm.cu",
+                     replaces="src/repro/kernels/mpmm.py:122", ms=t, plain_ms=tp,
+                     bytes=nbytes, ops=nops, peak=INT8_OPS_PER_S, library_ms=None))
+
+    # paged_attn: one call per layer at kv8, each layer on its own page pool
+    cases = [attn_case(torch, dev, cfg, 8, g) for _ in range(L)]
+    kw = dict(bits=8)
+
+    def attn_step(impl):
+        return lambda: [ops.paged_attn(q, k, ks, v, vs, pos, block_table=bt, impl=impl, **kw)
+                        for q, k, ks, v, vs, pos, bt in cases]
+
+    t, tw, how = device_ms(attn_step("cuda"))
+    tp, tpw, _ = device_ms(attn_step("torch"), reps=3, warmup=1)
+    pos = cases[0][5]
+    valid = sum(int(p) + 1 for p in pos.tolist())
+    row_bytes = cfg.kv_heads * (cfg.head_dim + 4)  # int8 row + f32 scale, per token
+    q, bt = cases[0][0], cases[0][6]
+    nbytes = L * (2 * valid * row_bytes + 2 * q.numel() * 4 + bt.numel() * 4 + B * 4)
+    nops = L * 4 * cfg.n_heads * cfg.head_dim * valid
+    log(f"  paged_attn kv8, one decode step ({L} calls, B={B}, {valid} cached rows per "
+        f"layer): {t:.3f} ms device ({how}), {tw:.3f} ms wall; plain {tp:.3f} ms device, "
+        f"{tpw:.3f} ms wall")
+    rows.append(dict(name="paged_attn", route="cuda", source="src/repro_torch/csrc/paged_attn.cu",
+                     replaces="src/repro/kernels/paged_attn.py:142", ms=t, plain_ms=tp,
+                     bytes=nbytes, ops=nops, peak=F32_FLOPS_PER_S, library_ms=None))
+
+    # paged_scatter: the 4 leaves of every layer's pool take one new row per slot
+    news = [torch.ones((B, 1, *a.shape[2:]), dtype=a.dtype, device=dev)
+            for c in cases for a in (c[1], c[2], c[3], c[4])]
+    leaves = [(a, c[5], c[6]) for c in cases for a in (c[1], c[2], c[3], c[4])]
+
+    def scatter_step(impl):
+        return lambda: [ops.paged_scatter(a, n, p, b, impl=impl)
+                        for (a, p, b), n in zip(leaves, news)]
+
+    idx = []
+    for a, p, b in leaves:
+        page = b.long().gather(1, (p.long() // PAGE_SIZE)[:, None])[:, 0]
+        idx.append((page, p.long() % PAGE_SIZE))
+    lib_step = lambda: [a.index_put_(ix, n[:, 0])  # noqa: E731
+                        for (a, _, _), n, ix in zip(leaves, news, idx)]
+    t, tw, how = device_ms(scatter_step("cuda"))
+    tp, tpw, _ = device_ms(scatter_step("torch"))
+    tl, tlw, _ = device_ms(lib_step)
+    nbytes = sum(2 * n.numel() * n.element_size() + B * 8 for n in news)
+    log(f"  paged_scatter, one decode step ({len(leaves)} calls): {t:.4f} ms device ({how}), "
+        f"{tw:.3f} ms wall; plain {tp:.4f} ms device, {tpw:.3f} ms wall; index_put_ "
+        f"{tl:.4f} ms device, {tlw:.3f} ms wall")
+    rows.append(dict(name="paged_scatter", route="cuda",
+                     source="src/repro_torch/csrc/paged_scatter.cu",
+                     replaces="src/repro/kernels/paged_gather.py:91", ms=t, plain_ms=tp,
+                     bytes=nbytes, ops=0, peak=F32_FLOPS_PER_S, library_ms=tl))
+
+    out = []
+    for r in rows:
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / r["peak"] * 1e3
+        out.append({
+            "name": r["name"], "route": r["route"], "source": r["source"],
+            "replaces": r["replaces"], "launches": int(launches.get(r["name"], 0)),
+            "max_abs_err": report[r["name"]]["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": r["library_ms"],
+        })
+    return out
+
+
+def step_breakdown(torch, dev, cfg, policy, params):
+    """Profile one full-width decode step on the kernel path: wall time,
+    device busy time (so the idle share), and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import model as M
+
+    caches = M.init_cache(cfg, policy, N_SLOTS, S_MAX, device=dev)
+    toks = torch.ones((N_SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor([n + MAX_NEW - 1 for n in PROMPT_LENS], dtype=torch.int32, device=dev)
+    step = lambda: M.decode_step(params, toks, pos, caches, cfg, policy,  # noqa: E731
+                                 fused_attn=True)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by: dict = {}
+    n_kernels = 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", 0) or 0
+        if us <= 0:
+            continue
+        n_kernels += e.count
+        key = next((k for k in ("mpmm_kernel", "paged_attn_kernel", "paged_scatter_kernel")
+                    if k in e.key), "other (PyTorch ops)")
+        by[key] = by.get(key, 0.0) + us / 1e3
+    busy = sum(by.values())
+    parts = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+    log(f"decode step breakdown (slot cache, 4 slots at 159..543 cached rows): wall "
+        f"{wall:.2f} ms (no profiler), device busy {busy:.3f} ms "
+        f"({100 * (1 - busy / wall):.1f}% idle), {n_kernels} device kernels; {parts}")
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke.py: src/repro_torch not found next to this script; run it from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: CUDA is not available; this script needs one GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = gpu_line()
+    log(f"gpu: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    build.ensure_built()
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.BUILD_SECONDS:.1f} s)")
+    for name, text in build.build_logs().items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line.lower():
+                log(f"  ptxas[{name}]: {line.strip()}")
+
+    cfg = configs.get_arch("internlm2-1.8b")
+    policy = get_policy("w4a8")
+    report: dict = {}
+    check_mpmm(torch, dev, cfg, report)
+    check_paged_scatter(torch, dev, cfg, report)
+    check_paged_attn(torch, dev, cfg, report)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = M.init_params(gen, cfg, policy, device=dev)
+    torch.cuda.synchronize()
+    log(f"params: internlm2-1.8b w4a8, {time.perf_counter() - t0:.1f} s to draw on the card")
+
+    build.reset_launches()  # the main path starts here
+    out_slot, _ = serve(torch, dev, cfg, policy, params, "slot")
+    slot_launches = dict(build.LAUNCHES)
+    out_paged, _ = serve(torch, dev, cfg, policy, params, "paged")
+    launches = dict(build.LAUNCHES)  # the main path ends here
+    log(f"launches on the main path: slot {slot_launches}, slot + paged {launches}")
+    if out_slot != out_paged:
+        raise AssertionError("slot and paged token streams differ")
+    log("slot and paged token streams identical")
+    for name in ("mpmm", "paged_attn", "paged_scatter"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+
+    teacher_forced(torch, dev, cfg, policy, params, report)
+    step_breakdown(torch, dev, cfg, policy, params)
+    rows = kernel_table(torch, dev, cfg, params, launches, report)
+    log(gpu_line())
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

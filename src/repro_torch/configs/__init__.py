@@ -1,0 +1,43 @@
+"""Architecture registry (counterpart of ``repro.configs``): ``get_arch``
+resolves a name, ``reduced()`` shrinks a config to a CPU-test size of the
+same family. The port serves the dense family; its registry holds the
+configurations ported so far."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.configs import internlm2_1p8b
+from repro_torch.models.model import ArchConfig
+
+ARCHS: dict[str, ArchConfig] = {m.ARCH.name: m.ARCH for m in (internlm2_1p8b,)}
+
+
+def get_arch(name: str) -> ArchConfig:
+    try:
+        return ARCHS[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}") from None
+
+
+def reduced(cfg: ArchConfig, *, layers: int = 2) -> ArchConfig:
+    """Family-preserving tiny config for CPU tests (the reference's rule for
+    the dense family)."""
+    n_heads = min(cfg.n_heads, 4)
+    kv_heads = max(1, min(cfg.kv_heads, n_heads, 2 if cfg.kv_heads < cfg.n_heads else n_heads))
+    upd: dict = dict(
+        name=cfg.name + "-smoke",
+        n_layers=max(layers, 2),
+        d_model=64,
+        n_heads=n_heads,
+        kv_heads=kv_heads,
+        head_dim=16,
+        d_ff=128,
+        vocab=256,
+    )
+    if cfg.window:
+        upd.update(window=8)
+    return dataclasses.replace(cfg, **upd)
+
+
+__all__ = ["ARCHS", "ArchConfig", "get_arch", "reduced"]

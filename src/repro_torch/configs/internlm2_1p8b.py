@@ -1,0 +1,8 @@
+"""internlm2-1.8b [dense]: 24L d_model=2048 16H (GQA kv=8) d_ff=8192
+vocab=92544 [arXiv:2403.17297; hf]. head_dim=128."""
+from repro_torch.models.model import ArchConfig
+
+ARCH = ArchConfig(
+    name="internlm2-1.8b", family="dense", n_layers=24, d_model=2048,
+    n_heads=16, kv_heads=8, d_ff=8192, vocab=92544,
+)

@@ -1,0 +1,231 @@
+"""Pluggable admission scheduling for the serving engine.
+
+A :class:`Scheduler` owns the waiting-request queue and decides which request
+is admitted when capacity frees up (continuous batching admits mid-decode,
+so this runs on every engine step). The engine only sees five verbs — submit,
+pending, next_request, requeue, remove (the cancellation hook: a queued
+request leaves the system without ever holding cache state) — which is the
+seam async admission and multi-engine routing PRs extend.
+
+Since the paged-cache refactor, admission capacity is a PAGE budget, not a
+slot count: the engine passes ``next_request`` a ``fits`` predicate ("would
+the cache admit this request right now?") built from the free-page count,
+plus a ``cost`` metric (what admitting the request would charge that budget
+— on the prefix-sharing backend this is the POST-MATCH page need, so a long
+prompt whose prefix is already resident ranks as the small request it
+actually is). Policies may consult them (best-fit packs the pool by cost)
+or ignore them (fcfs/spf preserve strict ordering; a non-fitting pick
+simply requeues and waits).
+
+Four policies prove the interface:
+  * ``fcfs``     — first-come-first-served, the pre-refactor behavior,
+  * ``spf``      — shortest-prompt-first: minimizes mean TTFT when prompt
+    lengths are skewed (short interactive prompts stop queueing behind
+    long ones),
+  * ``bestfit``  — largest waiting request that still fits the current page
+    budget: packs the page pool under mixed request sizes instead of
+    head-of-line blocking behind a request the pool cannot hold yet,
+  * ``priority`` — request-lifecycle API v1: highest ``priority`` first
+    among the requests that fit right now; within a priority class,
+    earliest absolute deadline first (EDF), then the deadline-aware
+    admission-cost tie-break (the cheaper request frees capacity for the
+    urgent backlog sooner), then arrival order. The engine stamps
+    ``t_deadline`` at submit and counts ``deadline_misses`` at release.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Union
+
+#: fits(request) -> bool: "would the cache admit this request right now?"
+FitsFn = Callable[[object], bool]
+
+#: cost(request) -> int: admission cost in the cache's capacity units
+#: (rows on the slot backend, NEW pages on paged/prefix — post-match need).
+CostFn = Callable[[object], int]
+
+
+class Scheduler:
+    """Base admission policy: a FIFO queue plus a ``pick`` override point."""
+
+    name = "base"
+
+    def __init__(self):
+        self._queue: list = []
+
+    def submit(self, requests: Sequence) -> None:
+        self._queue.extend(requests)
+
+    def pending(self) -> int:
+        return len(self._queue)
+
+    def pick(self, fits: Optional[FitsFn] = None,
+             cost: Optional[CostFn] = None) -> int:
+        """Index into the queue of the next request to admit. ``fits`` is
+        the engine's capacity predicate and ``cost`` its admission-cost
+        metric; ordering-strict policies ignore both."""
+        raise NotImplementedError
+
+    def next_request(self, fits: Optional[FitsFn] = None,
+                     cost: Optional[CostFn] = None):
+        if not self._queue:
+            return None
+        return self._queue.pop(self.pick(fits, cost))
+
+    def requeue(self, request) -> None:
+        """Put a popped request back at the head (admission found no slot
+        or page budget for it — it keeps its place in line)."""
+        self._queue.insert(0, request)
+
+    def remove(self, request) -> bool:
+        """Drop a specific waiting request from the queue (cancellation of
+        a not-yet-admitted request). Returns False when the request is not
+        queued here — the caller treats that as already-admitted-or-done."""
+        try:
+            self._queue.remove(request)
+            return True
+        except ValueError:
+            return False
+
+    # --- mixed-step budget allotment ---------------------------------------
+
+    def allot(self, cursors: Sequence, budget: int) -> list[tuple]:
+        """Split a mixed step's prefill-token budget across the in-flight
+        prompt cursors (``serve.prefill.PrefillCursor``). Returns
+        ``[(cursor, n_tokens), ...]`` with ``sum(n) <= budget`` and every
+        ``n >= 1``; cursors are served greedily in :meth:`_allot_key` order
+        — admission order for the base/fcfs/bestfit policies, so one
+        prompt's chunks stay consecutive and TTFT is FIFO-fair. A lane
+        carries at most one chunk per step (the mixed step has one row
+        span per lane), so a cursor's allotment is also capped by the
+        budget even when it is the only one."""
+        take: list[tuple] = []
+        budget = int(budget)
+        for cur in sorted(cursors, key=self._allot_key):
+            if budget <= 0:
+                break
+            n = min(cur.remaining, budget)
+            if n >= 1:
+                take.append((cur, n))
+                budget -= n
+        return take
+
+    def _allot_key(self, cursor):
+        return cursor.order
+
+
+class FCFSScheduler(Scheduler):
+    """Admit in arrival order (the pre-refactor engine's implicit policy)."""
+
+    name = "fcfs"
+
+    def pick(self, fits: Optional[FitsFn] = None,
+             cost: Optional[CostFn] = None) -> int:
+        return 0
+
+
+class ShortestPromptFirstScheduler(Scheduler):
+    """Admit the shortest waiting prompt first (ties: arrival order)."""
+
+    name = "spf"
+
+    def pick(self, fits: Optional[FitsFn] = None,
+             cost: Optional[CostFn] = None) -> int:
+        return min(range(len(self._queue)),
+                   key=lambda i: (len(self._queue[i].prompt), i))
+
+    def _allot_key(self, cursor):
+        # shortest-remaining-prompt-first: the cursor closest to its first
+        # token drains first, the same mean-TTFT argument as admission
+        return (cursor.remaining, cursor.order)
+
+
+class BestFitScheduler(Scheduler):
+    """Admit the COSTLIEST waiting request the current page budget can hold
+    (classic best-fit packing; ties: arrival order). Cost is the cache's
+    admission metric — on the prefix backend the POST-MATCH page need, so a
+    mostly-shared long prompt packs like the small request it actually is.
+    Requests too big for the budget right now are skipped, not blocked on —
+    they admit when completions return their pages. Falls back to
+    head-of-line when nothing fits (the engine requeues the pick and waits)
+    or when no ``fits`` predicate is supplied."""
+
+    name = "bestfit"
+
+    @staticmethod
+    def _size(req) -> int:
+        return len(req.prompt) + getattr(req, "max_new", 0)
+
+    def pick(self, fits: Optional[FitsFn] = None,
+             cost: Optional[CostFn] = None) -> int:
+        if fits is None:
+            return 0
+        fitting = [i for i, r in enumerate(self._queue) if fits(r)]
+        if not fitting:
+            return 0
+        rank = cost if cost is not None else self._size
+        return max(fitting, key=lambda i: (rank(self._queue[i]), -i))
+
+
+class PriorityScheduler(Scheduler):
+    """Strict-priority admission with deadline- and cost-aware tie-breaks.
+
+    Among the waiting requests that FIT the current capacity (so an urgent
+    request too big for the budget right now cannot head-of-line block the
+    rest of its class), admit the highest ``request.priority``; ties break
+    by earliest absolute deadline (``t_deadline``; requests without one
+    rank after every deadline), then by the engine's admission-cost metric
+    (cheaper requests release capacity back to the urgent backlog sooner —
+    on the prefix backend that is the POST-MATCH page need), then arrival.
+    When nothing fits (or no ``fits`` predicate is supplied) the head is
+    returned and the engine requeues it — strict FIFO degradation."""
+
+    name = "priority"
+
+    def pick(self, fits: Optional[FitsFn] = None,
+             cost: Optional[CostFn] = None) -> int:
+        fitting = ([i for i, r in enumerate(self._queue) if fits(r)]
+                   if fits is not None else list(range(len(self._queue))))
+        if not fitting:
+            return 0
+
+        def key(i):
+            r = self._queue[i]
+            dl = getattr(r, "t_deadline", None)
+            return (-getattr(r, "priority", 0),
+                    dl if dl is not None else float("inf"),
+                    cost(r) if cost is not None else 0,
+                    i)
+
+        return min(fitting, key=key)
+
+    def _allot_key(self, cursor):
+        # mixed-step budget follows the same strict-priority + EDF order as
+        # admission: an urgent prompt's chunks preempt lower classes' budget
+        r = cursor.req
+        dl = getattr(r, "t_deadline", None)
+        return (-getattr(r, "priority", 0),
+                dl if dl is not None else float("inf"),
+                cursor.order)
+
+
+SCHEDULERS: dict[str, type] = {
+    FCFSScheduler.name: FCFSScheduler,
+    ShortestPromptFirstScheduler.name: ShortestPromptFirstScheduler,
+    BestFitScheduler.name: BestFitScheduler,
+    PriorityScheduler.name: PriorityScheduler,
+}
+
+
+def make_scheduler(spec: Union[str, Scheduler, None]) -> Scheduler:
+    """Resolve a scheduler argument: name, instance, or None (-> fcfs)."""
+    if spec is None:
+        return FCFSScheduler()
+    if isinstance(spec, Scheduler):
+        return spec
+    try:
+        return SCHEDULERS[spec]()
+    except KeyError:
+        raise KeyError(
+            f"unknown scheduler {spec!r}; available: {sorted(SCHEDULERS)}"
+        ) from None

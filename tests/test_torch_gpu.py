@@ -1,0 +1,122 @@
+"""PyTorch port on the card (marker ``gpu``): each hand-written CUDA kernel
+against its plain PyTorch version, and the serving engine on CUDA against
+the same engine on the CPU. These tests skip on a host without CUDA; on the
+card run ``python -m pytest -m gpu tests/test_torch_gpu.py``. The file
+imports no JAX, so it runs where only PyTorch is installed.
+
+Tolerances: mpmm and paged_scatter are integer or copy kernels, bit-exact;
+paged_attn follows the plain version's page-blocked softmax but sums inside
+its dots in another order, so atol = rtol = 1e-5 (the reference's own
+fused-vs-twin bound).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import configs  # noqa: E402
+from repro_torch.core import pack as P  # noqa: E402
+from repro_torch.core import quant as Q  # noqa: E402
+from repro_torch.core.policy import PERMUTATIONS, get_policy  # noqa: E402
+from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.serve import Request, ServeEngine  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the hand-written kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _operands(g, dev, M_, N, K, xb, wb):
+    x = torch.randint(0, 1 << xb, (M_, K), generator=g, dtype=torch.int32).to(torch.uint8)
+    w = torch.randint(-(1 << (wb - 1)), 1 << (wb - 1), (N, K), generator=g,
+                      dtype=torch.int32).to(torch.int8)
+    return P.pack(x, xb).to(dev), P.pack(w, wb).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(19, 40, 96), (3, 24, 44), (33, 8, 4112)])
+def test_mpmm_kernel_bit_exact_all_cells(dev, shape):
+    """Every (x, w, y) cell and output kind; K % 16 != 0 takes the scalar
+    path, K > 2048 crosses shared-memory chunks, M > 16 several row tiles."""
+    M_, N, K = shape
+    g = torch.Generator().manual_seed(K)
+    for xb, wb, yb in PERMUTATIONS:
+        if K % (8 // xb) or K % (8 // wb):
+            continue
+        x_p, w_p = _operands(g, dev, M_, N, K, xb, wb)
+        rq = Q.make_requant_params(y_bits=yb, eps_phi=2.0**-9, eps_y=1.0, lam=2.0)
+        for kind in ("packed", "int32", "f32"):
+            if kind == "packed" and N % (8 // yb):
+                continue
+            for signed in (False, True):
+                kw = dict(x_bits=xb, w_bits=wb, y_bits=yb, x_signed=signed, out_kind=kind,
+                          out_scale=torch.tensor(0.01, device=dev))
+                a = ops.mpmm(x_p, w_p, rq, impl="cuda", **kw)
+                b = ops.mpmm(x_p, w_p, rq, impl="torch", **kw)
+                assert torch.equal(a, b), (xb, wb, yb, kind, signed)
+    assert build.LAUNCHES["mpmm"] > 0
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4])
+@pytest.mark.parametrize("window", [None, 8])
+def test_paged_attn_kernel_vs_plain(dev, bits, window):
+    g = torch.Generator().manual_seed(3)
+    B, S, HQ, HKV, D, ps = 3, 48, 8, 2, 64, 16
+    q = torch.randn((B, HQ, D), generator=g).to(dev)
+    kq, ks = A.kv_quantize(torch.randn((B, S, HKV, D), generator=g).to(dev), bits)
+    vq, vs = A.kv_quantize(torch.randn((B, S, HKV, D), generator=g).to(dev), bits)
+    pos = torch.tensor([0, 21, S - 1], dtype=torch.int32, device=dev)
+    a = ops.paged_attn(q, kq, ks, vq, vs, pos, bits=bits, window=window, impl="cuda", bs=ps)
+    b = ops.paged_attn(q, kq, ks, vq, vs, pos, bits=bits, window=window, impl="torch", bs=ps)
+    torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+def test_paged_scatter_kernel_bit_exact(dev):
+    g = torch.Generator().manual_seed(4)
+    for dtype in (torch.int8, torch.float32, torch.bfloat16):
+        pool = (torch.randn((9, 4, 2, 5), generator=g) * 30).to(dtype).to(dev)
+        new = (torch.randn((3, 6, 2, 5), generator=g) * 30).to(dtype).to(dev)
+        bt = torch.tensor([[3, 5], [1, 0], [7, 2]], dtype=torch.int32, device=dev)
+        pos = torch.tensor([1, 2, 5], dtype=torch.int32, device=dev)  # rows past the table
+        a = ops.paged_scatter(pool.clone(), new, pos, bt, impl="cuda")
+        b = ops.paged_scatter(pool.clone(), new, pos, bt, impl="torch")
+        assert torch.equal(a[1:], b[1:])  # page 0 is scratch
+
+
+def test_engine_on_cuda_matches_cpu_and_launches_every_kernel(dev):
+    """Reduced internlm2-1.8b, w4a8, kv8: greedy streams on CUDA (kernels)
+    equal the CPU run (plain versions), on slot and paged caches."""
+    cfg = configs.reduced(configs.get_arch("internlm2-1.8b"))
+    policy = get_policy("w4a8")
+    params = M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=n).astype(np.int32) for n in (3, 9, 5, 2, 7)]
+    outs = {}
+    for device in ("cpu", "cuda"):
+        p = params if device == "cpu" else _to(params, dev)
+        for cache in ("slot", "paged"):
+            build.reset_launches()
+            eng = ServeEngine(p, cfg, policy, n_slots=2, s_max=32, prefill_chunk=4,
+                              cache=cache, page_size=16 if cache == "paged" else None,
+                              device=device)
+            outs[device, cache] = eng.run(
+                [Request(rid=i, prompt=pr, max_new=6) for i, pr in enumerate(prompts)])
+            if device == "cuda":
+                assert build.LAUNCHES["mpmm"] > 0 and build.LAUNCHES["paged_attn"] > 0
+                assert (build.LAUNCHES["paged_scatter"] > 0) == (cache == "paged")
+    assert outs["cuda", "slot"] == outs["cuda", "paged"] == outs["cpu", "slot"]
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
