@@ -10,16 +10,32 @@ Phases, in order (any failure ends the run with a nonzero exit):
      mpmm on all 27 cells x 3 output kinds at a small shape and on the five
      main-path (N, K) at M = 4 and 16 (bit-exact); paged_scatter (bit-exact,
      scratch page excluded); paged_attn on bf16 / kv8 / kv4, with and without
-     a window (tolerance ATTN_TOL);
-  3. the main path: ServeEngine serving internlm2-1.8b at full width under
+     a window (tolerance ATTN_TOL); conv2d on all 27 cells at the paper's
+     Reference Layer and at a ragged shape, qntpack on every output width at
+     the Tab. 1 shape, paged_gather on every cache leaf (all bit-exact);
+  3. the serving path: ServeEngine serving internlm2-1.8b at full width under
      policy w4a8 with an 8-bit KV cache (weights from a seeded
      torch.Generator on the card), 4 greedy requests, first on the slot cache
      and then on the paged cache; the token streams must be identical and
-     every kernel must have launched;
-  4. a teacher-forced decode step at full width, kernel path against plain
+     mpmm, paged_attn and paged_scatter must have launched;
+  4. the Reference-Layer path: ``repro_torch.examples.quickstart`` and
+     ``mixed_precision_sweep`` (27 cells) on the card, their packed ofmaps
+     equal to the CPU run's and their mean errors within 1e-6; then the
+     paper's three phases unfused (im2col, mpmm int32 out, qntpack) equal to
+     the fused conv2d; conv2d and qntpack must have launched;
+  5. the unfused paged read: the serving path again with
+     ``fused_attn=False``, slot then paged cache; the two streams must be
+     identical and paged_gather must have launched (agreement with the fused
+     streams is printed, not gated: the softmax sums in another order);
+  6. a teacher-forced decode step at full width, kernel path against plain
      path from the same cache (largest logit difference, argmax agreement);
-  5. each kernel's time per decode step beside its bound and its plain
-     version's time.
+  7. each kernel's time beside its bound and its plain version's time (per
+     decode step for the serving kernels; per call at the paper's shape for
+     conv2d, also at 224 x 224, and qntpack).
+
+Phases 3, 4 and 5 each start with every launch count at 0 and read the
+counts at their end; the kernels line gives each kernel the count of its
+own path.
 
 The line before the last is the kernels JSON, the last line the result
 JSON.
@@ -49,6 +65,10 @@ PROMPT_LENS = (128, 256, 384, 512)
 MAX_NEW = 32
 N_SLOTS, S_MAX, PAGE_SIZE = 4, 1024, 16
 SEED = 0
+#: the paper's Tab. 1 QntPack shape (M, N)
+TAB1 = (256, 64)
+#: launches per timed window for the per-call kernel times
+CALLS = 50
 
 
 def log(*a):
@@ -213,7 +233,105 @@ def check_paged_scatter(torch, dev, cfg, report):
     log("paged_scatter: bit-exact on int8 / f32 / bf16 leaves (scratch page excluded)")
 
 
-# ------------------------------------------------------------- phase 3 / 4
+def ref_layer() -> tuple:
+    """The paper's Reference Layer as (H, W, C, Cout)."""
+    from repro_torch.configs import REFCONV as r
+
+    return r.H, r.W, r.C_in, r.C_out
+
+
+def conv_operands(torch, g, dev, H, W, C, Cout, xb, wb, yb):
+    """Random packed operands of one conv cell, and requant parameters that
+    spread its accumulators over the output range."""
+    from repro_torch.core import pack as P
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.ref import im2col
+
+    x = torch.randint(0, 1 << xb, (H, W, C), generator=g, device=dev, dtype=torch.int32)
+    w = torch.randint(-(1 << (wb - 1)), 1 << (wb - 1), (Cout, 9 * C), generator=g, device=dev,
+                      dtype=torch.int32)
+    x_p, w_p = P.pack(x.to(torch.uint8), xb), P.pack(w.to(torch.int8), wb)
+    phi = im2col(x_p, xb).double() @ w.double().T
+    levels = 1 << yb
+    r = levels / 2 / (float(phi.std()) + 1.0)
+    r = min(r, 1.0) if yb == 8 else r
+    rq = Q.make_requant_params(y_bits=yb, eps_phi=r, eps_y=1.0,
+                               lam=levels / 2 / r - float(phi.mean()))
+    return x_p, w_p, rq
+
+
+def check_conv2d(torch, dev, report):
+    from repro_torch.core.policy import PERMUTATIONS
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    n = 0
+    # the Reference Layer, and a ragged shape: W = 7, C = 12 (staged to 12),
+    # Cout = 68 (a partial tile of 4 channels past the first 64)
+    for H, W, C, Cout in (ref_layer(), (5, 7, 12, 68)):
+        for xb, wb, yb in PERMUTATIONS:
+            x_p, w_p, rq = conv_operands(torch, g, dev, H, W, C, Cout, xb, wb, yb)
+            bits = dict(x_bits=xb, w_bits=wb, y_bits=yb)
+            a = ops.conv2d(x_p, w_p, rq, impl="cuda", **bits)
+            b = ops.conv2d(x_p, w_p, rq, impl="torch", **bits)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"conv2d mismatch cell {(xb, wb, yb)} shape {(H, W, C, Cout)}")
+            n += 1
+    report["conv2d"] = {"max_abs_err": 0.0, "checks": n}
+    log(f"conv2d: {n} comparisons bit-exact (27 cells at {ref_layer()} and at (5, 7, 12, 68))")
+
+
+def check_qntpack(torch, dev, report):
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    for yb in (8, 4, 2):
+        phi = torch.randint(-(1 << 20), 1 << 20, TAB1, generator=g, device=dev, dtype=torch.int32)
+        # accumulators at the int32 edges: acc + bias wraps, as JAX's add does
+        phi[0] = (1 << 31) - 1 - torch.arange(TAB1[1], dtype=torch.int32, device=dev)
+        phi[1] = -(1 << 31) + torch.arange(TAB1[1], dtype=torch.int32, device=dev)
+        rq = Q.make_requant_params(y_bits=yb, eps_phi=(1 << yb) / 2.0**21, eps_y=1.0,
+                                   lam=float(1 << 20))
+        a = ops.qntpack(phi, rq, y_bits=yb, impl="cuda")
+        b = ops.qntpack(phi, rq, y_bits=yb, impl="torch")
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"qntpack mismatch y_bits={yb}")
+    report["qntpack"] = {"max_abs_err": 0.0}
+    log(f"qntpack: bit-exact on y = 8, 4, 2 at (M, N) = {TAB1}, int32-edge accumulators included")
+
+
+def check_paged_gather(torch, dev, cfg, report):
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    nb = S_MAX // PAGE_SIZE
+    P_ = N_SLOTS * nb + 1
+    hkv, d = cfg.kv_heads, cfg.head_dim
+    leaves = {"int8": (torch.int8, (hkv, d)), "packed int4": (torch.int8, (hkv, d // 2)),
+              "bf16": (torch.bfloat16, (hkv, d)), "f32 scales": (torch.float32, (hkv,))}
+    bt = (torch.randperm(P_ - 1, generator=g, device=dev)[: N_SLOTS * nb] + 1)
+    bt = bt.reshape(N_SLOTS, nb).to(torch.int32)
+    bt[0, 5:] = 0  # unallocated entries read the scratch page
+    bt[1, 3] = P_ + 5  # past the pool: clamped onto the last page
+    bt[2, 7] = -1  # negative: counts from the end
+    cases = [(name, (P_, PAGE_SIZE, *tail), dtype, bt) for name, (dtype, tail) in leaves.items()]
+    cases.append(("15-byte pages", (9, 3, 5), torch.int8, bt[:2, :4].remainder(9).contiguous()))
+    for name, shape, dtype, table in cases:
+        pool = torch.randn(shape, generator=g, device=dev).mul(40).clamp(-100, 100).to(dtype)
+        a = ops.paged_gather(pool, table, impl="cuda")
+        b = ops.paged_gather(pool, table, impl="torch")
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"paged_gather mismatch on {name} leaves")
+    report["paged_gather"] = {"max_abs_err": 0.0}
+    log("paged_gather: bit-exact on int8 / packed int4 / bf16 / f32-scale leaves and 15-byte "
+        "pages, ids past the pool and negative ids included")
+
+
+# ------------------------------------------------------------- phase 3 - 6
 
 
 def requests(cfg, Request):
@@ -224,11 +342,12 @@ def requests(cfg, Request):
                     max_new=MAX_NEW) for i, n in enumerate(PROMPT_LENS)]
 
 
-def serve(torch, dev, cfg, policy, params, cache):
+def serve(torch, dev, cfg, policy, params, cache, fused_attn=True):
     from repro_torch.serve import Request, ServeEngine
 
     eng = ServeEngine(params, cfg, policy, n_slots=N_SLOTS, s_max=S_MAX, cache=cache,
-                      page_size=PAGE_SIZE if cache == "paged" else None, device=dev)
+                      page_size=PAGE_SIZE if cache == "paged" else None,
+                      fused_attn=fused_attn, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -237,7 +356,7 @@ def serve(torch, dev, cfg, policy, params, cache):
     dt = time.perf_counter() - t0
     m = eng.metrics()
     toks = m["tokens_generated"]
-    log(f"serve[{cache}]: {toks} tokens in {dt:.3f} s ({toks / dt:.2f} tokens/s end to end), "
+    log(f"serve[{cache}{'' if fused_attn else ', unfused'}]: {toks} tokens in {dt:.3f} s ({toks / dt:.2f} tokens/s end to end), "
         f"{m['decode_steps']} decode steps, step EMA {m['step_ema_s'] * 1e3:.2f} ms, "
         f"TTFT p50 {m['slo/ttft_p50_s']:.3f} s, TPOT p50 {m['slo/tpot_p50_s'] * 1e3:.2f} ms, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -245,6 +364,47 @@ def serve(torch, dev, cfg, policy, params, cache):
         if len(t) != MAX_NEW or not all(0 <= x < cfg.vocab_padded for x in t):
             raise AssertionError(f"request {rid}: bad output {t}")
     return out, m
+
+
+def reference_layer_path(torch, dev):
+    """Phase 4: the quickstart and the 27-cell sweep on the card against
+    their CPU runs, then the three phases unfused against the fused conv.
+    Returns the launch counts of the card runs."""
+    from repro_torch.core import pack as P
+    from repro_torch.examples import mixed_precision_sweep, quickstart
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.ref import im2col
+
+    cpu_q = quickstart.main(device="cpu")
+    cpu_s = mixed_precision_sweep.main(device="cpu")
+    build.reset_launches()  # the Reference-Layer path starts here
+    q = quickstart.main(device=dev)
+    rows = mixed_precision_sweep.main(device=dev)
+    for row in rows:  # im2col -> MatMul (int32 out) -> QntPack, unfused
+        b = row["bits"]
+        cols_p = P.pack(im2col(row["x_p"], b["x_bits"]).to(torch.uint8), b["x_bits"])
+        phi = ops.mpmm(cols_p, row["w_p"], row["rq"], out_kind="int32", **b)
+        y3 = ops.qntpack(phi, row["rq"], y_bits=b["y_bits"]).reshape(row["y_p"].shape)
+        if not torch.equal(y3, row["y_p"]):
+            raise AssertionError(f"three phases unfused differ from the fused conv2d: {row['name']}")
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # the Reference-Layer path ends here
+    worst = abs(q["err"] - cpu_q["err"])
+    if not torch.equal(q["y_p"].cpu(), cpu_q["y_p"]):
+        raise AssertionError("quickstart: card and CPU ofmaps differ")
+    for a, c in zip(rows, cpu_s, strict=True):
+        if not torch.equal(a["y_p"].cpu(), c["y_p"]):
+            raise AssertionError(f"sweep {a['name']}: card and CPU ofmaps differ")
+        worst = max(worst, abs(a["err"] - c["err"]))
+    if worst > 1e-6:
+        raise AssertionError(f"card and CPU mean errors differ by {worst}")
+    log(f"reference layer: quickstart + 27-cell sweep on the card equal the CPU run bit for bit "
+        f"(largest mean-error difference {worst:.3g}); three phases unfused equal the fused "
+        f"conv2d on all 27 cells; launches {launches}")
+    for name in ("conv2d", "qntpack", "mpmm"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"kernel {name} was not launched on the Reference-Layer path")
+    return launches
 
 
 def teacher_forced(torch, dev, cfg, policy, params, report):
@@ -421,6 +581,76 @@ def kernel_table(torch, dev, cfg, params, launches, report):
                      replaces="src/repro/kernels/paged_gather.py:91", ms=t, plain_ms=tp,
                      bytes=nbytes, ops=0, peak=F32_FLOPS_PER_S, library_ms=tl))
 
+    # paged_gather: the unfused step reads the 4 leaves of every layer's pool
+    # through the block table (B = 4, 64 pages each)
+    gleaves = [(a, c[6]) for c in cases for a in (c[1], c[2], c[3], c[4])]
+
+    def gather_step(impl):
+        return lambda: [ops.paged_gather(a, b, impl=impl) for a, b in gleaves]
+
+    lib_gather = lambda: [a.index_select(0, b.flatten())  # noqa: E731
+                          for a, b in gleaves]
+    t, tw, how = device_ms(gather_step("cuda"))
+    tp, tpw, _ = device_ms(gather_step("torch"))
+    tl, tlw, _ = device_ms(lib_gather)
+    nbytes = sum(2 * b.numel() * a[0].numel() * a.element_size() + b.numel() * 4
+                 for a, b in gleaves)
+    log(f"  paged_gather, one unfused decode step ({len(gleaves)} calls, {nbytes / 1e6:.1f} MB "
+        f"moved): {t:.4f} ms device ({how}), {tw:.3f} ms wall; plain {tp:.4f} ms device, "
+        f"{tpw:.3f} ms wall; index_select {tl:.4f} ms device, {tlw:.3f} ms wall")
+    rows.append(dict(name="paged_gather", route="cuda",
+                     source="src/repro_torch/csrc/paged_gather.cu",
+                     replaces="src/repro/kernels/paged_gather.py:52", ms=t, plain_ms=tp,
+                     bytes=nbytes, ops=0, peak=F32_FLOPS_PER_S, library_ms=tl))
+
+    # qntpack and conv2d: per call, timed over CALLS back-to-back launches
+    # of the kernel's wrapper with the requant vector already on the card
+    # (one launch alone is below what the profiler resolves; ops.* would add
+    # the vector's host-to-device copy to every call)
+    from repro_torch.core import quant as Q
+    from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.kernels.mpmm import requant_vector
+    from repro_torch.kernels.qntpack import qntpack_cuda
+    from repro_torch.kernels.ref import conv2d_ref, qntpack_ref
+
+    def per_call(fn):
+        t, tw, how = device_ms(lambda: [fn() for _ in range(CALLS)])
+        return t / CALLS, tw / CALLS, how
+
+    # qntpack at the Tab. 1 shape, y = 4 (the quickstart's width)
+    phi = torch.randint(-(1 << 20), 1 << 20, TAB1, generator=g, device=dev, dtype=torch.int32)
+    rq = Q.make_requant_params(y_bits=4, eps_phi=2.0**-17, eps_y=1.0, lam=float(1 << 20))
+    rqv = requant_vector(rq).to(dev)
+    t, tw, how = per_call(lambda: qntpack_cuda(phi, rqv, y_bits=4))
+    tp, tpw, _ = per_call(lambda: qntpack_ref(phi, rq, y_bits=4))
+    M_, N_ = TAB1
+    log(f"  qntpack y=4 at (M, N) = {TAB1}: {t * 1e3:.2f} us device per call ({how}), "
+        f"{tw * 1e3:.2f} us wall; plain {tp * 1e3:.2f} us device, {tpw * 1e3:.2f} us wall")
+    rows.append(dict(name="qntpack", route="cuda", source="src/repro_torch/csrc/qntpack.cu",
+                     replaces="src/repro/kernels/qntpack.py:28", ms=t, plain_ms=tp,
+                     bytes=4 * M_ * N_ + M_ * N_ // 2 + rqv.numel() * 4, ops=15 * M_ * N_,
+                     peak=F32_FLOPS_PER_S, library_ms=None))
+
+    # conv2d: the quickstart's cell (8, 4, 4) at the paper's shape, and at
+    # 224 x 224 with the paper's widths (C 32 -> 64)
+    paper = ref_layer()
+    for H, W, C, Cout in (paper, (224, 224, *paper[2:])):
+        x_p, w_p, rq = conv_operands(torch, g, dev, H, W, C, Cout, 8, 4, 4)
+        rqv = requant_vector(rq).to(dev)
+        bits = dict(x_bits=8, w_bits=4, y_bits=4)
+        t, tw, how = per_call(lambda: conv2d_cuda(x_p, w_p, rqv, **bits))
+        tp, tpw, _ = per_call(lambda: conv2d_ref(x_p, w_p, rq, **bits))
+        nbytes = x_p.numel() + w_p.numel() + H * W * Cout // 2 + rqv.numel() * 4
+        nops = 2 * H * W * Cout * 9 * C
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS_PER_S) * 1e3
+        log(f"  conv2d (8, 4, 4) at {H}x{W}, {C} -> {Cout}: {t * 1e3:.2f} us device per call "
+            f"({how}), {tw * 1e3:.2f} us wall; plain {tp * 1e3:.1f} us device, "
+            f"{tpw * 1e3:.1f} us wall; bound {bound * 1e3:.4f} us")
+        if (H, W) == paper[:2]:
+            rows.append(dict(name="conv2d", route="cuda", source="src/repro_torch/csrc/conv2d.cu",
+                             replaces="src/repro/kernels/conv2d.py:71", ms=t, plain_ms=tp,
+                             bytes=nbytes, ops=nops, peak=INT8_OPS_PER_S, library_ms=None))
+
     out = []
     for r in rows:
         t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
@@ -511,6 +741,9 @@ def main() -> int:
     check_mpmm(torch, dev, cfg, report)
     check_paged_scatter(torch, dev, cfg, report)
     check_paged_attn(torch, dev, cfg, report)
+    check_conv2d(torch, dev, report)
+    check_qntpack(torch, dev, report)
+    check_paged_gather(torch, dev, cfg, report)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -518,18 +751,36 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"params: internlm2-1.8b w4a8, {time.perf_counter() - t0:.1f} s to draw on the card")
 
-    build.reset_launches()  # the main path starts here
+    build.reset_launches()  # the serving path starts here
     out_slot, _ = serve(torch, dev, cfg, policy, params, "slot")
     slot_launches = dict(build.LAUNCHES)
     out_paged, _ = serve(torch, dev, cfg, policy, params, "paged")
-    launches = dict(build.LAUNCHES)  # the main path ends here
-    log(f"launches on the main path: slot {slot_launches}, slot + paged {launches}")
+    launches = dict(build.LAUNCHES)  # the serving path ends here
+    log(f"launches on the serving path: slot {slot_launches}, slot + paged {launches}")
     if out_slot != out_paged:
         raise AssertionError("slot and paged token streams differ")
     log("slot and paged token streams identical")
     for name in ("mpmm", "paged_attn", "paged_scatter"):
         if launches.get(name, 0) == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+            raise AssertionError(f"kernel {name} was not launched on the serving path")
+
+    ref_launches = reference_layer_path(torch, dev)
+
+    build.reset_launches()  # the unfused paged read starts here
+    unf_slot, _ = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False)
+    unf_paged, _ = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
+    unf_launches = dict(build.LAUNCHES)  # the unfused paged read ends here
+    log(f"launches on the unfused path: {unf_launches}")
+    if unf_slot != unf_paged:
+        raise AssertionError("unfused slot and unfused paged token streams differ")
+    if unf_launches.get("paged_gather", 0) == 0:
+        raise AssertionError("kernel paged_gather was not launched on the unfused paged path")
+    same = sum(a == b for rid in out_paged for a, b in zip(out_paged[rid], unf_paged[rid]))
+    log(f"unfused slot and unfused paged token streams identical; {same} of "
+        f"{sum(len(t) for t in out_paged.values())} tokens equal the fused paged streams "
+        f"(not gated: the fused and unfused softmax sum in another order)")
+    launches.update({k: ref_launches.get(k, 0) for k in ("conv2d", "qntpack")})
+    launches["paged_gather"] = unf_launches["paged_gather"]
 
     teacher_forced(torch, dev, cfg, policy, params, report)
     step_breakdown(torch, dev, cfg, policy, params)

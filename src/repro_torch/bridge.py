@@ -10,6 +10,9 @@ cross as uint16 bit patterns and are viewed as ``torch.bfloat16``.
 
 The reference stacks each scan group's layers on a leading axis; the bridge
 unstacks them into the port's per-layer list. Dense family only.
+
+Like every entry point of the port, ``device=None`` means CUDA (raising on
+a host without it); pass ``device="cpu"`` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -17,9 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
+
+def to_tensor(a, device=None) -> torch.Tensor:
     """One numpy leaf -> a tensor on ``device`` that owns its memory."""
+    device = resolve_device(device)
     a = np.array(a, copy=True)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
@@ -59,9 +65,10 @@ def _leading(tree) -> int:
     return tree.shape[0]
 
 
-def params_from_reference(ref: dict, device="cpu") -> dict:
+def params_from_reference(ref: dict, device=None) -> dict:
     """The reference's serve-mode params (numpy leaves) -> the port's
     params: ``embed``, ``final_norm``, ``head`` and a per-layer list."""
+    device = resolve_device(device)
     conv = lambda a: to_tensor(a, device)  # noqa: E731
     return {
         "embed": _tree(ref["embed"], conv),
@@ -71,10 +78,11 @@ def params_from_reference(ref: dict, device="cpu") -> dict:
     }
 
 
-def caches_from_reference(ref: list, device="cpu") -> list:
+def caches_from_reference(ref: list, device=None) -> list:
     """The reference's dense-family caches (a list of scan groups, each
     ``{"self": {leaf: (count, ...)}}``) -> the port's per-layer list of
     ``{leaf: tensor}``."""
+    device = resolve_device(device)
     return [_tree(layer["self"], lambda a: to_tensor(a, device))
             for layer in _unstack(ref, _leading)]
 

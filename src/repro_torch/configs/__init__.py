@@ -7,10 +7,12 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import internlm2_1p8b
+from repro_torch.configs import internlm2_1p8b, refconv
 from repro_torch.models.model import ArchConfig
 
 ARCHS: dict[str, ArchConfig] = {m.ARCH.name: m.ARCH for m in (internlm2_1p8b,)}
+#: the paper's Reference Layer (a conv shape, not an LM architecture)
+REFCONV = refconv.ARCH
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -40,4 +42,4 @@ def reduced(cfg: ArchConfig, *, layers: int = 2) -> ArchConfig:
     return dataclasses.replace(cfg, **upd)
 
 
-__all__ = ["ARCHS", "ArchConfig", "get_arch", "reduced"]
+__all__ = ["ARCHS", "REFCONV", "ArchConfig", "get_arch", "reduced"]

@@ -16,7 +16,8 @@
 //     of PULP-NN's sumdotp). Integer sums are exact in any order;
 //   * f32 output is __fmul_rn((float)acc, scale): no FMA contraction;
 //   * packed output is shift-and-clamp (8-bit) or the threshold ladder (4/2-bit)
-//     on the int32 accumulator, then the little-endian in-byte pack.
+//     on the int32 accumulator, then the little-endian in-byte pack, with
+//     the device code of quant.cuh that conv2d.cu and qntpack.cu share.
 //
 // Bound on this card: at decode (M = 4..16) the kernel is bound by the bytes
 // of packed weights it reads once (K * N * w_bits / 8); the int8 work is tiny
@@ -30,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant.cuh"
+
 namespace {
 
 constexpr int WARPS = 4;                 // warps per block
@@ -38,29 +41,6 @@ constexpr int MT = 16;                   // M rows per block
 constexpr int KC = 2048;                 // K values staged per shared-memory chunk
 constexpr int THREADS = WARPS * 32;
 constexpr int COLS = WARPS * CPW;        // output columns per block
-
-// Unsigned field of value k in a packed row.
-template <int BITS>
-__device__ __forceinline__ int field_u(const int8_t* row, long long k) {
-  if constexpr (BITS == 8) {
-    return (int)(uint8_t)row[k];
-  } else {
-    constexpr int R = 8 / BITS;
-    const uint32_t b = (uint8_t)row[k / R];
-    return (int)((b >> ((k % R) * BITS)) & ((1u << BITS) - 1u));
-  }
-}
-
-// Sign-extended field of value k in a packed row.
-template <int BITS>
-__device__ __forceinline__ int field_s(const int8_t* row, long long k) {
-  if constexpr (BITS == 8) {
-    return (int)row[k];
-  } else {
-    const int u = field_u<BITS>(row, k);
-    return (u ^ (1 << (BITS - 1))) - (1 << (BITS - 1));
-  }
-}
 
 // Four BITS-wide fields in the low bits of f -> four sign-extended s8 bytes.
 template <int BITS>
@@ -215,7 +195,7 @@ mpmm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int c = 0; c < CPW; ++c) {
       int a = acc[c][m];
-      if (comp) a = (int)((uint32_t)a + (uint32_t)(128 * wsum[c]));
+      if (comp) a = add_wrap(a, 128 * wsum[c]);
       y[c] = a;
       if (n0 + c >= N) continue;
       if (out_kind == 0) {
@@ -226,26 +206,11 @@ mpmm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     }
     if (out_kind != 2) continue;
 #pragma unroll
-    for (int c = 0; c < CPW; ++c) {
-      int q;
-      if (y_bits == 8) {
-        q = (int)((uint32_t)y[c] + (uint32_t)rqv[1]) >> rqv[0];  // arithmetic shift
-        q = min(max(q, 0), 255);
-      } else {
-        q = 0;
-        const int nt = (1 << y_bits) - 1;
-        for (int i = 0; i < nt; ++i) q += (y[c] >= rqv[2 + i]) ? 1 : 0;
-      }
-      y[c] = q;
-    }
+    for (int c = 0; c < CPW; ++c) y[c] = requant_one(y[c], rqv, y_bits);
     for (int b = 0; b < CPW / ry; ++b) {
       const int nb = n0 + b * ry;
       if (nb >= N) break;
-      uint32_t word = 0;
-      for (int j = 0; j < ry; ++j) {
-        word |= ((uint32_t)y[b * ry + j] & ((1u << y_bits) - 1u)) << (j * y_bits);
-      }
-      static_cast<int8_t*>(out)[row * (N / ry) + nb / ry] = (int8_t)(uint8_t)word;
+      static_cast<int8_t*>(out)[row * (N / ry) + nb / ry] = pack_byte(&y[b * ry], y_bits);
     }
   }
 }

@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each source under ``src/repro_torch/csrc/`` is compiled on first use by
+Each ``.cu`` source under ``src/repro_torch/csrc/`` is compiled on first use by
 ``nvcc`` for ``sm_90a`` into its own shared library with a plain C
 interface, and loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). Libraries are cached under ``build/kernels/<hash>/``, keyed by a
-hash of the sources and the flags, so a fresh checkout builds everything at
+hash of every file in ``csrc/`` (the shared ``quant.cuh`` header included)
+and the flags, so a fresh checkout builds everything at
 first launch and later processes reuse the result. All sources are compiled
 in parallel, one ``nvcc`` each.
 
@@ -27,7 +28,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 #: one shared library per source; the C entry points each one exports
-SOURCES = ("mpmm", "paged_attn", "paged_scatter")
+SOURCES = ("mpmm", "paged_attn", "paged_scatter", "paged_gather", "qntpack", "conv2d")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

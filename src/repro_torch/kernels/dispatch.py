@@ -14,8 +14,10 @@ Two implementations per cell:
 tensors, the plain version for CPU tensors. There is no fallback: on a CUDA
 device a kernel that does not build or launch raises.
 
-Ops in the registry: ``mpmm`` (all 27 (x, w, y) cells), ``paged_scatter``
-(one storage-agnostic cell) and ``paged_attn`` (one cell per KV width).
+Ops in the registry: ``mpmm`` and ``conv2d`` (all 27 (x, w, y) cells),
+``qntpack`` (one cell per output width y), ``paged_gather`` and
+``paged_scatter`` (one storage-agnostic cell each) and ``paged_attn`` (one
+cell per KV width).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.policy import LAYER_CLASSES, PERMUTATIONS, perm_name
+from repro_torch.core.policy import BITS, LAYER_CLASSES, PERMUTATIONS, perm_name
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,15 +113,22 @@ def coverage(op: str, impl: str) -> set[tuple]:
 
 
 def validate_coverage() -> None:
-    """The import-time gate over the cells the port has: mpmm covers all 27
-    permutations, paged_scatter one cell and paged_attn every KV width, on
-    both implementations."""
+    """The import-time gate over the cells the port has: mpmm and conv2d
+    cover all 27 permutations, qntpack every output width, paged_gather and
+    paged_scatter one cell each and paged_attn every KV width, on both
+    implementations."""
     missing: list[str] = []
     for impl in IMPLS:
-        for cell in sorted(set(PERMUTATIONS) - coverage("mpmm", impl)):
-            missing.append(f"mpmm[{cell[0]}_{cell[1]}_{cell[2]}]@{impl}")
-        if not coverage("paged_scatter", impl):
-            missing.append(f"paged_scatter@{impl}")
+        for op in ("mpmm", "conv2d"):
+            for cell in sorted(set(PERMUTATIONS) - coverage(op, impl)):
+                missing.append(f"{op}[{cell[0]}_{cell[1]}_{cell[2]}]@{impl}")
+        have_y = {c[2] for c in coverage("qntpack", impl)}
+        for b in BITS:
+            if b not in have_y:
+                missing.append(f"qntpack[y={b}]@{impl}")
+        for op in ("paged_gather", "paged_scatter"):
+            if not coverage(op, impl):
+                missing.append(f"{op}@{impl}")
         have_kv = {c[1] for c in coverage("paged_attn", impl)}
         for b in KV_BITS:
             if b not in have_kv:
@@ -155,10 +164,17 @@ def ensure_policy_supported(policy) -> None:
 
 
 def _register_library() -> None:
+    from repro_torch.kernels.conv2d import conv2d_cuda
     from repro_torch.kernels.mpmm import mpmm_cuda
     from repro_torch.kernels.paged_attn import paged_attn_cuda, paged_attn_ref
-    from repro_torch.kernels.paged_gather import paged_scatter_cuda, paged_scatter_ref
-    from repro_torch.kernels.ref import mpmm_ref
+    from repro_torch.kernels.paged_gather import (
+        paged_gather_cuda,
+        paged_gather_ref,
+        paged_scatter_cuda,
+        paged_scatter_ref,
+    )
+    from repro_torch.kernels.qntpack import qntpack_cuda
+    from repro_torch.kernels.ref import conv2d_ref, mpmm_ref, qntpack_ref
 
     for x_bits, w_bits, y_bits in PERMUTATIONS:
         name = perm_name(x_bits, w_bits, y_bits)
@@ -167,6 +183,19 @@ def _register_library() -> None:
                  fn=functools.partial(mpmm_cuda, **bound), name=name)
         register("mpmm", **bound, impl="torch",
                  fn=functools.partial(mpmm_ref, **bound), name=name + "_ref")
+        conv = name.replace("mpmm_", "conv3x3_")
+        register("conv2d", **bound, impl="cuda",
+                 fn=functools.partial(conv2d_cuda, **bound), name=conv)
+        register("conv2d", **bound, impl="torch",
+                 fn=functools.partial(conv2d_ref, **bound), name=conv + "_ref")
+    for y_bits in BITS:
+        register("qntpack", y_bits=y_bits, impl="cuda",
+                 fn=functools.partial(qntpack_cuda, y_bits=y_bits), name=f"qntpack_u{y_bits}")
+        register("qntpack", y_bits=y_bits, impl="torch",
+                 fn=functools.partial(qntpack_ref, y_bits=y_bits),
+                 name=f"qntpack_u{y_bits}_ref")
+    register("paged_gather", impl="cuda", fn=paged_gather_cuda, name="paged_gather")
+    register("paged_gather", impl="torch", fn=paged_gather_ref, name="paged_gather_ref")
     register("paged_scatter", impl="cuda", fn=paged_scatter_cuda, name="paged_scatter")
     register("paged_scatter", impl="torch", fn=paged_scatter_ref, name="paged_scatter_ref")
     for kv_bits in KV_BITS:

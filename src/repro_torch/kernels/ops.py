@@ -1,12 +1,13 @@
 """Public entry points for the port's kernels (counterpart of
-``repro.kernels.ops``): ``mpmm``, ``paged_scatter`` and ``paged_attn``.
+``repro.kernels.ops``): ``mpmm``, ``qntpack``, ``conv2d``, ``paged_gather``,
+``paged_scatter`` and ``paged_attn``, plus the quantize-and-pack helpers.
 
 Every call routes through the dispatch registry. ``impl="auto"`` launches
 the CUDA kernel for CUDA tensors and uses the plain PyTorch version for CPU
 tensors. The CUDA kernels mask their own ragged edges, so nothing is padded
-here. Tile sizes are static: the dense-view block size of ``paged_attn`` is
-16 (the reference's static default, ``kernels/tuning.py``); the autotuner
-is not ported yet.
+here (the conv's 1-pixel border included). Tile sizes are static: the
+dense-view block size of ``paged_attn`` is 16 (the reference's static
+default, ``kernels/tuning.py``); the autotuner is not ported yet.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Literal, Optional
 
 import torch
 
+from repro_torch.core import pack as P
 from repro_torch.core import quant as Q
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.mpmm import requant_vector
@@ -53,6 +55,58 @@ def mpmm(
     scale = (torch.as_tensor(out_scale, dtype=torch.float32, device=dev).reshape(1)
              if out_kind == "f32" else None)
     return entry.fn(x_p, w_p, rqv, scale, x_signed=x_signed, out_kind=out_kind)
+
+
+def qntpack(
+    phi: torch.Tensor,  # (M, N) int32 accumulators
+    rq: Q.RequantParams,
+    *,
+    y_bits: int,
+    impl: Impl = "auto",
+) -> torch.Tensor:
+    """The paper's QntPack on its own: requantize and pack -> (M, N/ry) int8."""
+    entry = dispatch.lookup("qntpack", device=phi.device, y_bits=y_bits, impl=impl)
+    if entry.key.impl == "torch":
+        return entry.fn(phi, rq)
+    return entry.fn(phi, requant_vector(rq).to(phi.device))
+
+
+def conv2d(
+    x_p: torch.Tensor,  # (H, W, C/rx) packed HWC ifmap (unpadded)
+    w_p: torch.Tensor,  # (Cout, 9C/rw) packed weights, (dy, dx, c) order
+    rq: Q.RequantParams,
+    *,
+    x_bits: int,
+    w_bits: int,
+    y_bits: int,
+    impl: Impl = "auto",
+) -> torch.Tensor:
+    """3x3/s1/p1 HWC conv (the paper's Reference Layer shape family) ->
+    (H, W, Cout/ry) int8. The tile sizes are static (the autotuner's
+    ``bh`` has no counterpart: the kernel walks one output row per block)."""
+    rx, rw = P.pack_ratio(x_bits), P.pack_ratio(w_bits)
+    C = x_p.shape[-1] * rx
+    if w_p.shape[-1] * rw != 9 * C:
+        raise ValueError(f"weights hold {w_p.shape[-1] * rw} taps, the ifmap needs 9C = {9 * C}")
+    if w_p.shape[0] % P.pack_ratio(y_bits):
+        raise ValueError(f"Cout={w_p.shape[0]} not divisible by the output pack ratio")
+    entry = dispatch.lookup("conv2d", device=x_p.device, x_bits=x_bits, w_bits=w_bits,
+                            y_bits=y_bits, impl=impl)
+    if entry.key.impl == "torch":
+        return entry.fn(x_p, w_p, rq)
+    return entry.fn(x_p, w_p, requant_vector(rq).to(x_p.device))
+
+
+def paged_gather(
+    pool: torch.Tensor,  # (n_pages, page_size, ...) KV page pool, any dtype
+    block_table: torch.Tensor,  # (B, n_blocks) int32 physical page ids
+    *,
+    impl: Impl = "auto",
+) -> torch.Tensor:
+    """Gather a paged pool into contiguous logical rows (B, n_blocks *
+    page_size, ...) at stored width: the unfused paged decode read."""
+    entry = dispatch.lookup("paged_gather", device=pool.device, impl=impl)
+    return entry.fn(pool, block_table)
 
 
 def paged_scatter(
@@ -109,3 +163,24 @@ def paged_attn(
         (k, k_s, v, v_s), block_table = _dense_as_pool(
             (k, k_s, v, v_s), B, S, _snap_divisor(bs or PAGED_ATTN_BS, S))
     return entry.fn(q, k, k_s, v, v_s, pos, block_table, window=window)
+
+
+# ------------------------------------------------------- quantize-and-pack IO
+
+
+def quantize_pack_act(x: torch.Tensor, beta, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """float -> packed unsigned activations + eps scale."""
+    q, eps = Q.quantize_act(x, beta, bits)
+    return P.pack(q, bits), eps
+
+
+def quantize_pack_weight(w: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """float (N, K) -> packed signed weights + eps scale."""
+    q, eps = Q.quantize_weight(w, bits)
+    return P.pack(q, bits), eps
+
+
+def make_rq(*, y_bits: int, eps_phi: float, eps_y: float, kappa: float = 1.0,
+            lam: float = 0.0) -> Q.RequantParams:
+    return Q.make_requant_params(y_bits=y_bits, kappa=kappa, lam=lam, eps_phi=eps_phi,
+                                 eps_y=eps_y)

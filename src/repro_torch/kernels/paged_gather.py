@@ -1,12 +1,18 @@
-"""Paged KV scatter (counterpart of ``repro.kernels.paged_gather``, scatter
-only): the CUDA kernel's wrapper and its plain PyTorch version.
+"""Paged KV gather and scatter (counterpart of ``repro.kernels.paged_gather``;
+the page copy is not ported yet): the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
-Writes ``new`` (B, S_new, ...) into the pool (P, ps, ...) at
-``block_table[b, (pos+s)//ps], (pos+s) % ps``. Rows past the table go to the
-scratch page 0 (never clamped onto the last real page), as do rows on an
-unallocated (0) entry. Both versions write the pool IN PLACE and return it:
-the reference aliases the pool in and out, and the port's caches are
-updated where they live. The gather and the page copy are not ported yet.
+  * gather: the pool (P, ps, ...) read through the block table (B, NB) into
+    contiguous logical rows (B, NB * ps, ...), at stored width (the unfused
+    paged decode read). Page ids follow the reference's jnp twin
+    ``pool[block_table]``: a negative id counts from the end, then ids clamp
+    to [0, P - 1], so no id reads outside the pool;
+  * scatter: writes ``new`` (B, S_new, ...) into the pool at
+    ``block_table[b, (pos+s)//ps], (pos+s) % ps``. Rows past the table go to
+    the scratch page 0 (never clamped onto the last real page), as do rows on
+    an unallocated (0) entry. Both versions write the pool IN PLACE and
+    return it: the reference aliases the pool in and out, and the port's
+    caches are updated where they live.
 """
 
 from __future__ import annotations
@@ -19,6 +25,49 @@ from repro_torch.kernels import build
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong,
                                                             ctypes.c_int, ctypes.c_void_p]
+_GATHER_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                                            ctypes.c_int, ctypes.c_void_p]
+
+
+def _page_ids(block_table: torch.Tensor, n_pages: int) -> torch.Tensor:
+    """The jnp twin's index rule: negative ids count from the end, then
+    clamp into the pool."""
+    bt = block_table.long()
+    return torch.where(bt < 0, bt + n_pages, bt).clamp(0, n_pages - 1)
+
+
+def paged_gather_ref(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Advanced-index gather along the page axis -> (B, NB * ps, ...)."""
+    B, NB = block_table.shape
+    g = pool[_page_ids(block_table, pool.shape[0])]  # (B, NB, ps, ...)
+    return g.reshape(B, NB * pool.shape[1], *pool.shape[2:])
+
+
+def paged_gather_cuda(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel: one block per gathered page."""
+    dev = pool.device
+    if dev.type != "cuda":
+        raise ValueError(f"paged_gather_cuda needs CUDA tensors, got {dev}")
+    build.check_tensor(pool, "pool", pool.dtype, dev)
+    build.check_tensor(block_table, "block_table", torch.int32, dev)
+    if block_table.dim() != 2 or pool.dim() < 2:
+        raise ValueError("paged_gather takes a (P, ps, ...) pool and a (B, NB) block table")
+    P_, ps = pool.shape[:2]
+    B, NB = block_table.shape
+    out = torch.empty((B, NB * ps, *pool.shape[2:]), dtype=pool.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    if P_ == 0:
+        raise ValueError("paged_gather from an empty pool")
+    page_bytes = pool[0].numel() * pool.element_size()
+    vec = int(page_bytes % 16 == 0 and pool.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    fn = build.lib("paged_gather").paged_gather_launch
+    fn.argtypes, fn.restype = _GATHER_ARGTYPES, ctypes.c_int
+    err = fn(pool.data_ptr(), block_table.data_ptr(), out.data_ptr(), P_, B * NB, page_bytes,
+             vec, build.stream_ptr(dev))
+    build.check(err, "paged_gather_launch")
+    build.LAUNCHES["paged_gather"] += 1
+    return out
 
 
 def paged_scatter_ref(pool: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,

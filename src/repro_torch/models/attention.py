@@ -7,9 +7,9 @@ page pool (n_pages, page_size, Hkv, hd/r) addressed through block tables.
 
 Ported branches of :func:`attn_apply`: fused single-token decode (the
 paged_attn kernel, dense or paged cache) and the one-pass softmax through
-the dense cache (unfused decode, and ``attend_cached`` chunked prefill).
-Whole-sequence (flash) attention, MLA and the paged gather read are not
-ported yet.
+the dequantized cache (unfused decode, and ``attend_cached`` chunked
+prefill); a paged cache is read for it through the paged_gather kernel.
+Whole-sequence (flash) attention and MLA are not ported yet.
 
 The port writes caches IN PLACE (the reference returns new arrays): a
 cache dict's tensors are updated where they live and the dict is returned.
@@ -147,11 +147,23 @@ def cache_update(cache: dict, k: torch.Tensor, v: torch.Tensor, pos, bits: Optio
     return cache
 
 
-def cache_read(cache: dict, bits: Optional[int]):
-    """Dequantized K/V of a dense cache, (B, S_max, Hkv, D) bf16."""
-    k = kv_dequantize(cache["k"], cache.get("k_s"), bits)
-    v = kv_dequantize(cache["v"], cache.get("v_s"), bits)
-    return k, v
+def cache_read(cache: dict, bits: Optional[int], *,
+               block_table: Optional[torch.Tensor] = None, impl: ops.Impl = "auto"):
+    """Dequantized K/V, (B, S, Hkv, D) bf16. Dense: the (B, S_max, ...)
+    buffers as stored. Paged: each pool leaf is first gathered through the
+    block table into contiguous (B, n_blocks * page_size, ...) logical rows
+    at stored width (int8 / packed / f32 scales, never bf16), then
+    dequantized; gather and dequantize commute elementwise, so the result is
+    bit-identical to reading a dense cache holding the same rows."""
+    kq, ks = cache["k"], cache.get("k_s")
+    vq, vs = cache["v"], cache.get("v_s")
+    if block_table is not None:
+        kq = ops.paged_gather(kq, block_table, impl=impl)
+        vq = ops.paged_gather(vq, block_table, impl=impl)
+        if ks is not None:
+            ks = ops.paged_gather(ks, block_table, impl=impl)
+            vs = ops.paged_gather(vs, block_table, impl=impl)
+    return kv_dequantize(kq, ks, bits), kv_dequantize(vq, vs, bits)
 
 
 # ----------------------------------------------------------------- GQA block
@@ -185,8 +197,9 @@ def attn_apply(
 ):
     """Returns (y, cache). ``fused`` routes single-token decode through the
     paged_attn kernel (dense or paged cache); otherwise the step attends
-    through the dequantized dense cache in one softmax pass, which is also
-    the ``attend_cached`` path of chunked prefill."""
+    through the dequantized cache in one softmax pass (a paged cache is
+    gathered into logical rows first), which is also the ``attend_cached``
+    path of chunked prefill."""
     B, S, _ = x.shape
     lp_qkv, lp_out = policy.of("attn_qkv"), policy.of("attn_out")
     q = linear_apply(params["wq"], x, lp_qkv, impl=impl).reshape(B, S, cfg.n_heads, cfg.head_dim)
@@ -201,9 +214,6 @@ def attn_apply(
     if S > 1 and not attend_cached:
         raise NotImplementedError("whole-prompt prefill is not ported yet; prefill in chunks")
     fused_decode = fused and S == 1
-    if block_table is not None and not fused_decode:
-        raise NotImplementedError(
-            "reading a paged cache outside fused decode needs paged_gather, not ported yet")
     bits = policy.kv_cache_bits
     pos_b = torch.as_tensor(cache_pos, dtype=torch.int32, device=x.device).reshape(-1).expand(B)
     cache = cache_update(cache, k, v, pos_b, bits, block_table=block_table, impl=impl)
@@ -215,7 +225,7 @@ def attn_apply(
             window=cfg.window, impl=impl,
         )[:, None].to(x.dtype)
     else:
-        kd, vd = cache_read(cache, bits)
+        kd, vd = cache_read(cache, bits, block_table=block_table, impl=impl)
         groups = cfg.n_heads // kd.shape[2]
         kk = torch.repeat_interleave(kd, groups, dim=2) if groups > 1 else kd
         vv = torch.repeat_interleave(vd, groups, dim=2) if groups > 1 else vd

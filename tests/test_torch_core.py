@@ -100,12 +100,13 @@ def test_serve_linear_bit_exact(policy):
     lp = RPol.get_policy(policy).of("ffn_in")
     params = RL.linear_init(jax.random.key(1), 64, 48, lp, bias=True, mode="serve")
     params = dict(params, b=jnp.asarray(np.random.RandomState(0).randn(48), jnp.float32))
-    tparams = {k: bridge.to_tensor(np.array(v, copy=True)) for k, v in params.items()}
+    tparams = {k: bridge.to_tensor(np.array(v, copy=True), device="cpu")
+               for k, v in params.items()}
     x = np.random.RandomState(2).randn(2, 3, 64).astype(np.float32)
     xb = jnp.asarray(x).astype(jnp.bfloat16)
     with jax.disable_jit():
         ref = np.asarray(RL.linear_apply(params, xb, lp, mode="serve", impl="jnp"))
-    got = TL.linear_apply(tparams, bridge.to_tensor(np.asarray(xb)), lp)
+    got = TL.linear_apply(tparams, bridge.to_tensor(np.asarray(xb), device="cpu"), lp)
     assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, 3, 48)
     np.testing.assert_array_equal(bridge.to_numpy(got).astype(np.float32),
                                   ref.astype(np.float32))
@@ -124,7 +125,7 @@ def test_convert_linear_to_serving_bit_exact():
 def test_bridge_copies_and_keeps_bf16_bits():
     a = np.asarray(jnp.asarray(np.random.RandomState(0).randn(5, 7)).astype(jnp.bfloat16))
     src = np.array(a, copy=True)
-    t = bridge.to_tensor(src)
+    t = bridge.to_tensor(src, device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(bridge.to_numpy(t).view(np.uint16), a.view(np.uint16))
     src[...] = 0  # the tensor owns its memory: mutating the source leaves it intact
@@ -161,6 +162,6 @@ def test_silu_matches_reference_rounding():
 
     x = np.asarray(jnp.asarray(np.random.RandomState(0).randn(300, 64)).astype(jnp.bfloat16))
     ref = np.asarray(jax.nn.silu(jnp.asarray(x))).astype(np.float32)
-    tx = bridge.to_tensor(x)
+    tx = bridge.to_tensor(x, device="cpu")
     np.testing.assert_array_equal(silu(tx).float().numpy(), ref)
     assert (torch.nn.functional.silu(tx).float().numpy() != ref).any()

@@ -4,7 +4,8 @@ the same engine on the CPU. These tests skip on a host without CUDA; on the
 card run ``python -m pytest -m gpu tests/test_torch_gpu.py``. The file
 imports no JAX, so it runs where only PyTorch is installed.
 
-Tolerances: mpmm and paged_scatter are integer or copy kernels, bit-exact;
+Tolerances: mpmm, conv2d and qntpack are integer kernels and paged_gather
+and paged_scatter copy kernels, all bit-exact;
 paged_attn follows the plain version's page-blocked softmax but sums inside
 its dots in another order, so atol = rtol = 1e-5 (the reference's own
 fused-vs-twin bound).
@@ -20,6 +21,7 @@ from repro_torch.core import pack as P  # noqa: E402
 from repro_torch.core import quant as Q  # noqa: E402
 from repro_torch.core.policy import PERMUTATIONS, get_policy  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.ref import conv2d_ref, im2col  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
@@ -90,6 +92,77 @@ def test_paged_scatter_kernel_bit_exact(dev):
         assert torch.equal(a[1:], b[1:])  # page 0 is scratch
 
 
+def _conv_rq(x_p, w_p, xb, wb, yb):
+    """Requant parameters that spread this input's accumulators over the
+    output range."""
+    cols = im2col(x_p, xb).double()
+    phi = cols @ P.unpack(w_p, wb, signed=True).double().T
+    levels = 1 << yb
+    r = levels / 2 / (float(phi.std()) + 1.0)
+    r = min(r, 1.0) if yb == 8 else r
+    return Q.make_requant_params(y_bits=yb, eps_phi=r, eps_y=1.0,
+                                 lam=levels / 2 / r - float(phi.mean()))
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 32, 64), (5, 7, 12, 68), (3, 9, 13, 66)])
+def test_conv2d_kernel_bit_exact_all_cells(dev, shape):
+    """Every (x, w, y) cell at the paper's Reference Layer and at ragged
+    shapes: a partial Cout tile, channels padded in shared memory, W not a
+    power of two; the border taps carry the u8 offset fold."""
+    H, W, C, Cout = shape
+    g = torch.Generator().manual_seed(H * W + C)
+    n = 0
+    for xb, wb, yb in PERMUTATIONS:
+        if C % (8 // xb) or (9 * C) % (8 // wb) or Cout % (8 // yb):
+            continue
+        x = torch.randint(0, 1 << xb, (H, W, C), generator=g, dtype=torch.int32)
+        w = torch.randint(-(1 << (wb - 1)), 1 << (wb - 1), (Cout, 9 * C), generator=g,
+                          dtype=torch.int32)
+        x_p, w_p = P.pack(x.to(torch.uint8), xb).to(dev), P.pack(w.to(torch.int8), wb).to(dev)
+        rq = _conv_rq(x_p, w_p, xb, wb, yb)
+        bits = dict(x_bits=xb, w_bits=wb, y_bits=yb)
+        a = ops.conv2d(x_p, w_p, rq, impl="cuda", **bits)
+        b = conv2d_ref(x_p, w_p, rq, **bits)
+        assert torch.equal(a, b), (xb, wb, yb)
+        assert torch.equal(a.cpu(), conv2d_ref(x_p.cpu(), w_p.cpu(), rq, **bits))
+        n += 1
+    assert n > 0 and build.LAUNCHES["conv2d"] >= n
+
+
+@pytest.mark.parametrize("y_bits", [8, 4, 2])
+def test_qntpack_kernel_bit_exact(dev, y_bits):
+    """The Tab. 1 shape (M = 256, N = 64), accumulators at the int32 edges
+    included, so that ``acc + bias`` wraps."""
+    g = torch.Generator().manual_seed(y_bits)
+    phi = torch.randint(-(1 << 20), 1 << 20, (256, 64), generator=g, dtype=torch.int32)
+    phi[0] = (1 << 31) - 1 - torch.arange(64, dtype=torch.int32)
+    phi[1] = -(1 << 31) + torch.arange(64, dtype=torch.int32)
+    rq = Q.make_requant_params(y_bits=y_bits, eps_phi=(1 << y_bits) / 2.0**21, eps_y=1.0,
+                               lam=float(1 << 20))
+    a = ops.qntpack(phi.to(dev), rq, y_bits=y_bits, impl="cuda")
+    b = ops.qntpack(phi, rq, y_bits=y_bits, impl="torch")
+    assert torch.equal(a.cpu(), b)
+    assert len(torch.unique(b)) > 2
+
+
+@pytest.mark.parametrize("leaf", ["int8", "int4", "bf16", "f32", "odd"])
+def test_paged_gather_kernel_bit_exact(dev, leaf):
+    """Every cache leaf at stored width (16-byte copies), a page of 15 bytes
+    (the byte path), page ids past the pool and negative ones (clamped as
+    the plain version does)."""
+    g = torch.Generator().manual_seed(len(leaf))
+    tail = {"int8": (2, 8), "int4": (2, 4), "bf16": (2, 8), "f32": (2,), "odd": (3, 5)}[leaf]
+    pool = (torch.randn((9, 4, *tail), generator=g) * 40).clamp(-100, 100)
+    pool = pool.to({"bf16": torch.bfloat16, "f32": torch.float32}.get(leaf, torch.int8))
+    if leaf == "odd":
+        pool = pool[:, 0].contiguous()  # (9, 3, 5): 15 bytes a page
+    bt = torch.tensor([[3, 5, 0, 8], [6, 12, -1, 1]], dtype=torch.int32)
+    a = ops.paged_gather(pool.to(dev), bt.to(dev), impl="cuda")
+    b = ops.paged_gather(pool, bt, impl="torch")
+    assert torch.equal(a.cpu(), b)
+    assert build.LAUNCHES["paged_gather"] > 0
+
+
 def test_engine_on_cuda_matches_cpu_and_launches_every_kernel(dev):
     """Reduced internlm2-1.8b, w4a8, kv8: greedy streams on CUDA (kernels)
     equal the CPU run (plain versions), on slot and paged caches."""
@@ -112,6 +185,30 @@ def test_engine_on_cuda_matches_cpu_and_launches_every_kernel(dev):
                 assert build.LAUNCHES["mpmm"] > 0 and build.LAUNCHES["paged_attn"] > 0
                 assert (build.LAUNCHES["paged_scatter"] > 0) == (cache == "paged")
     assert outs["cuda", "slot"] == outs["cuda", "paged"] == outs["cpu", "slot"]
+
+
+def test_unfused_paged_engine_on_cuda_matches_cpu(dev):
+    """``fused_attn=False`` on the paged cache reads every pool leaf through
+    the paged_gather kernel; its streams equal the CPU run's and the unfused
+    slot streams."""
+    cfg = configs.reduced(configs.get_arch("internlm2-1.8b"))
+    policy = get_policy("w4a8")
+    params = M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=n).astype(np.int32) for n in (3, 9, 5, 2, 7)]
+    outs = {}
+    for device, cache in (("cpu", "paged"), ("cuda", "slot"), ("cuda", "paged")):
+        p = params if device == "cpu" else _to(params, dev)
+        build.reset_launches()
+        eng = ServeEngine(p, cfg, policy, n_slots=2, s_max=32, prefill_chunk=4, cache=cache,
+                          page_size=16 if cache == "paged" else None, fused_attn=False,
+                          device=device)
+        outs[device, cache] = eng.run(
+            [Request(rid=i, prompt=pr, max_new=6) for i, pr in enumerate(prompts)])
+        if device == "cuda":
+            assert (build.LAUNCHES["paged_gather"] > 0) == (cache == "paged")
+            assert build.LAUNCHES["paged_attn"] == 0
+    assert outs["cuda", "paged"] == outs["cuda", "slot"] == outs["cpu", "paged"]
 
 
 def _to(tree, dev):

@@ -1,10 +1,14 @@
-"""PyTorch port, kernel layer: the plain versions of the three ported
-kernels against the JAX reference, and the dispatch rules.
+"""PyTorch port, kernel layer: the plain versions of the serving path's
+kernels against the JAX reference, and the dispatch rules (conv2d and
+qntpack: tests/test_torch_conv.py).
 
   * mpmm: bit-exact with ``repro.kernels.ref.mpmm_ref`` over 27 cells x 3
     output kinds x ``x_signed`` (integer accumulation is exact);
   * paged_scatter: bit-exact with ``paged_scatter_ref``, rows past the table
     included (the scratch page 0, which several rows may hit, is excluded);
+  * paged_gather: bit-exact with ``paged_gather_ref`` and the Pallas kernel
+    (interpret mode) on int8, packed int4, bf16 and f32 leaves, a page id
+    past the pool included (both clamp it onto the last page);
   * paged_attn: against ``ops.paged_attn`` with ``impl="jnp"`` and with
     ``impl="pallas"`` (interpret mode) on every KV cell, atol = rtol = 1e-5:
     the reference's own fused-vs-oracle bound (tests/test_paged_attn.py),
@@ -28,12 +32,14 @@ from repro.core.policy import PERMUTATIONS  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels import ref as rref  # noqa: E402
 from repro.kernels import tuning  # noqa: E402
+from repro.kernels.paged_gather import paged_gather_pallas  # noqa: E402
+from repro.kernels.paged_gather import paged_gather_ref as jax_gather  # noqa: E402
 from repro.kernels.paged_gather import paged_scatter_ref as jax_scatter  # noqa: E402
 from repro.models import attention as RA  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.core import quant as TQ  # noqa: E402
 from repro_torch.kernels import build, dispatch, ops  # noqa: E402
-from repro_torch.kernels.paged_gather import paged_scatter_ref  # noqa: E402
+from repro_torch.kernels.paged_gather import paged_gather_ref, paged_scatter_ref  # noqa: E402
 from repro_torch.kernels.ref import mpmm_ref  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
@@ -86,7 +92,7 @@ def _gqa_case(seed, bits, B=2, S=32, HQ=4, HKV=2, D=16):
 
 
 def _t(a):
-    return None if a is None else bridge.to_tensor(np.asarray(a))
+    return None if a is None else bridge.to_tensor(np.asarray(a), device="cpu")
 
 
 @pytest.mark.parametrize("bits", [None, 8, 4])
@@ -145,6 +151,49 @@ def test_paged_scatter_plain_vs_reference(dtype, s_new):
     np.testing.assert_array_equal(bridge.to_numpy(via_ops).astype(np.float32)[1:], ref[1:])
 
 
+def _gather_pool(rng, leaf, P_, ps):
+    """A page pool of one cache leaf: (P, ps, Hkv, D/r) values, or (P, ps,
+    Hkv) f32 scales."""
+    if leaf == "int8":
+        return jnp.asarray(rng.randint(-128, 128, size=(P_, ps, 2, 8)).astype(np.int8))
+    if leaf == "int4":  # two signed nibbles per byte, as kv_quantize packs them
+        from repro.core import pack as RP
+
+        q = rng.randint(-8, 8, size=(P_, ps, 2, 8)).astype(np.int8)
+        return RP.pack(jnp.asarray(q), 4)
+    if leaf == "bf16":
+        return jnp.asarray(rng.randn(P_, ps, 2, 8)).astype(jnp.bfloat16)
+    return jnp.asarray(rng.rand(P_, ps, 2).astype(np.float32))
+
+
+@pytest.mark.parametrize("leaf", ["int8", "int4", "bf16", "f32"])
+def test_paged_gather_plain_vs_reference(leaf):
+    rng = np.random.RandomState(len(leaf))
+    P_, ps = 7, 4
+    pool = _gather_pool(rng, leaf, P_, ps)
+    # slot 1's second entry is past the pool: the twins clamp it to page P-1
+    bt = jnp.asarray(np.array([[3, 5, 0], [6, P_ + 2, 1]], np.int32))
+    ref = np.asarray(jax_gather(pool, bt))
+    np.testing.assert_array_equal(np.asarray(paged_gather_pallas(pool, bt)), ref)
+    got = paged_gather_ref(_t(pool), _t(bt))
+    assert tuple(got.shape) == ref.shape == (2, 3 * ps, *pool.shape[2:])
+    np.testing.assert_array_equal(bridge.to_numpy(got), ref)
+    np.testing.assert_array_equal(bridge.to_numpy(got[1, ps:2 * ps]), np.asarray(pool[P_ - 1]))
+    assert torch.equal(ops.paged_gather(_t(pool), _t(bt)), got)
+
+
+def test_paged_gather_negative_ids_follow_the_jnp_twin():
+    """``pool[block_table]`` counts a negative id from the end, then clamps
+    (the Pallas twin would clamp -1 to page 0; the engine writes neither)."""
+    pool = jnp.arange(5 * 2 * 3, dtype=jnp.float32).reshape(5, 2, 3)
+    bt = jnp.asarray(np.array([[-1, -7, 2]], np.int32))
+    ref = np.asarray(jax_gather(pool, bt))
+    got = paged_gather_ref(_t(pool), _t(bt))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(got[0, :2].numpy(), np.asarray(pool[4]))
+    np.testing.assert_array_equal(got[0, 2:4].numpy(), np.asarray(pool[0]))
+
+
 def test_dispatch_auto_follows_the_device():
     assert dispatch.resolve_impl("auto", torch.device("cpu")) == "torch"
     assert dispatch.resolve_impl("auto", torch.device("cuda", 0)) == "cuda"
@@ -178,3 +227,24 @@ def test_weight_only_policy_is_refused_up_front():
     wo = PrecisionPolicy(name="w4only", default=LayerPrecision(None, 4, None))
     with pytest.raises(KeyError):
         dispatch.ensure_policy_supported(wo)
+
+
+def test_dispatch_covers_conv_qntpack_and_gather():
+    """conv2d on all 27 cells, qntpack on every output width, paged_gather
+    as one cell, on both implementations; a missing cell fails the gate."""
+    for impl in dispatch.IMPLS:
+        assert dispatch.coverage("conv2d", impl) == set(PERMUTATIONS)
+        assert {c[2] for c in dispatch.coverage("qntpack", impl)} == {8, 4, 2}
+        assert dispatch.coverage("paged_gather", impl) == {(None, None, None)}
+    key = dispatch.KernelKey("paged_gather", None, None, None, "cuda")
+    entry = dispatch._REGISTRY.pop(key)
+    try:
+        with pytest.raises(RuntimeError, match="paged_gather@cuda"):
+            dispatch.validate_coverage()
+    finally:
+        dispatch._REGISTRY[key] = entry
+    dispatch.validate_coverage()
+    assert dispatch.lookup("conv2d", device=torch.device("cuda", 0), x_bits=2, w_bits=8,
+                           y_bits=4).name == "conv3x3_u2_i8_u4"
+    assert dispatch.lookup("qntpack", device=torch.device("cpu"), y_bits=2).name == \
+        "qntpack_u2_ref"

@@ -55,7 +55,8 @@ def _requests(cls, lengths, max_new=4, seed=0):
 @pytest.fixture(scope="module")
 def params():
     jp = RM.init_params(jax.random.key(3), TINY, POLICY, mode="serve")
-    return jp, bridge.params_from_reference(jax.tree.map(lambda x: np.array(x, copy=True), jp))
+    return jp, bridge.params_from_reference(jax.tree.map(lambda x: np.array(x, copy=True), jp),
+                                           device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -100,6 +101,40 @@ def test_metrics_keys_match_reference(runs, cache):
     assert mp["kernels/mpmm_calls"] > 0 and mp["kernels/paged_attn_calls"] > 0
     if cache == "paged":
         assert mp["kernels/paged_scatter_calls"] > 0
+
+
+@pytest.fixture(scope="module")
+def unfused_runs(params):
+    """``fused_attn=False``: the reference engine on the paged cache (its
+    decode reads the pool through paged_gather), and the port's engine on
+    both caches."""
+    jp, tp = params
+    ps = dict(page_size=16)
+    ref = RServeEngine(jp, TINY, POLICY, impl="jnp", prefill="chunked", cache="paged",
+                       fused_attn=False, **ENGINE, **ps)
+    with jax.disable_jit():
+        ref_out = ref.run(_requests(RRequest, LENGTHS))
+    out = {"ref": ref_out}
+    for cache in ("slot", "paged"):
+        port = ServeEngine(tp, TTINY, TPOLICY, cache=cache, device="cpu", fused_attn=False,
+                           **ENGINE, **(ps if cache == "paged" else {}))
+        out[cache] = port.run(_requests(Request, LENGTHS))
+        out[cache + "_metrics"] = port.metrics()
+    return out
+
+
+def test_unfused_paged_streams_identical_to_reference(unfused_runs):
+    """The unfused paged read (gather every pool leaf at stored width, then
+    dequantize) gives the reference engine's streams, and the port's
+    unfused slot streams."""
+    got = unfused_runs["paged"]
+    assert got == unfused_runs["ref"]
+    assert got == unfused_runs["slot"]
+    assert sorted(got) == list(range(len(LENGTHS))) and all(len(v) == 4 for v in got.values())
+    m = unfused_runs["paged_metrics"]
+    assert m["fused_attn"] is False and m["kernels/paged_gather_calls"] > 0
+    assert "kernels/paged_attn_calls" not in m
+    assert "kernels/paged_gather_calls" not in unfused_runs["slot_metrics"]
 
 
 def test_engine_without_device_needs_cuda(params):
