@@ -31,11 +31,22 @@ Phases, in order (any failure ends the run with a nonzero exit):
      path from the same cache (largest logit difference, argmax agreement);
   7. each kernel's time beside its bound and its plain version's time (per
      decode step for the serving kernels; per call at the paper's shape for
-     conv2d, also at 224 x 224, and qntpack).
+     conv2d, also at 224 x 224, and qntpack);
+  8. the MLA serving path: ServeEngine serving DeepSeek-V3 at its published
+     widths cut to its three dense (MLA) layers, policy w4a8 with an 8-bit
+     latent cache, the same 4 greedy requests, on the slot cache and then
+     the paged cache (fused decode: paged_mla_attn), then both again with
+     ``fused_attn=False`` (the paged read through paged_gather); slot and
+     paged streams identical, fused and unfused; then a teacher-forced MLA
+     decode step (kernel vs plain), the MLA step's breakdown, and
+     paged_mla_attn's time per decode step beside its bound, its plain
+     version and ``F.scaled_dot_product_attention`` on the bf16 cell.
+     Phase 2 holds paged_mla_attn against its plain version on bf16 / kv8 /
+     kv4 at H 128, C 512, dr 64, pages of 16 (tolerance ATTN_TOL).
 
-Phases 3, 4 and 5 each start with every launch count at 0 and read the
-counts at their end; the kernels line gives each kernel the count of its
-own path.
+Phases 3, 4, 5 and 8 each start with every launch count at 0 (phase 8 once
+for its fused runs and once for its unfused runs) and read the counts at
+their end; the kernels line gives each kernel the count of its own path.
 
 The line before the last is the kernels JSON, the last line the result
 JSON.
@@ -43,6 +54,8 @@ JSON.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -56,10 +69,17 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
 
-#: paged_attn kernel vs plain version: both follow the same page-blocked
-#: softmax; only the order of the f32 sums inside each dot differs, so the
-#: reference's own fused-vs-twin bound applies (tests/test_paged_attn.py)
+#: paged_attn / paged_mla_attn kernel vs plain version: both follow the same
+#: page-blocked softmax; only the order of the f32 sums inside each dot
+#: differs, so the reference's own fused-vs-twin bound applies
+#: (tests/test_paged_attn.py)
 ATTN_TOL = 1e-5
+#: the MLA path: DeepSeek-V3 at its published widths, cut to its three dense
+#: (MLA) layers; every deeper layer carries the experts the port lacks
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 3
+#: decode steps per timing window over distinct latent pools (8 x 3 pools of
+#: 2.7 MB exceed the card's 50 MB L2), so each call finds its pages cold
+COLD_STEPS = 8
 
 PROMPT_LENS = (128, 256, 384, 512)
 MAX_NEW = 32
@@ -203,6 +223,58 @@ def check_paged_attn(torch, dev, cfg, report):
             raise AssertionError(f"paged_attn dense view bits={bits}: err {err}")
         worst = max(worst, err)
     report["paged_attn"] = {"max_abs_err": worst, "tol": ATTN_TOL}
+
+
+def mla_case(torch, dev, mcfg, bits, g, pos=None):
+    """paged_mla_attn at the MLA path's shapes: 4 slots, H 128, C 512, dr 64,
+    a shuffled pool of 16-row pages, positions as after the serving run
+    (prompt + max_new - 1) unless ``pos`` is given."""
+    from repro_torch.models import attention as A
+
+    B, ps = N_SLOTS, PAGE_SIZE
+    nb = S_MAX // ps
+    P_ = B * nb + 1
+    H, C, dr = mcfg.n_heads, mcfg.kv_lora, mcfg.d_rope
+    c, cs = A.kv_quantize(torch.randn((P_, ps, 1, C), generator=g, device=dev), bits)
+    r = torch.randn((P_, ps, 1, dr), generator=g, device=dev).to(torch.bfloat16)
+    q_lat = torch.randn((B, H, C), generator=g, device=dev)
+    q_rope = torch.randn((B, H, dr), generator=g, device=dev)
+    perm = torch.randperm(P_ - 1, generator=g, device=dev)[: B * nb] + 1
+    bt = perm.reshape(B, nb).to(torch.int32).contiguous()
+    if pos is None:
+        pos = [n + MAX_NEW - 1 for n in PROMPT_LENS]
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    return q_lat, q_rope, c, cs, r, pos, bt
+
+
+def check_paged_mla_attn(torch, dev, mcfg, report):
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    scale = 1.0 / (mcfg.d_nope + mcfg.d_rope) ** 0.5
+    worst = 0.0
+    # the serving run's positions (page-aligned ends), then ragged ones that
+    # end mid-page; every slot has masked pages after its last position
+    for pos in (None, [0, 37, 600, 1000]):
+        for bits in (None, 8, 4):
+            q_lat, q_rope, c, cs, r, p, bt = mla_case(torch, dev, mcfg, bits, g, pos)
+            kw = dict(bits=bits, scale=scale)
+            a = ops.paged_mla_attn(q_lat, q_rope, c, cs, r, p, block_table=bt, impl="cuda", **kw)
+            b = ops.paged_mla_attn(q_lat, q_rope, c, cs, r, p, block_table=bt, impl="torch", **kw)
+            # the dense slot layout through the identity-table view
+            dense = lambda x: None if x is None else x[bt.long()].reshape(  # noqa: E731
+                N_SLOTS, S_MAX, *x.shape[2:])
+            d = ops.paged_mla_attn(q_lat, q_rope, dense(c), dense(cs), dense(r), p, impl="cuda",
+                                   **kw)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max()), float((d - b).abs().max()))
+            tol = ATTN_TOL * (1 + float(b.abs().max()))
+            log(f"paged_mla_attn bits={bits} pos={p.tolist()}: max |kernel - plain| = {err:.3e}")
+            if not (torch.isfinite(a).all() and torch.isfinite(d).all()) or err > tol:
+                raise AssertionError(f"paged_mla_attn bits={bits} pos={p.tolist()}: "
+                                     f"err {err} > {tol}")
+            worst = max(worst, err)
+    report["paged_mla_attn"] = {"max_abs_err": worst, "tol": ATTN_TOL}
 
 
 def check_paged_scatter(torch, dev, cfg, report):
@@ -407,7 +479,7 @@ def reference_layer_path(torch, dev):
     return launches
 
 
-def teacher_forced(torch, dev, cfg, policy, params, report):
+def teacher_forced(torch, dev, cfg, policy, params, report, key="teacher_forced"):
     """One decode step from the same prefilled cache, kernel path vs plain."""
     from repro_torch.models import model as M
     from repro_torch.serve import Request
@@ -433,9 +505,9 @@ def teacher_forced(torch, dev, cfg, policy, params, report):
         raise AssertionError("teacher-forced logits are not finite")
     diff = float((a - b).abs().max())
     agree = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
-    log(f"teacher-forced decode step (full width): max |logit kernel - plain| = {diff:.4g}, "
-        f"argmax agree: {agree}, logit scale {float(b.abs().max()):.4g}")
-    report["teacher_forced"] = {"max_logit_diff": diff, "argmax_agree": agree}
+    log(f"{key} ({cfg.name}, {cfg.n_layers} layers, full width): max |logit kernel - plain| = "
+        f"{diff:.4g}, argmax agree: {agree}, logit scale {float(b.abs().max()):.4g}")
+    report[key] = {"max_logit_diff": diff, "argmax_agree": agree}
 
 
 # ---------------------------------------------------------------- phase 5
@@ -444,12 +516,18 @@ def teacher_forced(torch, dev, cfg, policy, params, report):
 def device_ms(fn, reps: int = 5, warmup: int = 2) -> tuple[float, float, str]:
     """Medians over ``reps`` calls of ``fn()``: the device time of the
     kernels it launches (torch.profiler, CUPTI, one window per call) and the
-    wall time between CUDA events. Falls back to the events where the
-    profiler shows no device time."""
+    wall time between CUDA events. On the card the profiler loses the first
+    few device events of a window, so each window is a profiler schedule
+    whose first (warm-up) step runs ``fn`` untimed and whose second step is
+    read; the result names the kernels seen against the kernels the port's
+    wrappers launched. Falls back to the events where no window shows
+    device time."""
     import statistics
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels import build
 
     for _ in range(warmup):
         fn()
@@ -463,15 +541,28 @@ def device_ms(fn, reps: int = 5, warmup: int = 2) -> tuple[float, float, str]:
         torch.cuda.synchronize()
         walls.append(start.elapsed_time(end))
     for _ in range(reps):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
             torch.cuda.synchronize()
-        devs.append(sum(getattr(e, "self_device_time_total", 0) or 0
-                        for e in prof.key_averages()) / 1e3)
+            prof.step()
+            n0 = sum(build.LAUNCHES.values())
+            fn()
+            torch.cuda.synchronize()
+            launched = sum(build.LAUNCHES.values()) - n0
+            prof.step()
+        seen = [e for e in prof.key_averages()
+                if (getattr(e, "self_device_time_total", 0) or 0) > 0]
+        devs.append((sum(e.count for e in seen),
+                     sum(e.self_device_time_total for e in seen) / 1e3, launched))
     wall = statistics.median(walls)
-    if min(devs) <= 0:
+    most = max(n for n, _, _ in devs)
+    if most == 0:
         return wall, wall, "events"
-    return statistics.median(devs), wall, "profiler"
+    kept = [t for n, t, _ in devs if n == most]
+    launched = devs[0][2]
+    return (statistics.median(kept), wall,
+            f"profiler, {len(kept)}/{reps} windows of {most} kernels, {launched} launched")
 
 
 def linears(params):
@@ -651,19 +742,27 @@ def kernel_table(torch, dev, cfg, params, launches, report):
                              replaces="src/repro/kernels/conv2d.py:71", ms=t, plain_ms=tp,
                              bytes=nbytes, ops=nops, peak=INT8_OPS_PER_S, library_ms=None))
 
-    out = []
-    for r in rows:
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["ops"] / r["peak"] * 1e3
-        out.append({
-            "name": r["name"], "route": r["route"], "source": r["source"],
-            "replaces": r["replaces"], "launches": int(launches.get(r["name"], 0)),
-            "max_abs_err": report[r["name"]]["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": r["library_ms"],
-        })
-    return out
+    return [kernel_row(r, launches, report) for r in rows]
+
+
+def kernel_row(r, launches, report) -> dict:
+    """One entry of the kernels line: the bound from the row's bytes and
+    operations, the launches of its path, its check's largest error."""
+    t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = r["ops"] / r["peak"] * 1e3
+    return {
+        "name": r["name"], "route": r["route"], "source": r["source"],
+        "replaces": r["replaces"], "launches": int(launches.get(r["name"], 0)),
+        "max_abs_err": report[r["name"]]["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": r["library_ms"],
+    }
+
+
+#: device kernels the step breakdown names (everything else is PyTorch's)
+KERNEL_NAMES = ("mpmm_kernel", "paged_mla_attn_kernel", "paged_attn_kernel",
+                "paged_scatter_kernel", "paged_gather_kernel")
 
 
 def step_breakdown(torch, dev, cfg, policy, params):
@@ -690,20 +789,148 @@ def step_breakdown(torch, dev, cfg, policy, params):
         step()
         torch.cuda.synchronize()
     by: dict = {}
+    ops_ms: dict = {}
     n_kernels = 0
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
         if us <= 0:
             continue
         n_kernels += e.count
-        key = next((k for k in ("mpmm_kernel", "paged_attn_kernel", "paged_scatter_kernel")
-                    if k in e.key), "other (PyTorch ops)")
+        key = next((k for k in KERNEL_NAMES if k in e.key), "other (PyTorch ops)")
         by[key] = by.get(key, 0.0) + us / 1e3
+        ops_ms[e.key[:60]] = ops_ms.get(e.key[:60], 0.0) + us / 1e3
     busy = sum(by.values())
     parts = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
-    log(f"decode step breakdown (slot cache, 4 slots at 159..543 cached rows): wall "
+    top = "; ".join(f"{k} {v:.3f} ms" for k, v in
+                    sorted(ops_ms.items(), key=lambda kv: -kv[1])[:6])
+    log(f"decode step breakdown ({cfg.name}, {cfg.n_layers} layers, slot cache, 4 slots at "
+        f"159..543 cached rows): wall "
         f"{wall:.2f} ms (no profiler), device busy {busy:.3f} ms "
         f"({100 * (1 - busy / wall):.1f}% idle), {n_kernels} device kernels; {parts}")
+    log(f"  top device ops: {top}")
+
+
+def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
+    """Phase 8: serve DeepSeek-V3 (three MLA-dense layers, full width) on the
+    slot and paged caches, fused then unfused; the teacher-forced step, the
+    step breakdown and paged_mla_attn's timing row. Returns (the raw kernel
+    row, paged_mla_attn's launches on the fused runs)."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(configs.get_arch(MLA_ARCH), n_layers=MLA_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = M.init_params(gen, cfg, policy, device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    log(f"params: {cfg.name} cut to {cfg.n_layers} layers ({M._layer_kinds(cfg)}), w4a8, "
+        f"{nbytes / 1e9:.2f} GB, {time.perf_counter() - t0:.1f} s to draw on the card")
+
+    build.reset_launches()  # the fused MLA serving path starts here
+    out_slot, _ = serve(torch, dev, cfg, policy, params, "slot")
+    out_paged, _ = serve(torch, dev, cfg, policy, params, "paged")
+    fused_launches = dict(build.LAUNCHES)  # the fused MLA serving path ends here
+    log(f"launches on the fused MLA path: {fused_launches}")
+    if out_slot != out_paged:
+        raise AssertionError("MLA: slot and paged token streams differ")
+    for name in ("mpmm", "paged_mla_attn", "paged_scatter"):
+        if fused_launches.get(name, 0) == 0:
+            raise AssertionError(f"kernel {name} was not launched on the fused MLA path")
+    build.reset_launches()  # the unfused MLA serving path starts here
+    unf_slot, _ = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False)
+    unf_paged, _ = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
+    unf_launches = dict(build.LAUNCHES)  # the unfused MLA serving path ends here
+    log(f"launches on the unfused MLA path: {unf_launches}")
+    if unf_slot != unf_paged:
+        raise AssertionError("MLA: unfused slot and unfused paged token streams differ")
+    if unf_launches.get("paged_gather", 0) == 0 or unf_launches.get("paged_mla_attn", 0):
+        raise AssertionError(f"MLA unfused path: paged_gather must run, paged_mla_attn not: "
+                             f"{unf_launches}")
+    same = sum(a == b for rid in out_paged for a, b in zip(out_paged[rid], unf_paged[rid]))
+    log(f"MLA: slot and paged streams identical, fused and unfused; {same} of "
+        f"{sum(len(t) for t in out_paged.values())} tokens of the unfused streams equal the "
+        f"fused ones (not gated: the two softmax sum in another order)")
+
+    teacher_forced(torch, dev, cfg, policy, params, report, key="teacher_forced_mla")
+    step_breakdown(torch, dev, cfg, policy, params)
+
+    # paged_mla_attn per decode step: one call per layer at kv8, each layer
+    # on its own latent pool, at the serving run's positions. The window
+    # times COLD_STEPS steps over distinct pools (more bytes than the 50 MB
+    # L2 holds), as a real step finds its latents cold behind mpmm's weight
+    # stream; the times are per step
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    scale = 1.0 / (cfg.d_nope + cfg.d_rope) ** 0.5
+    L, B, H, C, dr = cfg.n_layers, N_SLOTS, cfg.n_heads, cfg.kv_lora, cfg.d_rope
+    cases = [mla_case(torch, dev, cfg, 8, g) for _ in range(L * COLD_STEPS)]
+
+    def step(impl, cs=cases, bits=8):
+        return lambda: [ops.paged_mla_attn(ql, qr, c, s_, r, p, bits=bits, scale=scale,
+                                           block_table=bt, impl=impl)
+                        for ql, qr, c, s_, r, p, bt in cs]
+
+    def per_step(fn, **kw):
+        t_dev, t_wall, how = device_ms(fn, **kw)
+        return t_dev / COLD_STEPS, t_wall / COLD_STEPS, how
+
+    t, tw, how = per_step(step("cuda"))
+    tp, tpw, _ = per_step(step("torch"), reps=3, warmup=1)
+    pos = cases[0][5]
+    valid = sum(int(p) + 1 for p in pos.tolist())
+    row_bytes = C + 4 + 2 * dr  # int8 latent row, its f32 scale, the bf16 rope row
+    nbytes = L * (valid * row_bytes + B * H * (C + dr) * 4 + B * H * C * 4
+                  + cases[0][6].numel() * 4 + B * 4)
+    nops = L * H * valid * (2 * (C + dr) + 2 * C)
+    log(f"  paged_mla_attn kv8, one decode step ({L} calls, B={B}, H={H}, {valid} cached rows "
+        f"per layer; L2-cold): {t:.4f} ms device ({how}), {tw:.3f} ms wall; plain {tp:.3f} ms "
+        f"device, {tpw:.3f} ms wall")
+    warm = [cases[0]] * L  # the same pool three times: L2-warm
+    tww, _, _ = device_ms(step("cuda", warm))
+    log(f"  paged_mla_attn kv8, the same step L2-warm (one pool, {L} calls): {tww:.4f} ms device")
+
+    # the library yardstick: SDPA on the bf16 cell over the dense slot view,
+    # q = [q_lat | q_rope], k = [c | r] (one key row shared by all heads),
+    # v = c, the same scale, a boolean mask from pos; f32 throughout
+    bcases = [mla_case(torch, dev, cfg, None, g) for _ in range(L * COLD_STEPS)]
+    tb = per_step(step("cuda", bcases, None))[0]
+    sdpa_in, worst = [], 0.0
+    for ql, qr, c, _s, r, p, bt in bcases:
+        dense = lambda x: x[bt.long()].reshape(B, S_MAX, *x.shape[2:])  # noqa: E731
+        cd, rd = dense(c)[:, :, 0].float(), dense(r)[:, :, 0].float()
+        q = torch.cat([ql, qr], dim=-1)[:, :, None]  # (B, H, 1, C + dr)
+        k = torch.cat([cd, rd], dim=-1)[:, None].expand(B, H, S_MAX, C + dr)
+        v = cd[:, None].expand(B, H, S_MAX, C)
+        mask = (torch.arange(S_MAX, device=dev)[None] <= p[:, None].long())[:, None, None]
+        sdpa_in.append((q, k, v, mask))
+    sdpa = lambda: [F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)  # noqa: E731
+                    for q, k, v, m in sdpa_in]
+    for lib, kern in zip(sdpa(), step("cuda", bcases, None)()):
+        worst = max(worst, float((lib[:, :, 0] - kern).abs().max()))
+    tl, tlw, _ = per_step(sdpa)
+    log(f"  paged_mla_attn bf16 cell, one decode step (L2-cold): {tb:.4f} ms device; "
+        f"F.scaled_dot_product_attention (f32, dense view, boolean mask) {tl:.4f} ms device, "
+        f"{tlw:.3f} ms wall; max |SDPA - kernel| = {worst:.3e}")
+    del params, cases, bcases, sdpa_in
+    row = dict(name="paged_mla_attn", route="cuda",
+               source="src/repro_torch/csrc/paged_mla_attn.cu",
+               replaces="src/repro/kernels/paged_attn.py:299", ms=t, plain_ms=tp,
+               bytes=nbytes, ops=nops, peak=F32_FLOPS_PER_S, library_ms=tl)
+    return row, {"paged_mla_attn": fused_launches["paged_mla_attn"]}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -744,6 +971,7 @@ def main() -> int:
     check_conv2d(torch, dev, report)
     check_qntpack(torch, dev, report)
     check_paged_gather(torch, dev, cfg, report)
+    check_paged_mla_attn(torch, dev, configs.get_arch(MLA_ARCH), report)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -785,6 +1013,12 @@ def main() -> int:
     teacher_forced(torch, dev, cfg, policy, params, report)
     step_breakdown(torch, dev, cfg, policy, params)
     rows = kernel_table(torch, dev, cfg, params, launches, report)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mla_row, mla_launches = mla_path(torch, dev, policy, report)
+    rows.append(kernel_row(mla_row, mla_launches, report))
     log(gpu_line())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

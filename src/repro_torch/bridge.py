@@ -9,7 +9,10 @@ ml_dtypes ``bfloat16`` arrays, which ``torch.from_numpy`` rejects: they
 cross as uint16 bit patterns and are viewed as ``torch.bfloat16``.
 
 The reference stacks each scan group's layers on a leading axis; the bridge
-unstacks them into the port's per-layer list. Dense family only.
+unstacks them into the port's per-layer list. Scan groups of GQA layers
+(kind ``dense``) and of MLA layers (kind ``mla_dense``) both unstack the
+same way; the MTP params (``mtp_block``, ``mtp_proj``, ``mtp_norm``) are
+single trees and cross as they are.
 
 Like every entry point of the port, ``device=None`` means CUDA (raising on
 a host without it); pass ``device="cpu"`` for CPU tensors.
@@ -67,23 +70,29 @@ def _leading(tree) -> int:
 
 def params_from_reference(ref: dict, device=None) -> dict:
     """The reference's serve-mode params (numpy leaves) -> the port's
-    params: ``embed``, ``final_norm``, ``head`` and a per-layer list."""
+    params: ``embed``, ``final_norm``, ``head``, a per-layer list, and the
+    MTP params where the reference has them."""
     device = resolve_device(device)
     conv = lambda a: to_tensor(a, device)  # noqa: E731
-    return {
+    out = {
         "embed": _tree(ref["embed"], conv),
         "final_norm": _tree(ref["final_norm"], conv),
         "head": _tree(ref["head"], conv),
         "layers": [_tree(layer, conv) for layer in _unstack(ref["blocks"], _leading)],
     }
+    for key in ("mtp_block", "mtp_proj", "mtp_norm"):
+        if key in ref:
+            out[key] = _tree(ref[key], conv)
+    return out
 
 
 def caches_from_reference(ref: list, device=None) -> list:
-    """The reference's dense-family caches (a list of scan groups, each
-    ``{"self": {leaf: (count, ...)}}``) -> the port's per-layer list of
+    """The reference's caches (a list of scan groups: a GQA group is
+    ``{"self": {leaf: (count, ...)}}``, an MLA group ``{"c", "c_s", "r"}``
+    with no ``"self"`` level) -> the port's per-layer list of
     ``{leaf: tensor}``."""
     device = resolve_device(device)
-    return [_tree(layer["self"], lambda a: to_tensor(a, device))
+    return [_tree(layer.get("self", layer), lambda a: to_tensor(a, device))
             for layer in _unstack(ref, _leading)]
 
 

@@ -28,7 +28,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 #: one shared library per source; the C entry points each one exports
-SOURCES = ("mpmm", "paged_attn", "paged_scatter", "paged_gather", "qntpack", "conv2d")
+SOURCES = ("mpmm", "paged_attn", "paged_mla_attn", "paged_scatter", "paged_gather",
+           "qntpack", "conv2d")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -16,8 +16,8 @@ device a kernel that does not build or launch raises.
 
 Ops in the registry: ``mpmm`` and ``conv2d`` (all 27 (x, w, y) cells),
 ``qntpack`` (one cell per output width y), ``paged_gather`` and
-``paged_scatter`` (one storage-agnostic cell each) and ``paged_attn`` (one
-cell per KV width).
+``paged_scatter`` (one storage-agnostic cell each), ``paged_attn`` and
+``paged_mla_attn`` (one cell per KV width each).
 """
 
 from __future__ import annotations
@@ -62,7 +62,8 @@ DISPATCH_COUNTS: collections.Counter = collections.Counter()
 
 IMPLS = ("cuda", "torch")
 
-#: KV-cache storage widths (bf16, int8, packed int4); paged_attn keys on them.
+#: KV-cache storage widths (bf16, int8, packed int4); paged_attn and
+#: paged_mla_attn key on them.
 KV_BITS = (None, 8, 4)
 
 
@@ -115,8 +116,8 @@ def coverage(op: str, impl: str) -> set[tuple]:
 def validate_coverage() -> None:
     """The import-time gate over the cells the port has: mpmm and conv2d
     cover all 27 permutations, qntpack every output width, paged_gather and
-    paged_scatter one cell each and paged_attn every KV width, on both
-    implementations."""
+    paged_scatter one cell each, paged_attn and paged_mla_attn every KV
+    width, on both implementations."""
     missing: list[str] = []
     for impl in IMPLS:
         for op in ("mpmm", "conv2d"):
@@ -129,10 +130,11 @@ def validate_coverage() -> None:
         for op in ("paged_gather", "paged_scatter"):
             if not coverage(op, impl):
                 missing.append(f"{op}@{impl}")
-        have_kv = {c[1] for c in coverage("paged_attn", impl)}
-        for b in KV_BITS:
-            if b not in have_kv:
-                missing.append(f"paged_attn[kv={b}]@{impl}")
+        for op in ("paged_attn", "paged_mla_attn"):
+            have_kv = {c[1] for c in coverage(op, impl)}
+            for b in KV_BITS:
+                if b not in have_kv:
+                    missing.append(f"{op}[kv={b}]@{impl}")
     if missing:
         raise RuntimeError(f"kernel matrix has {len(missing)} unregistered cells: {missing}")
 
@@ -166,7 +168,12 @@ def ensure_policy_supported(policy) -> None:
 def _register_library() -> None:
     from repro_torch.kernels.conv2d import conv2d_cuda
     from repro_torch.kernels.mpmm import mpmm_cuda
-    from repro_torch.kernels.paged_attn import paged_attn_cuda, paged_attn_ref
+    from repro_torch.kernels.paged_attn import (
+        paged_attn_cuda,
+        paged_attn_ref,
+        paged_mla_attn_cuda,
+        paged_mla_attn_ref,
+    )
     from repro_torch.kernels.paged_gather import (
         paged_gather_cuda,
         paged_gather_ref,
@@ -205,6 +212,12 @@ def _register_library() -> None:
         register("paged_attn", w_bits=kv_bits, impl="torch",
                  fn=functools.partial(paged_attn_ref, bits=kv_bits),
                  name=f"paged_attn_{tag}_ref")
+        register("paged_mla_attn", w_bits=kv_bits, impl="cuda",
+                 fn=functools.partial(paged_mla_attn_cuda, bits=kv_bits),
+                 name=f"paged_mla_attn_{tag}")
+        register("paged_mla_attn", w_bits=kv_bits, impl="torch",
+                 fn=functools.partial(paged_mla_attn_ref, bits=kv_bits),
+                 name=f"paged_mla_attn_{tag}_ref")
 
 
 _register_library()

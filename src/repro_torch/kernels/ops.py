@@ -1,13 +1,15 @@
 """Public entry points for the port's kernels (counterpart of
 ``repro.kernels.ops``): ``mpmm``, ``qntpack``, ``conv2d``, ``paged_gather``,
-``paged_scatter`` and ``paged_attn``, plus the quantize-and-pack helpers.
+``paged_scatter``, ``paged_attn`` and ``paged_mla_attn``, plus the
+quantize-and-pack helpers.
 
 Every call routes through the dispatch registry. ``impl="auto"`` launches
 the CUDA kernel for CUDA tensors and uses the plain PyTorch version for CPU
 tensors. The CUDA kernels mask their own ragged edges, so nothing is padded
 here (the conv's 1-pixel border included). Tile sizes are static: the
-dense-view block size of ``paged_attn`` is 16 (the reference's static
-default, ``kernels/tuning.py``); the autotuner is not ported yet.
+dense-view block size of ``paged_attn`` and ``paged_mla_attn`` is 16 (the
+reference's static default, ``kernels/tuning.py``); the autotuner is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -163,6 +165,31 @@ def paged_attn(
         (k, k_s, v, v_s), block_table = _dense_as_pool(
             (k, k_s, v, v_s), B, S, _snap_divisor(bs or PAGED_ATTN_BS, S))
     return entry.fn(q, k, k_s, v, v_s, pos, block_table, window=window)
+
+
+def paged_mla_attn(
+    q_lat: torch.Tensor,  # (B, H, C) absorbed query (q_nope . W_uk), f32
+    q_rope: torch.Tensor,  # (B, H, dr) rotary query, f32
+    c: torch.Tensor,  # latent pages, pool (P, ps, 1, C/r) or dense (B, S, 1, C/r)
+    c_s: Optional[torch.Tensor],  # matching (..., 1) scales; None when bf16
+    r: torch.Tensor,  # shared rope-key rows, same layout as c with a dr tail
+    pos: torch.Tensor,  # (B,) int32 last valid cache row per slot
+    *,
+    bits: Optional[int],
+    scale: float,
+    block_table: Optional[torch.Tensor] = None,  # (B, NB) int32; None = dense
+    impl: Impl = "auto",
+) -> torch.Tensor:
+    """Fused absorbed-MLA decode attention; the latent pages stay
+    compressed. Returns the latent context (B, H, C) f32: the caller applies
+    W_uv. The dense layout is viewed as a pool exactly as in
+    :func:`paged_attn`, at its block size."""
+    entry = dispatch.lookup("paged_mla_attn", device=q_lat.device, w_bits=bits, impl=impl)
+    if block_table is None:
+        B, S = c.shape[0], c.shape[1]
+        (c, c_s, r), block_table = _dense_as_pool(
+            (c, c_s, r), B, S, _snap_divisor(PAGED_ATTN_BS, S))
+    return entry.fn(q_lat, q_rope, c, c_s, r, pos, block_table, scale=scale)
 
 
 # ------------------------------------------------------- quantize-and-pack IO

@@ -1,6 +1,6 @@
-"""Fused paged-attention decode, GQA variant (counterpart of
-``repro.kernels.paged_attn``): the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Fused paged-attention decode (counterpart of ``repro.kernels.paged_attn``):
+the GQA variant and the absorbed MLA variant, each a CUDA kernel's wrapper
+and its plain PyTorch version.
 
 One query token per slot attends over K/V pages ``(P, ps, Hkv, D/r)`` plus
 per-(token, head) scales, walking the slot's block-table row. Dequantization
@@ -9,6 +9,12 @@ rounds through bf16 (``(int * scale) -> bf16 -> f32``) to match
 The plain version mirrors the reference twin's page-blocked running softmax
 step for step; the kernel (``csrc/paged_attn.cu``) follows the same steps,
 so the two differ only in the order of the float sums inside a dot.
+
+The MLA variant (``paged_mla_attn``, kernel ``csrc/paged_mla_attn.cu``)
+scores every head's absorbed query against the compressed latent pages
+``c`` (one shared latent row per token) plus the shared rope key ``r``,
+``s = (q_lat . c + q_rope . r) * scale``, and accumulates the context in
+latent space: ``(B, H, kv_lora)``, to which the caller applies W_uv.
 """
 
 from __future__ import annotations
@@ -114,4 +120,87 @@ def paged_attn_cuda(q, k, k_s, v, v_s, pos, block_table, *,
              1.0 / (D**0.5), build.stream_ptr(dev))
     build.check(err, "paged_attn_launch")
     build.LAUNCHES["paged_attn"] += 1
+    return out
+
+
+# ---------------------------------------------------- MLA absorbed decode
+
+_MLA_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                 + [ctypes.c_void_p])
+
+
+def paged_mla_attn_ref(q_lat, q_rope, c, c_s, r, pos, block_table, *,
+                       bits: Optional[int], scale: float) -> torch.Tensor:
+    """The reference twin's page-blocked running softmax, step for step,
+    vectorized over (slot, head). Returns the latent context (B, H, C) f32."""
+    B, H, C = q_lat.shape
+    ps = c.shape[1]
+    NB = block_table.shape[1]
+    ql = q_lat.to(torch.float32)
+    qr = q_rope.to(torch.float32)
+    pos = pos.to(torch.int32).reshape(B)
+    bt = block_table.long()
+    m = torch.full((B, H), BIG_NEG, dtype=torch.float32, device=ql.device)
+    l = torch.zeros((B, H), dtype=torch.float32, device=ql.device)
+    acc = torch.zeros((B, H, C), dtype=torch.float32, device=ql.device)
+    ar = torch.arange(ps, dtype=torch.int32, device=ql.device)
+    for j in range(NB):
+        pages = bt[:, j]
+        cf = _dequant(c[pages][:, :, 0], None if bits is None else c_s[pages][:, :, 0], bits)
+        rf = r[pages][:, :, 0].to(torch.float32)  # (B, ps, dr)
+        s = (torch.matmul(ql, cf.transpose(1, 2)) + torch.matmul(qr, rf.transpose(1, 2))) * scale
+        kpos = j * ps + ar
+        vmask = (kpos[None] <= pos[:, None])[:, None, :]  # (B, 1, ps)
+        s = torch.where(vmask, s, torch.tensor(BIG_NEG, dtype=torch.float32, device=ql.device))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(vmask, torch.exp(s - m_new[..., None]),
+                        torch.zeros((), dtype=torch.float32, device=ql.device))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(p, cf)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def paged_mla_attn_cuda(q_lat, q_rope, c, c_s, r, pos, block_table, *,
+                        bits: Optional[int], scale: float) -> torch.Tensor:
+    """Launch the CUDA kernel. q_lat (B, H, C) f32; q_rope (B, H, dr) f32;
+    c (P, ps, 1, C/r) int8 (bf16 when ``bits`` is None); c_s (P, ps, 1) f32;
+    r (P, ps, 1, dr) bf16; pos (B,) int32; block_table (B, NB) int32.
+    Returns (B, H, C) f32."""
+    dev = q_lat.device
+    if dev.type != "cuda":
+        raise ValueError(f"paged_mla_attn_cuda needs CUDA tensors, got {dev}")
+    B, H, C = q_lat.shape
+    dr = q_rope.shape[-1]
+    P_, ps, one, Cr = c.shape
+    rr = 1 if bits is None else P.pack_ratio(bits)
+    if one != 1 or Cr * rr != C:
+        raise ValueError(f"latent pages {tuple(c.shape)} do not hold C={C} at bits={bits}")
+    build.check_tensor(q_lat, "q_lat", torch.float32, dev)
+    build.check_tensor(q_rope, "q_rope", torch.float32, dev, (B, H, dr))
+    build.check_tensor(c, "c", torch.bfloat16 if bits is None else torch.int8, dev)
+    if bits is not None:
+        build.check_tensor(c_s, "c_s", torch.float32, dev, (P_, ps, 1))
+    build.check_tensor(r, "r", torch.bfloat16, dev, (P_, ps, 1, dr))
+    build.check_tensor(pos, "pos", torch.int32, dev, (B,))
+    build.check_tensor(block_table, "block_table", torch.int32, dev)
+    if block_table.shape[0] != B:
+        raise ValueError(f"block_table rows {block_table.shape[0]} != B={B}")
+    # the kernel stages pages with 16-byte loads: rows of whole 16-byte vectors
+    if (C * _BITS_CODE[bits]) % 128 or dr % 8 or c.data_ptr() % 16 or r.data_ptr() % 16:
+        raise ValueError(f"paged_mla_attn_cuda needs 16-byte latent and rope rows and pools "
+                         f"(C={C} at bits={bits}, dr={dr})")
+    NB = block_table.shape[1]
+    out = torch.empty((B, H, C), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    fn = build.lib("paged_mla_attn").paged_mla_attn_launch
+    fn.argtypes, fn.restype = _MLA_ARGTYPES, ctypes.c_int
+    err = fn(q_lat.data_ptr(), q_rope.data_ptr(), c.data_ptr(),
+             c_s.data_ptr() if bits is not None else None, r.data_ptr(), pos.data_ptr(),
+             block_table.data_ptr(), out.data_ptr(), B, H, C, dr, ps, NB, _BITS_CODE[bits],
+             float(scale), build.stream_ptr(dev))
+    build.check(err, "paged_mla_attn_launch")
+    build.LAUNCHES["paged_mla_attn"] += 1
     return out

@@ -1,18 +1,24 @@
-"""Architecture assembly for serving, dense family (counterpart of
-``repro.models.model``).
+"""Architecture assembly for serving (counterpart of ``repro.models.model``):
+the dense family, and the MLA layers of the mla_moe family.
 
 Params are plain nested dicts of tensors: ``embed``, ``final_norm``,
 ``head`` and ``layers``, a list with one block dict per layer (the
-reference stacks layers on a leading scan axis; the port loops over them).
-Caches are a list with one dict per layer, ``{"k", "k_s", "v", "v_s"}``:
-dense (n_slots, s_max, Hkv, hd/r) stripes, or a shared (n_pages,
-page_size, Hkv, hd/r) pool addressed by block tables. Caches are written in
+reference stacks layers on a leading scan axis; the port loops over them),
+plus ``mtp_block`` / ``mtp_proj`` / ``mtp_norm`` when ``cfg.mtp`` (the
+reference's training-only multi-token-prediction head; serving never reads
+them). Each layer's kind (``dense`` or ``mla_dense``) follows from the
+config (:func:`_layer_kinds`). Caches are a list with one dict per layer:
+``{"k", "k_s", "v", "v_s"}`` for GQA layers, ``{"c", "c_s", "r"}`` for MLA
+layers; dense (n_slots, s_max, ...) stripes, or a shared (n_pages,
+page_size, ...) pool addressed by block tables. Caches are written in
 place.
 
 Every projection routes through ``core.linear`` under the active
 PrecisionPolicy. Ported: serve-mode ``init_params``, ``init_cache``,
 ``init_paged_cache``, ``decode_step``, ``prefill_chunk``,
 ``prefill_into_slot``, ``prefill_into_pages`` and greedy ``sample_tokens``.
+Mixture-of-Experts layers (``mla_moe``, the moe family) are not ported:
+a config that has one raises at ``init_params`` / ``init_cache``.
 """
 
 from __future__ import annotations
@@ -27,7 +33,16 @@ from repro_torch import resolve_device
 from repro_torch.core.linear import linear_apply, linear_init
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.kernels import dispatch, ops
-from repro_torch.models.attention import AttnCfg, attn_apply, attn_init, cache_init
+from repro_torch.models.attention import (
+    AttnCfg,
+    MLACfg,
+    attn_apply,
+    attn_init,
+    cache_init,
+    mla_apply,
+    mla_cache_init,
+    mla_init,
+)
 from repro_torch.models.common import NORMS, embed_apply, embed_init
 from repro_torch.models.ffn import MLPCfg, mlp_apply, mlp_init
 
@@ -35,7 +50,7 @@ from repro_torch.models.ffn import MLPCfg, mlp_apply, mlp_init
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # the port serves "dense"
+    family: str  # the port serves "dense" and the MLA layers of "mla_moe"
     n_layers: int
     d_model: int
     n_heads: int
@@ -48,6 +63,21 @@ class ArchConfig:
     norm: str = "rms"
     act: str = "silu"
     rope_theta: float = 10_000.0
+    # moe
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared: int = 0
+    shared_d_ff: int = 0
+    dense_layers: int = 0  # deepseek-v3: first 3 layers dense
+    # mla (deepseek)
+    mla: bool = False
+    q_lora: int = 1536
+    kv_lora: int = 512
+    d_nope: int = 128
+    d_rope: int = 64
+    d_v: int = 128
+    mtp: bool = False
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -65,26 +95,72 @@ class ArchConfig:
                        rope_theta=self.rope_theta)
 
     @property
+    def mla_cfg(self) -> MLACfg:
+        return MLACfg(d_model=self.d_model, n_heads=self.n_heads, q_lora=self.q_lora,
+                      kv_lora=self.kv_lora, d_nope=self.d_nope, d_rope=self.d_rope,
+                      d_v=self.d_v, rope_theta=self.rope_theta)
+
+    @property
     def mlp_cfg(self) -> MLPCfg:
         return MLPCfg(self.d_model, self.d_ff, self.act, gated=self.act != "gelu")
 
 
 #: Families the port can prefill in chunks and page (the reference also
-#: covers moe / mla_moe / vlm; those families are not ported yet).
-PREFILL_CHUNKABLE_FAMILIES = ("dense",)
-PAGEABLE_FAMILIES = ("dense",)
+#: covers moe and vlm; those families are not ported yet). An mla_moe
+#: config is served when all its layers are MLA-dense (see _check_family).
+PREFILL_CHUNKABLE_FAMILIES = ("dense", "mla_moe")
+PAGEABLE_FAMILIES = ("dense", "mla_moe")
+#: layer kinds the port builds
+PORTED_KINDS = ("dense", "mla_dense")
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (dense only)")
+def _layer_kinds(cfg: ArchConfig) -> list[str]:
+    """Per-layer block kind (the reference's ``_layer_kinds``, for the
+    families the port knows)."""
+    if cfg.family == "dense":
+        return ["dense"] * cfg.n_layers
+    if cfg.family == "mla_moe":
+        return (["mla_dense"] * cfg.dense_layers
+                + ["mla_moe"] * (cfg.n_layers - cfg.dense_layers))
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+
+def _check_family(cfg: ArchConfig) -> list[str]:
+    """The layer kinds of ``cfg``; raises if one is not ported (an
+    ``mla_moe`` layer needs the MoE feed-forward: never a dense stand-in)."""
+    kinds = _layer_kinds(cfg)
+    missing = sorted(set(kinds) - set(PORTED_KINDS))
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: layer kind(s) {missing} are not ported yet (Mixture-of-Experts); "
+            f"the port builds {PORTED_KINDS}")
+    return kinds
+
+
+def _mlp_cfg(cfg: ArchConfig, kind: str) -> MLPCfg:
+    if kind == "mla_dense":  # deepseek dense layers: d_ff 18432 = 9 * 2048
+        return MLPCfg(cfg.d_model, cfg.d_ff * 9, cfg.act)
+    return cfg.mlp_cfg
+
+
+def _block_init(gen, cfg: ArchConfig, policy, kind: str, device, dtype) -> dict:
+    ninit, _ = NORMS[cfg.norm]
+    kw = dict(device=device, dtype=dtype)
+    attn = (mla_init(gen, cfg.mla_cfg, policy, **kw) if kind == "mla_dense"
+            else attn_init(gen, cfg.attn_cfg, policy, **kw))
+    return {
+        "norm1": ninit(cfg.d_model, device=device),
+        "norm2": ninit(cfg.d_model, device=device),
+        "attn": attn,
+        "mlp": mlp_init(gen, _mlp_cfg(cfg, kind), policy, **kw),
+    }
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, policy: PrecisionPolicy, *,
                 device=None, dtype=torch.bfloat16) -> dict:
     """Serve-mode params with placeholder weights drawn from ``gen`` (a
     ``torch.Generator`` on ``device``; None means CUDA)."""
-    _check_family(cfg)
+    kinds = _check_family(cfg)
     device = resolve_device(device)
     dispatch.ensure_policy_supported(policy)
     ninit, _ = NORMS[cfg.norm]
@@ -93,39 +169,43 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, policy: PrecisionPolicy, 
         "final_norm": ninit(cfg.d_model, device=device),
         "head": linear_init(gen, cfg.d_model, cfg.vocab_padded, policy.of("head"),
                             device=device, dtype=dtype),
-        "layers": [],
+        "layers": [_block_init(gen, cfg, policy, kind, device, dtype) for kind in kinds],
     }
-    for _ in range(cfg.n_layers):
-        params["layers"].append({
-            "norm1": ninit(cfg.d_model, device=device),
-            "norm2": ninit(cfg.d_model, device=device),
-            "attn": attn_init(gen, cfg.attn_cfg, policy, device=device, dtype=dtype),
-            "mlp": mlp_init(gen, cfg.mlp_cfg, policy, device=device, dtype=dtype),
-        })
+    if cfg.mtp:
+        params["mtp_block"] = _block_init(gen, cfg, policy, "mla_dense", device, dtype)
+        params["mtp_proj"] = linear_init(gen, 2 * cfg.d_model, cfg.d_model, policy.of("head"),
+                                         device=device, dtype=dtype)
+        params["mtp_norm"] = ninit(cfg.d_model, device=device)
     return params
 
 
 def _run_stack(params, x, pos, cfg: ArchConfig, policy, *, impl, caches, cache_pos,
                attend_cached=False, block_tables=None, fused_attn=False):
     _, nfn = NORMS[cfg.norm]
-    for lp, cache in zip(params["layers"], caches):
+    kw = dict(impl=impl, cache_pos=cache_pos, attend_cached=attend_cached,
+              block_table=block_tables, fused=fused_attn)
+    for lp, cache, kind in zip(params["layers"], caches, _layer_kinds(cfg), strict=True):
         h = nfn(lp["norm1"], x)
-        a, _ = attn_apply(lp["attn"], h, pos, cfg.attn_cfg, policy, impl=impl, cache=cache,
-                          cache_pos=cache_pos, attend_cached=attend_cached,
-                          block_table=block_tables, fused=fused_attn)
+        if kind == "mla_dense":
+            a, _ = mla_apply(lp["attn"], h, pos, cfg.mla_cfg, policy, cache=cache, **kw)
+        else:
+            a, _ = attn_apply(lp["attn"], h, pos, cfg.attn_cfg, policy, cache=cache, **kw)
         x = x + a
         h = nfn(lp["norm2"], x)
-        x = x + mlp_apply(lp["mlp"], h, cfg.mlp_cfg, policy, impl=impl)
+        x = x + mlp_apply(lp["mlp"], h, _mlp_cfg(cfg, kind), policy, impl=impl)
     return x
 
 
 def init_cache(cfg: ArchConfig, policy: PrecisionPolicy, batch: int, s_max: int, *,
                device=None) -> list:
-    """Per-layer dense caches (``device`` None means CUDA)."""
-    _check_family(cfg)
+    """Per-layer dense caches (``device`` None means CUDA): K/V leaves for
+    GQA layers, latent ``c`` / ``c_s`` / ``r`` leaves for MLA layers."""
+    kinds = _check_family(cfg)
     device = resolve_device(device)
-    return [cache_init(batch, s_max, cfg.kv_heads, cfg.head_dim, policy.kv_cache_bits,
-                       device=device) for _ in range(cfg.n_layers)]
+    bits = policy.kv_cache_bits
+    return [mla_cache_init(batch, s_max, cfg.mla_cfg, bits, device=device) if kind == "mla_dense"
+            else cache_init(batch, s_max, cfg.kv_heads, cfg.head_dim, bits, device=device)
+            for kind in kinds]
 
 
 def init_paged_cache(cfg: ArchConfig, policy: PrecisionPolicy, n_pages: int,

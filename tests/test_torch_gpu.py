@@ -6,10 +6,12 @@ imports no JAX, so it runs where only PyTorch is installed.
 
 Tolerances: mpmm, conv2d and qntpack are integer kernels and paged_gather
 and paged_scatter copy kernels, all bit-exact;
-paged_attn follows the plain version's page-blocked softmax but sums inside
-its dots in another order, so atol = rtol = 1e-5 (the reference's own
-fused-vs-twin bound).
+paged_attn and paged_mla_attn follow the plain version's page-blocked
+softmax but sum inside their dots in another order, so atol = rtol = 1e-5
+(the reference's own fused-vs-twin bound).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -78,6 +80,66 @@ def test_paged_attn_kernel_vs_plain(dev, bits, window):
     a = ops.paged_attn(q, kq, ks, vq, vs, pos, bits=bits, window=window, impl="cuda", bs=ps)
     b = ops.paged_attn(q, kq, ks, vq, vs, pos, bits=bits, window=window, impl="torch", bs=ps)
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "kv8", "kv4"])
+def test_paged_mla_attn_kernel_vs_plain(dev, bits):
+    """H = 18 heads (a partial group of the kernel's 4 per block), a
+    shuffled block table, slot 0 with its last pages masked and slot 1
+    mid-page; then the dense slot layout through the identity-table view.
+    Latent rows that are not whole 16-byte vectors are refused."""
+    g = torch.Generator().manual_seed(5)
+    B, H, C, dr, ps, nb = 3, 18, 64, 16, 16, 4
+    P_ = B * nb + 1
+    q_lat = torch.randn((B, H, C), generator=g).to(dev)
+    q_rope = torch.randn((B, H, dr), generator=g).to(dev)
+    cq, cs = A.kv_quantize(torch.randn((P_, ps, 1, C), generator=g).to(dev), bits)
+    r = torch.randn((P_, ps, 1, dr), generator=g).to(torch.bfloat16).to(dev)
+    bt = (torch.randperm(P_ - 1, generator=g)[: B * nb] + 1).reshape(B, nb).to(torch.int32)
+    bt = bt.to(dev)
+    pos = torch.tensor([5, 37, nb * ps - 1], dtype=torch.int32, device=dev)
+    kw = dict(bits=bits, scale=1.0 / (C + dr) ** 0.5)
+    a = ops.paged_mla_attn(q_lat, q_rope, cq, cs, r, pos, block_table=bt, impl="cuda", **kw)
+    b = ops.paged_mla_attn(q_lat, q_rope, cq, cs, r, pos, block_table=bt, impl="torch", **kw)
+    torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+    def dense(x):
+        return None if x is None else x[bt.long()].reshape(B, nb * ps, *x.shape[2:])
+
+    a = ops.paged_mla_attn(q_lat, q_rope, dense(cq), dense(cs), dense(r), pos, impl="cuda", **kw)
+    torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert build.LAUNCHES["paged_mla_attn"] > 0
+    if bits == 4:  # 16 int4 values are 8 bytes: half a vector
+        with pytest.raises(ValueError, match="16-byte"):
+            ops.paged_mla_attn(q_lat[..., :16].contiguous(), q_rope, cq[..., :8].contiguous(),
+                               cs, r, pos, block_table=bt, impl="cuda", **kw)
+
+
+def test_mla_engine_slot_and_paged_streams_identical(dev):
+    """Reduced DeepSeek-V3 (two MLA-dense layers), w4a8, kv8, on the card:
+    greedy streams identical on slot and paged caches, fused (through
+    paged_mla_attn) and unfused (paged: through paged_gather)."""
+    cfg = dataclasses.replace(configs.reduced(configs.get_arch("deepseek-v3-671b")),
+                              dense_layers=2)
+    policy = get_policy("w4a8")
+    params = _to(M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu"), dev)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=n).astype(np.int32) for n in (3, 9, 5, 2, 7)]
+    outs = {}
+    for fused in (True, False):
+        for cache in ("slot", "paged"):
+            build.reset_launches()
+            eng = ServeEngine(params, cfg, policy, n_slots=2, s_max=32, prefill_chunk=4,
+                              cache=cache, page_size=16 if cache == "paged" else None,
+                              fused_attn=fused, device=dev)
+            outs[fused, cache] = eng.run(
+                [Request(rid=i, prompt=pr, max_new=6) for i, pr in enumerate(prompts)])
+            assert build.LAUNCHES["mpmm"] > 0
+            assert (build.LAUNCHES["paged_mla_attn"] > 0) == fused
+            assert (build.LAUNCHES["paged_scatter"] > 0) == (cache == "paged")
+            assert (build.LAUNCHES["paged_gather"] > 0) == (cache == "paged" and not fused)
+        assert outs[fused, "slot"] == outs[fused, "paged"]
+        assert all(len(t) == 6 for t in outs[fused, "slot"].values())
 
 
 def test_paged_scatter_kernel_bit_exact(dev):

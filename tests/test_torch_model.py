@@ -14,6 +14,8 @@ Tolerances and why:
     ROADMAP Queue 3.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -212,6 +214,62 @@ def test_unfused_paged_decode_bit_exact(params):
         assert torch.equal(got, dense)
         toks = np.asarray(got.float().argmax(-1)).astype(np.int32)
     _assert_caches_equal(jc, tc)
+
+
+MLA_TINY = dataclasses.replace(configs.reduced(configs.get_arch("deepseek-v3-671b")),
+                               dense_layers=2)
+MLA_TTINY = dataclasses.replace(tconfigs.reduced(tconfigs.get_arch("deepseek-v3-671b")),
+                                dense_layers=2)
+
+
+def _shapes(tree):
+    return [(p, tuple(a.shape), a.dtype) for p, a in jax.tree_util.tree_leaves_with_path(tree)]
+
+
+@pytest.mark.parametrize("part", ["mla_params", "mtp_params", "mla_caches", "mla_pool"])
+def test_bridge_round_trip_mla(part):
+    """The bridge on the expert-free reduced DeepSeek-V3: the scan group of
+    ``mla_dense`` layers unstacks into per-layer trees, the MTP params cross
+    as single trees, the MLA cache groups (``c`` / ``c_s`` / ``r``, no
+    ``"self"`` level) unstack per layer; every leaf byte-identical to the
+    reference's, every tree shaped like the port's own init."""
+    if part.endswith("params"):
+        jp = _np(RM.init_params(jax.random.key(4), MLA_TINY, POLICY, mode="serve"))
+        tp = bridge.params_from_reference(jp, device="cpu")
+        own = TM.init_params(torch.Generator().manual_seed(0), MLA_TTINY, TPOLICY, device="cpu")
+        if part == "mla_params":
+            (group,) = jp["blocks"]
+            assert len(tp["layers"]) == len(own["layers"]) == 2
+            pairs = [(jax.tree.map(lambda a, i=i: a[i], group), tp["layers"][i], own["layers"][i])
+                     for i in range(2)]
+            assert sorted(tp["layers"][0]["attn"]) == ["kv_norm", "q_norm", "wkv_a", "wkv_b",
+                                                       "wo", "wq_a", "wq_b"]
+        else:
+            pairs = [(jp[k], tp[k], own[k]) for k in ("mtp_block", "mtp_proj", "mtp_norm")]
+        for ref, got, mine in pairs:
+            assert _shapes(got) == _shapes(mine)
+            for (path, r), g in zip(jax.tree_util.tree_leaves_with_path(ref),
+                                    jax.tree_util.tree_leaves(got)):
+                np.testing.assert_array_equal(bridge.to_numpy(g).reshape(-1).view(np.uint8),
+                                              np.asarray(r).reshape(-1).view(np.uint8),
+                                              err_msg=str(path))
+        return
+    rng = np.random.RandomState(6)
+    if part == "mla_caches":
+        jc = RM.init_cache(MLA_TINY, POLICY, B, S_MAX)
+        own = TM.init_cache(MLA_TTINY, TPOLICY, B, S_MAX, device="cpu")
+    else:
+        jc = RM.init_paged_cache(MLA_TINY, POLICY, 5, PS)
+        own = TM.init_paged_cache(MLA_TTINY, TPOLICY, 5, PS, device="cpu")
+    jc = jax.tree.map(lambda a: (rng.randn(*a.shape) * 40).clip(-100, 100).astype(a.dtype), _np(jc))
+    (group,) = jc
+    assert sorted(group) == ["c", "c_s", "r"]
+    tc = bridge.caches_from_reference(jc, device="cpu")
+    assert _shapes(tc) == _shapes(own)
+    got = bridge.caches_to_numpy(tc)
+    for i in range(2):
+        for k in ("c", "c_s", "r"):
+            np.testing.assert_array_equal(got[i][k].view(np.uint8), group[k][i].view(np.uint8))
 
 
 def test_sample_tokens_greedy_first_maximum():
