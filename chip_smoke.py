@@ -37,16 +37,31 @@ Phases, in order (any failure ends the run with a nonzero exit):
      latent cache, the same 4 greedy requests, on the slot cache and then
      the paged cache (fused decode: paged_mla_attn), then both again with
      ``fused_attn=False`` (the paged read through paged_gather); slot and
-     paged streams identical, fused and unfused; then a teacher-forced MLA
+     paged streams identical, fused and unfused; then phase 9's five
+     requests on a cold paged engine and on a prefix engine (streams
+     identical, paged_copy launched); then a teacher-forced MLA
      decode step (kernel vs plain), the MLA step's breakdown, and
      paged_mla_attn's time per decode step beside its bound, its plain
      version and ``F.scaled_dot_product_attention`` on the bf16 cell.
      Phase 2 holds paged_mla_attn against its plain version on bf16 / kv8 /
-     kv4 at H 128, C 512, dr 64, pages of 16 (tolerance ATTN_TOL).
+     kv4 at H 128, C 512, dr 64, pages of 16 (tolerance ATTN_TOL);
+  9. the prefix path (run right after phase 5, on internlm2's weights):
+     a 360-token shared system prompt (22 full pages and 8 rows) drawn from
+     SEED and five requests: (a) shared + 152 unique tokens, (b) shared + 24
+     other ones (diverging inside the partial page: a COW clone), (c) (a)
+     again (the S-1 cap), (d) the shared prompt's first 256 tokens, (e) an
+     unrelated 512-token prompt; served on a cold paged engine and then on a
+     prefix engine. The streams must be identical, paged_copy must have
+     launched, the hit rate must be above 0, at least 3 COW clones made and
+     fewer prefill calls spent. Phase 2 holds paged_copy bit-exact against
+     its plain version on every internlm2 kv8 and DeepSeek-V3 latent leaf
+     (disjoint, overlapping and self-copies; host and device ids), and
+     phase 7 times one COW clone (all 96 leaves).
 
-Phases 3, 4, 5 and 8 each start with every launch count at 0 (phase 8 once
-for its fused runs and once for its unfused runs) and read the counts at
-their end; the kernels line gives each kernel the count of its own path.
+Phases 3, 4, 5, 8 and 9 each start with every launch count at 0 (phase 8
+once for its fused runs, once for its unfused runs and once for its prefix
+run) and read the counts at their end; the kernels line gives each kernel
+the count of its own path (paged_copy: phase 9's prefix run).
 
 The line before the last is the kernels JSON, the last line the result
 JSON.
@@ -83,6 +98,9 @@ COLD_STEPS = 8
 
 PROMPT_LENS = (128, 256, 384, 512)
 MAX_NEW = 32
+#: the prefix path: a shared system prompt of 22 full pages and 8 rows, and
+#: the unique tail lengths of requests (a) and (b)
+SHARED_LEN, UNIQ_A, UNIQ_B = 360, 152, 24
 N_SLOTS, S_MAX, PAGE_SIZE = 4, 1024, 16
 SEED = 0
 #: the paper's Tab. 1 QntPack shape (M, N)
@@ -403,6 +421,42 @@ def check_paged_gather(torch, dev, cfg, report):
         "pages, ids past the pool and negative ids included")
 
 
+def check_paged_copy(torch, dev, cfg, mcfg, report):
+    """paged_copy against its plain version on every leaf of an internlm2
+    kv8 layer and a DeepSeek-V3 latent layer, pages of 16: disjoint ids on
+    the host (one launch), an overlap (a dst page read later as a src reads
+    the original bits) and a self-copy, on host and on device ids (two
+    launches through the staging buffer)."""
+    from repro_torch.kernels import build, ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    P_ = N_SLOTS * (S_MAX // PAGE_SIZE) + 1
+    hkv, d = cfg.kv_heads, cfg.head_dim
+    leaves = {"k/v int8": (torch.int8, (hkv, d)), "k_s/v_s f32": (torch.float32, (hkv,)),
+              "c int8": (torch.int8, (1, mcfg.kv_lora)), "c_s f32": (torch.float32, (1,)),
+              "r bf16": (torch.bfloat16, (1, mcfg.d_rope))}
+    cases = (([3, 17], [40, 41]), ([1, 2], [2, 3]), ([5, 7], [5, 9]))
+    n = 0
+    for name, (dtype, tail) in leaves.items():
+        pool = torch.randn((P_, PAGE_SIZE, *tail), generator=g, device=dev).mul(40)
+        pool = pool.clamp(-100, 100).to(dtype)
+        for src, dst in cases:
+            s_, d_ = (torch.tensor(x, dtype=torch.int32) for x in (src, dst))
+            want = ops.paged_copy(pool.clone(), s_, d_, impl="torch")
+            for ids in ((s_, d_), (s_.to(dev), d_.to(dev))):
+                got = ops.paged_copy(pool.clone(), *ids, impl="cuda")
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"paged_copy mismatch on {name} src={src} dst={dst} "
+                                         f"ids on {ids[0].device}")
+                n += 1
+    if build.LAUNCHES["paged_copy"] == 0:
+        raise AssertionError("paged_copy was not launched in its check")
+    report["paged_copy"] = {"max_abs_err": 0.0, "checks": n}
+    log(f"paged_copy: {n} comparisons bit-exact ({', '.join(leaves)} leaves at pages of "
+        f"{PAGE_SIZE}; disjoint, overlapping and self-copies; host and device ids)")
+
+
 # ------------------------------------------------------------- phase 3 - 6
 
 
@@ -414,24 +468,52 @@ def requests(cfg, Request):
                     max_new=MAX_NEW) for i, n in enumerate(PROMPT_LENS)]
 
 
-def serve(torch, dev, cfg, policy, params, cache, fused_attn=True):
+def prefix_requests(cfg, Request):
+    """Phase 9's five requests over one shared system prompt."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    shared = rng.randint(1, cfg.vocab, size=SHARED_LEN)
+    a = np.concatenate([shared, rng.randint(1, cfg.vocab, size=UNIQ_A)])
+    b = np.concatenate([shared, rng.randint(1, cfg.vocab, size=UNIQ_B)])
+    e = rng.randint(1, cfg.vocab, size=512)
+    if a[SHARED_LEN] == b[SHARED_LEN]:
+        raise AssertionError("requests (a) and (b) must diverge inside the partial page")
+    prompts = [a, b, a.copy(), shared[:256].copy(), e]
+    return [Request(rid=i, prompt=p.astype(np.int32), max_new=MAX_NEW)
+            for i, p in enumerate(prompts)]
+
+
+def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None):
     from repro_torch.serve import Request, ServeEngine
 
     eng = ServeEngine(params, cfg, policy, n_slots=N_SLOTS, s_max=S_MAX, cache=cache,
-                      page_size=PAGE_SIZE if cache == "paged" else None,
+                      page_size=PAGE_SIZE if cache != "slot" else None,
                       fused_attn=fused_attn, device=dev)
+    shared = [0]
+
+    def peak_shared(rid, tok):
+        shared[0] = max(shared[0], eng.cache.pages_shared())
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = eng.run(requests(cfg, Request))
+    out = eng.run(reqs if reqs is not None else requests(cfg, Request),
+                  on_token=peak_shared if cache == "prefix" else None)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     m = eng.metrics()
+    m["peak_pages_shared"] = shared[0]
     toks = m["tokens_generated"]
+    pages = (f", {m['prefill_jit_calls']} prefill calls, {m['cache/pages_drawn']} pages drawn"
+             if cache != "slot" else "")
+    if cache == "prefix":
+        pages += (f", at most {shared[0]} pages shared by live requests, hit rate "
+                  f"{m['cache/prefix_hit_rate']:.4f}, {m['cache/cow_copies']} COW clones")
     log(f"serve[{cache}{'' if fused_attn else ', unfused'}]: {toks} tokens in {dt:.3f} s ({toks / dt:.2f} tokens/s end to end), "
         f"{m['decode_steps']} decode steps, step EMA {m['step_ema_s'] * 1e3:.2f} ms, "
         f"TTFT p50 {m['slo/ttft_p50_s']:.3f} s, TPOT p50 {m['slo/tpot_p50_s'] * 1e3:.2f} ms, "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{pages}")
     for rid, t in out.items():
         if len(t) != MAX_NEW or not all(0 <= x < cfg.vocab_padded for x in t):
             raise AssertionError(f"request {rid}: bad output {t}")
@@ -479,6 +561,35 @@ def reference_layer_path(torch, dev):
     return launches
 
 
+def prefix_path(torch, dev, cfg, policy, params, key="") -> tuple[dict, dict]:
+    """Phase 9 (and phase 8's prefix run): the five requests on a cold
+    paged engine, then on a prefix engine. Returns the prefix run's launch
+    counts and the two engines' metrics."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import Request
+
+    cold, mc = serve(torch, dev, cfg, policy, params, "paged", reqs=prefix_requests(cfg, Request))
+    build.reset_launches()  # the prefix path starts here
+    warm, mw = serve(torch, dev, cfg, policy, params, "prefix", reqs=prefix_requests(cfg, Request))
+    launches = dict(build.LAUNCHES)  # the prefix path ends here
+    log(f"launches on the {key}prefix path: {launches}")
+    if warm != cold:
+        raise AssertionError(f"{key}prefix streams differ from the cold paged streams")
+    if launches.get("paged_copy", 0) == 0:
+        raise AssertionError(f"kernel paged_copy was not launched on the {key}prefix path")
+    if not (mw["cache/prefix_hit_rate"] > 0 and mw["cache/cow_copies"] >= 3):
+        raise AssertionError(f"{key}prefix path: hit rate {mw['cache/prefix_hit_rate']}, "
+                             f"{mw['cache/cow_copies']} COW clones (want > 0 and >= 3)")
+    if not mw["prefill_jit_calls"] < mc["prefill_jit_calls"]:
+        raise AssertionError(f"{key}prefix path: {mw['prefill_jit_calls']} prefill calls, cold "
+                             f"{mc['prefill_jit_calls']}")
+    log(f"{key}prefix streams identical to the cold paged streams; prefill calls "
+        f"{mc['prefill_jit_calls']} -> {mw['prefill_jit_calls']}, pages drawn "
+        f"{mc['cache/pages_drawn']} -> {mw['cache/pages_drawn']}, TTFT p50 "
+        f"{mc['slo/ttft_p50_s']:.3f} -> {mw['slo/ttft_p50_s']:.3f} s")
+    return launches, {"paged": mc, "prefix": mw}
+
+
 def teacher_forced(torch, dev, cfg, policy, params, report, key="teacher_forced"):
     """One decode step from the same prefilled cache, kernel path vs plain."""
     from repro_torch.models import model as M
@@ -513,15 +624,16 @@ def teacher_forced(torch, dev, cfg, policy, params, report, key="teacher_forced"
 # ---------------------------------------------------------------- phase 5
 
 
-def device_ms(fn, reps: int = 5, warmup: int = 2) -> tuple[float, float, str]:
+def device_ms(fn, reps: int = 5, warmup: int = 2, names=None) -> tuple[float, float, str]:
     """Medians over ``reps`` calls of ``fn()``: the device time of the
-    kernels it launches (torch.profiler, CUPTI, one window per call) and the
-    wall time between CUDA events. On the card the profiler loses the first
-    few device events of a window, so each window is a profiler schedule
-    whose first (warm-up) step runs ``fn`` untimed and whose second step is
-    read; the result names the kernels seen against the kernels the port's
-    wrappers launched. Falls back to the events where no window shows
-    device time."""
+    kernels it launches (torch.profiler, CUPTI, one window per call; only
+    the device events whose name holds one of ``names``, when given) and
+    the wall time between CUDA events. On the card the profiler loses the
+    first few device events of a window, so each window is a profiler
+    schedule whose first (warm-up) step runs ``fn`` untimed and whose second
+    step is read; the result names the kernels seen against the kernels the
+    port's wrappers launched. Falls back to the events where no window
+    shows device time."""
     import statistics
 
     import torch
@@ -552,7 +664,8 @@ def device_ms(fn, reps: int = 5, warmup: int = 2) -> tuple[float, float, str]:
             launched = sum(build.LAUNCHES.values()) - n0
             prof.step()
         seen = [e for e in prof.key_averages()
-                if (getattr(e, "self_device_time_total", 0) or 0) > 0]
+                if (getattr(e, "self_device_time_total", 0) or 0) > 0
+                and (names is None or any(n in e.key for n in names))]
         devs.append((sum(e.count for e in seen),
                      sum(e.self_device_time_total for e in seen) / 1e3, launched))
     wall = statistics.median(walls)
@@ -692,6 +805,30 @@ def kernel_table(torch, dev, cfg, params, launches, report):
     rows.append(dict(name="paged_gather", route="cuda",
                      source="src/repro_torch/csrc/paged_gather.cu",
                      replaces="src/repro/kernels/paged_gather.py:52", ms=t, plain_ms=tp,
+                     bytes=nbytes, ops=0, peak=F32_FLOPS_PER_S, library_ms=tl))
+
+    # paged_copy: one COW clone as the prefix cache makes it, one page on
+    # every leaf of every layer (4 x 24 = 96 calls), host ids (one launch a
+    # leaf, after the ids' upload); the kernel's own device time, then the
+    # whole clone's (uploads included)
+    from repro_torch.kernels.paged_gather import paged_copy_cuda, paged_copy_ref
+
+    src, dst = torch.tensor([1], dtype=torch.int32), torch.tensor([2], dtype=torch.int32)
+    cow = [(a, src, dst) for c in cases for a in (c[1], c[2], c[3], c[4])]
+    cow_dev = [(a, s_.to(dev), d_.to(dev)) for a, s_, d_ in cow]
+    t, tw, how = device_ms(lambda: [paged_copy_cuda(a, s_, d_) for a, s_, d_ in cow],
+                           names=("paged_copy_kernel",))
+    tall, _, _ = device_ms(lambda: [paged_copy_cuda(a, s_, d_) for a, s_, d_ in cow])
+    tp, tpw, _ = device_ms(lambda: [paged_copy_ref(a, s_, d_) for a, s_, d_ in cow])
+    tl, tlw, _ = device_ms(lambda: [a.index_copy_(0, d_.long(), a.index_select(0, s_.long()))
+                                    for a, s_, d_ in cow_dev])
+    nbytes = sum(2 * a[0].numel() * a.element_size() + 8 for a, _, _ in cow)
+    log(f"  paged_copy, one COW clone ({len(cow)} calls, {nbytes / 1e6:.3f} MB moved): "
+        f"{t * 1e3:.2f} us device in the kernel ({how}), {tall * 1e3:.2f} us with the ids' "
+        f"uploads, {tw:.3f} ms wall; plain {tp:.4f} ms device, {tpw:.3f} ms wall; "
+        f"index_select + index_copy_ (ids on the card) {tl:.4f} ms device, {tlw:.3f} ms wall")
+    rows.append(dict(name="paged_copy", route="cuda", source="src/repro_torch/csrc/paged_copy.cu",
+                     replaces="src/repro/kernels/paged_gather.py:141", ms=t, plain_ms=tp,
                      bytes=nbytes, ops=0, peak=F32_FLOPS_PER_S, library_ms=tl))
 
     # qntpack and conv2d: per call, timed over CALLS back-to-back launches
@@ -855,6 +992,8 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
         f"{sum(len(t) for t in out_paged.values())} tokens of the unfused streams equal the "
         f"fused ones (not gated: the two softmax sum in another order)")
 
+    prefix_path(torch, dev, cfg, policy, params, key="MLA ")
+
     teacher_forced(torch, dev, cfg, policy, params, report, key="teacher_forced_mla")
     step_breakdown(torch, dev, cfg, policy, params)
 
@@ -972,6 +1111,7 @@ def main() -> int:
     check_qntpack(torch, dev, report)
     check_paged_gather(torch, dev, cfg, report)
     check_paged_mla_attn(torch, dev, configs.get_arch(MLA_ARCH), report)
+    check_paged_copy(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1009,6 +1149,9 @@ def main() -> int:
         f"(not gated: the fused and unfused softmax sum in another order)")
     launches.update({k: ref_launches.get(k, 0) for k in ("conv2d", "qntpack")})
     launches["paged_gather"] = unf_launches["paged_gather"]
+
+    prefix_launches, _ = prefix_path(torch, dev, cfg, policy, params)
+    launches["paged_copy"] = prefix_launches["paged_copy"]
 
     teacher_forced(torch, dev, cfg, policy, params, report)
     step_breakdown(torch, dev, cfg, policy, params)

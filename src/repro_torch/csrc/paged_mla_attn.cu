@@ -34,9 +34,12 @@
 // HB = 4 heads), 128 blocks for 4 slots of DeepSeek-V3, about one per SM.
 // Each block re-reads its slot's pages (from L2 after the first group): a
 // page is staged dequantized in shared memory with 16-byte loads (two per
-// thread for a kv8 page), so the latent rows must be whole 16-byte vectors
-// (C * bits % 128 == 0, dr % 8 == 0, 16-byte aligned pools; the wrapper
-// checks). The kernel is bound by latency, not by its shared-memory
+// thread for a kv8 page) where the latent and rope rows are whole 16-byte
+// vectors (C * bits % 128 == 0, dr % 8 == 0, 16-byte aligned pools; every
+// DeepSeek-V3 cell at full width), and one element per thread otherwise (a
+// kv4 row of C = 16 is 8 bytes); the wrapper chooses. Both stagings round
+// each element the same way, so they give bit-identical outputs on a row
+// that both can take. The kernel is bound by latency, not by its shared-memory
 // traffic: with 16 heads per block (32 blocks) and one load per element,
 // the three calls of a DeepSeek-V3 decode step took 2.74 ms against 1.11 ms
 // now (chip_smoke.py's step breakdown, H100 80GB HBM3 at 700 W). Rows are
@@ -87,13 +90,33 @@ __device__ __forceinline__ void store_dequant(uint4 raw, float scale, float* dst
   }
 }
 
+// Element e of a stored latent page (row e / C, channel e % C), dequantized
+// exactly as store_dequant does it: the staging path for rows that are not
+// whole 16-byte vectors.
+template <int BITS>
+__device__ __forceinline__ float load_dequant(const void* cq, const float* cs, long long page,
+                                              int ps, int C, int e) {
+  const long long row = page * ps + e / C;
+  const int c = e % C;
+  if constexpr (BITS == 16) {
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(cq)[row * C + c]);
+  } else if constexpr (BITS == 8) {
+    const float q = (float)static_cast<const int8_t*>(cq)[row * C + c];
+    return round_bf16(__fmul_rn(q, __ldg(cs + row)));
+  } else {
+    const uint8_t byte = static_cast<const uint8_t*>(cq)[row * (C / 2) + c / 2];
+    const int u = (byte >> (4 * (c & 1))) & 0xF;
+    return round_bf16(__fmul_rn((float)((u ^ 8) - 8), __ldg(cs + row)));
+  }
+}
+
 template <int BITS>
 __global__ void __launch_bounds__(THREADS)
 paged_mla_attn_kernel(const float* __restrict__ ql, const float* __restrict__ qr,
                       const void* __restrict__ cq, const float* __restrict__ cs,
                       const __nv_bfloat16* __restrict__ r, const int* __restrict__ pos,
                       const int* __restrict__ bt, float* __restrict__ out, int H, int C,
-                      int dr, int ps, int nb, float scale) {
+                      int dr, int ps, int nb, float scale, int vec) {
   const int b = blockIdx.x;
   const int h0 = blockIdx.y * HB;
   const int nh = min(HB, H - h0);
@@ -135,32 +158,41 @@ paged_mla_attn_kernel(const float* __restrict__ ql, const float* __restrict__ qr
     if (k0 > p_last) break;  // this and every later page is fully masked
     const long long page = bt[(long long)b * nb + j];
     __syncthreads();  // previous page's readers are done with cf/rf/sc
-    // 16-byte loads, up to VMAX per thread in flight before any is used
-    const int vpr = C * BITS / 128;  // 16-byte vectors per latent row
-    const uint4* src = static_cast<const uint4*>(cq) + page * ps * vpr;
-    for (int v0 = 0; v0 < ps * vpr; v0 += VMAX * THREADS) {
-      uint4 raw[VMAX];
-      float scl[VMAX];
+    if (vec) {
+      // 16-byte loads, up to VMAX per thread in flight before any is used
+      const int vpr = C * BITS / 128;  // 16-byte vectors per latent row
+      const uint4* src = static_cast<const uint4*>(cq) + page * ps * vpr;
+      for (int v0 = 0; v0 < ps * vpr; v0 += VMAX * THREADS) {
+        uint4 raw[VMAX];
+        float scl[VMAX];
 #pragma unroll
-      for (int u = 0; u < VMAX; ++u) {
-        const int v = v0 + u * THREADS + tid;
-        if (v < ps * vpr) {
-          raw[u] = __ldg(src + v);
-          scl[u] = BITS == 16 ? 0.0f : __ldg(cs + page * ps + v / vpr);
+        for (int u = 0; u < VMAX; ++u) {
+          const int v = v0 + u * THREADS + tid;
+          if (v < ps * vpr) {
+            raw[u] = __ldg(src + v);
+            scl[u] = BITS == 16 ? 0.0f : __ldg(cs + page * ps + v / vpr);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < VMAX; ++u) {
+          const int v = v0 + u * THREADS + tid;
+          if (v < ps * vpr) {
+            store_dequant<BITS>(raw[u], scl[u], cf + (v / vpr) * CP + (v % vpr) * (128 / BITS));
+          }
         }
       }
-#pragma unroll
-      for (int u = 0; u < VMAX; ++u) {
-        const int v = v0 + u * THREADS + tid;
-        if (v < ps * vpr) {
-          store_dequant<BITS>(raw[u], scl[u], cf + (v / vpr) * CP + (v % vpr) * (128 / BITS));
-        }
+      const int rpr = dr / 8;  // 16-byte vectors (8 bf16) per rope row
+      const uint4* rsrc = reinterpret_cast<const uint4*>(r) + page * ps * rpr;
+      for (int v = tid; v < ps * rpr; v += THREADS) {
+        store_dequant<16>(__ldg(rsrc + v), 0.0f, rf + (v / rpr) * RP + (v % rpr) * 8);
       }
-    }
-    const int rpr = dr / 8;  // 16-byte vectors (8 bf16) per rope row
-    const uint4* rsrc = reinterpret_cast<const uint4*>(r) + page * ps * rpr;
-    for (int v = tid; v < ps * rpr; v += THREADS) {
-      store_dequant<16>(__ldg(rsrc + v), 0.0f, rf + (v / rpr) * RP + (v % rpr) * 8);
+    } else {
+      for (int e = tid; e < ps * C; e += THREADS) {
+        cf[(e / C) * CP + e % C] = load_dequant<BITS>(cq, cs, page, ps, C, e);
+      }
+      for (int e = tid; e < ps * dr; e += THREADS) {
+        rf[(e / dr) * RP + e % dr] = __bfloat162float(r[page * ps * dr + e]);
+      }
     }
     __syncthreads();
     for (int i = tid; i < HB * ps; i += THREADS) {
@@ -206,11 +238,13 @@ paged_mla_attn_kernel(const float* __restrict__ ql, const float* __restrict__ qr
 template <int BITS>
 int launch(const void* ql, const void* qr, const void* cq, const void* cs, const void* r,
            const void* pos, const void* bt, void* out, int B, int H, int C, int dr, int ps,
-           int nb, float scale, cudaStream_t stream) {
+           int nb, float scale, int vec, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)HB * (C + 1) + (size_t)HB * C +
                                        (size_t)ps * (C + 1) + (size_t)HB * (dr + 1) +
                                        (size_t)ps * (dr + 1) + (size_t)HB * ps + 3 * HB);
-  if (smem > MAX_SMEM || (C * BITS) % 128 || dr % 8) return (int)cudaErrorInvalidValue;
+  if (smem > MAX_SMEM || (BITS == 4 && C % 2) || (vec && ((C * BITS) % 128 || dr % 8))) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaError_t e = cudaFuncSetAttribute(paged_mla_attn_kernel<BITS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -220,7 +254,7 @@ int launch(const void* ql, const void* qr, const void* cq, const void* cs, const
       static_cast<const float*>(ql), static_cast<const float*>(qr), cq,
       static_cast<const float*>(cs), static_cast<const __nv_bfloat16*>(r),
       static_cast<const int*>(pos), static_cast<const int*>(bt), static_cast<float*>(out), H, C,
-      dr, ps, nb, scale);
+      dr, ps, nb, scale, vec);
   return (int)cudaGetLastError();
 }
 
@@ -228,20 +262,23 @@ int launch(const void* ql, const void* qr, const void* cq, const void* cs, const
 
 // ql (B, H, C) f32; qr (B, H, dr) f32; cq (P, ps, 1, C * bits / 8) int8, or
 // bf16 when bits == 16; cs (P, ps, 1) f32 (ignored for bf16); r (P, ps, 1, dr)
-// bf16; pos (B,) int32; bt (B, nb) int32; out (B, H, C) f32.
+// bf16; pos (B,) int32; bt (B, nb) int32; out (B, H, C) f32. vec: stage
+// pages with 16-byte loads (C * bits % 128 == 0, dr % 8 == 0, cq and r
+// 16-byte aligned), else one element per load.
 // Returns cudaGetLastError() after the launch.
 extern "C" int paged_mla_attn_launch(const void* ql, const void* qr, const void* cq,
                                      const void* cs, const void* r, const void* pos,
                                      const void* bt, void* out, int B, int H, int C, int dr,
-                                     int ps, int nb, int bits, float scale, void* stream) {
+                                     int ps, int nb, int bits, float scale, int vec,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
     case 16:
-      return launch<16>(ql, qr, cq, cs, r, pos, bt, out, B, H, C, dr, ps, nb, scale, s);
+      return launch<16>(ql, qr, cq, cs, r, pos, bt, out, B, H, C, dr, ps, nb, scale, vec, s);
     case 8:
-      return launch<8>(ql, qr, cq, cs, r, pos, bt, out, B, H, C, dr, ps, nb, scale, s);
+      return launch<8>(ql, qr, cq, cs, r, pos, bt, out, B, H, C, dr, ps, nb, scale, vec, s);
     case 4:
-      return launch<4>(ql, qr, cq, cs, r, pos, bt, out, B, H, C, dr, ps, nb, scale, s);
+      return launch<4>(ql, qr, cq, cs, r, pos, bt, out, B, H, C, dr, ps, nb, scale, vec, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

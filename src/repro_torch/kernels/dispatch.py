@@ -15,9 +15,9 @@ tensors, the plain version for CPU tensors. There is no fallback: on a CUDA
 device a kernel that does not build or launch raises.
 
 Ops in the registry: ``mpmm`` and ``conv2d`` (all 27 (x, w, y) cells),
-``qntpack`` (one cell per output width y), ``paged_gather`` and
-``paged_scatter`` (one storage-agnostic cell each), ``paged_attn`` and
-``paged_mla_attn`` (one cell per KV width each).
+``qntpack`` (one cell per output width y), ``paged_gather``,
+``paged_scatter`` and ``paged_copy`` (one storage-agnostic cell each),
+``paged_attn`` and ``paged_mla_attn`` (one cell per KV width each).
 """
 
 from __future__ import annotations
@@ -115,9 +115,9 @@ def coverage(op: str, impl: str) -> set[tuple]:
 
 def validate_coverage() -> None:
     """The import-time gate over the cells the port has: mpmm and conv2d
-    cover all 27 permutations, qntpack every output width, paged_gather and
-    paged_scatter one cell each, paged_attn and paged_mla_attn every KV
-    width, on both implementations."""
+    cover all 27 permutations, qntpack every output width, the page movers
+    (paged_gather, paged_scatter, paged_copy) one cell each, paged_attn and
+    paged_mla_attn every KV width, on both implementations."""
     missing: list[str] = []
     for impl in IMPLS:
         for op in ("mpmm", "conv2d"):
@@ -127,7 +127,7 @@ def validate_coverage() -> None:
         for b in BITS:
             if b not in have_y:
                 missing.append(f"qntpack[y={b}]@{impl}")
-        for op in ("paged_gather", "paged_scatter"):
+        for op in ("paged_gather", "paged_scatter", "paged_copy"):
             if not coverage(op, impl):
                 missing.append(f"{op}@{impl}")
         for op in ("paged_attn", "paged_mla_attn"):
@@ -175,6 +175,8 @@ def _register_library() -> None:
         paged_mla_attn_ref,
     )
     from repro_torch.kernels.paged_gather import (
+        paged_copy_cuda,
+        paged_copy_ref,
         paged_gather_cuda,
         paged_gather_ref,
         paged_scatter_cuda,
@@ -205,6 +207,8 @@ def _register_library() -> None:
     register("paged_gather", impl="torch", fn=paged_gather_ref, name="paged_gather_ref")
     register("paged_scatter", impl="cuda", fn=paged_scatter_cuda, name="paged_scatter")
     register("paged_scatter", impl="torch", fn=paged_scatter_ref, name="paged_scatter_ref")
+    register("paged_copy", impl="cuda", fn=paged_copy_cuda, name="paged_copy")
+    register("paged_copy", impl="torch", fn=paged_copy_ref, name="paged_copy_ref")
     for kv_bits in KV_BITS:
         tag = "bf16" if kv_bits is None else f"kv{kv_bits}"
         register("paged_attn", w_bits=kv_bits, impl="cuda",

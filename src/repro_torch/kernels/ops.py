@@ -1,7 +1,7 @@
 """Public entry points for the port's kernels (counterpart of
 ``repro.kernels.ops``): ``mpmm``, ``qntpack``, ``conv2d``, ``paged_gather``,
-``paged_scatter``, ``paged_attn`` and ``paged_mla_attn``, plus the
-quantize-and-pack helpers.
+``paged_scatter``, ``paged_copy``, ``paged_attn`` and ``paged_mla_attn``, plus
+the quantize-and-pack helpers.
 
 Every call routes through the dispatch registry. ``impl="auto"`` launches
 the CUDA kernel for CUDA tensors and uses the plain PyTorch version for CPU
@@ -124,6 +124,20 @@ def paged_scatter(
     entries (0), land in the scratch page."""
     entry = dispatch.lookup("paged_scatter", device=pool.device, impl=impl)
     return entry.fn(pool, new, pos, block_table)
+
+
+def paged_copy(
+    pool: torch.Tensor,  # (n_pages, page_size, ...), written in place
+    src: torch.Tensor,  # (K,) int32 source page ids (host or pool device)
+    dst: torch.Tensor,  # (K,) int32 destination page ids
+    *,
+    impl: Impl = "auto",
+) -> torch.Tensor:
+    """Clone whole pages ``src`` -> ``dst`` in place (returns the pool),
+    with snapshot semantics: a ``dst`` page that reappears as a later
+    ``src`` reads the original bits. The prefix cache's copy-on-write."""
+    entry = dispatch.lookup("paged_copy", device=pool.device, impl=impl)
+    return entry.fn(pool, src, dst)
 
 
 def _dense_as_pool(bufs, B: int, S: int, bs: int):

@@ -125,7 +125,7 @@ def paged_attn_cuda(q, k, k_s, v, v_s, pos, block_table, *,
 
 # ---------------------------------------------------- MLA absorbed decode
 
-_MLA_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float]
+_MLA_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
                  + [ctypes.c_void_p])
 
 
@@ -187,10 +187,9 @@ def paged_mla_attn_cuda(q_lat, q_rope, c, c_s, r, pos, block_table, *,
     build.check_tensor(block_table, "block_table", torch.int32, dev)
     if block_table.shape[0] != B:
         raise ValueError(f"block_table rows {block_table.shape[0]} != B={B}")
-    # the kernel stages pages with 16-byte loads: rows of whole 16-byte vectors
-    if (C * _BITS_CODE[bits]) % 128 or dr % 8 or c.data_ptr() % 16 or r.data_ptr() % 16:
-        raise ValueError(f"paged_mla_attn_cuda needs 16-byte latent and rope rows and pools "
-                         f"(C={C} at bits={bits}, dr={dr})")
+    # pages stage with 16-byte loads where rows are whole 16-byte vectors
+    vec = int((C * _BITS_CODE[bits]) % 128 == 0 and dr % 8 == 0 and c.data_ptr() % 16 == 0
+              and r.data_ptr() % 16 == 0)
     NB = block_table.shape[1]
     out = torch.empty((B, H, C), dtype=torch.float32, device=dev)
     if B == 0:
@@ -200,7 +199,7 @@ def paged_mla_attn_cuda(q_lat, q_rope, c, c_s, r, pos, block_table, *,
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), c.data_ptr(),
              c_s.data_ptr() if bits is not None else None, r.data_ptr(), pos.data_ptr(),
              block_table.data_ptr(), out.data_ptr(), B, H, C, dr, ps, NB, _BITS_CODE[bits],
-             float(scale), build.stream_ptr(dev))
+             float(scale), vec, build.stream_ptr(dev))
     build.check(err, "paged_mla_attn_launch")
     build.LAUNCHES["paged_mla_attn"] += 1
     return out

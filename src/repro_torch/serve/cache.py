@@ -10,11 +10,13 @@ token pages plus a per-slot block table; capacity is a PAGE budget.
 Admission RESERVES the request's worst-case page count and :meth:`prepare`
 draws pages on demand, so an admitted request can always finish. Pages are
 REF-COUNTED and recycled (zeroed, returned to the free list) when their last
-reader leaves. Page 0 is a reserved scratch page: unallocated block-table
-entries point at it. Cache tensors are zeroed in place.
+reader leaves, which is what the prefix-sharing backend
+(:mod:`repro_torch.serve.prefix`, ``"prefix"``) builds on. Page 0 is a
+reserved scratch page: unallocated block-table entries point at it. Cache
+tensors are zeroed in place.
 
-Not ported yet: the prefix-sharing backend and the speculative ``truncate``
-verb (the ``truncates`` counter stays 0).
+Not ported yet: the speculative ``truncate`` verb (the ``truncates`` counter
+stays 0).
 """
 
 from __future__ import annotations
@@ -157,6 +159,7 @@ class PagedKVCache:
         self.truncates = 0
         self._busy = [False] * n_slots
         self._alloc = np.zeros(n_slots, np.int32)     # blocks mapped per slot
+        self._shared = np.zeros(n_slots, np.int32)    # of those, shared pages
         self._reserved = np.zeros(n_slots, np.int32)  # NEW pages promised per slot
         self._ref = np.zeros(n_pages, np.int32)       # readers per page
         self.pages_drawn = 0
@@ -181,9 +184,12 @@ class PagedKVCache:
         return self.n_pages - 1 - len(self._free)
 
     def pages_available(self) -> int:
-        """Free pages not already promised to admitted requests."""
+        """Free pages not already promised to admitted requests. Shared
+        (premapped) pages never came off the free list, so a slot's
+        outstanding draw debt is its reservation minus the pages it has
+        drawn fresh."""
         committed = sum(
-            int(self._reserved[s] - self._alloc[s])
+            int(self._reserved[s] - (self._alloc[s] - self._shared[s]))
             for s in range(self.n_slots) if self._busy[s])
         return len(self._free) - committed
 
@@ -196,6 +202,11 @@ class PagedKVCache:
         self._ref[page] = 1
         self.pages_drawn += 1
         return page
+
+    def _retain_page(self, page: int) -> None:
+        """Add one reader to a live page (a sharing backend maps one
+        physical page into many block tables)."""
+        self._ref[page] += 1
 
     def _release_pages(self, pages) -> None:
         """Drop one reference per page; pages whose last reader left are
@@ -286,6 +297,7 @@ class PagedKVCache:
             self._release_pages(self.block_tables[slot, :n_alloc])
         self.block_tables[slot, :] = 0
         self._alloc[slot] = 0
+        self._shared[slot] = 0
         self._reserved[slot] = 0
         self.pos[slot] = 0
         self.resets += 1
@@ -314,6 +326,7 @@ class PagedKVCache:
         }
 
 
+#: backend name -> class; ``serve/prefix.py`` adds ``"prefix"`` when imported
 CACHE_BACKENDS: dict[str, type] = {"slot": SlotCache, "paged": PagedKVCache}
 
 
@@ -326,8 +339,6 @@ def make_cache(spec: Union[str, SlotCache, PagedKVCache, None], cfg: ArchConfig,
         spec = "slot"
     if not isinstance(spec, str):
         return spec
-    if spec == "prefix":
-        raise NotImplementedError("the prefix-sharing cache is not ported yet")
     cls = CACHE_BACKENDS.get(spec)
     if cls is None:
         raise KeyError(f"unknown cache backend {spec!r}; available: {sorted(CACHE_BACKENDS)}")

@@ -13,10 +13,13 @@ token comes from the prefill's last-token logits) and then runs ONE decode
 step for every active slot: ``models.model.decode_step`` over ``n_slots``
 static slots with per-slot positions, followed by the greedy sampler.
 
-The engine runs on CUDA unless the caller passes ``device="cpu"``;
-``device=None`` means CUDA and raises where CUDA is absent. Not ported
-yet: continuous batching (``mixed=True``), speculative decoding
-(``spec``), tracing (``trace``), the prefix cache and stochastic sampling.
+The cache is ``"slot"``, ``"paged"`` or ``"prefix"`` (prefix sharing: the
+admission verbs get the prompt, prefill skips the matched rows and
+``commit`` publishes the prompt's pages). The engine runs on CUDA unless
+the caller passes ``device="cpu"``; ``device=None`` means CUDA and raises
+where CUDA is absent. Not ported yet: continuous batching (``mixed=True``),
+speculative decoding (``spec``), tracing (``trace``) and stochastic
+sampling.
 """
 
 from __future__ import annotations

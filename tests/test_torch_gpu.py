@@ -4,8 +4,8 @@ the same engine on the CPU. These tests skip on a host without CUDA; on the
 card run ``python -m pytest -m gpu tests/test_torch_gpu.py``. The file
 imports no JAX, so it runs where only PyTorch is installed.
 
-Tolerances: mpmm, conv2d and qntpack are integer kernels and paged_gather
-and paged_scatter copy kernels, all bit-exact;
+Tolerances: mpmm, conv2d and qntpack are integer kernels and paged_gather,
+paged_scatter and paged_copy copy kernels, all bit-exact;
 paged_attn and paged_mla_attn follow the plain version's page-blocked
 softmax but sum inside their dots in another order, so atol = rtol = 1e-5
 (the reference's own fused-vs-twin bound).
@@ -82,23 +82,37 @@ def test_paged_attn_kernel_vs_plain(dev, bits, window):
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "kv8", "kv4"])
-def test_paged_mla_attn_kernel_vs_plain(dev, bits):
-    """H = 18 heads (a partial group of the kernel's 4 per block), a
-    shuffled block table, slot 0 with its last pages masked and slot 1
-    mid-page; then the dense slot layout through the identity-table view.
-    Latent rows that are not whole 16-byte vectors are refused."""
-    g = torch.Generator().manual_seed(5)
-    B, H, C, dr, ps, nb = 3, 18, 64, 16, 16, 4
+def _mla_inputs(g, dev, bits, C, dr, B=3, H=18, ps=16, nb=4):
     P_ = B * nb + 1
     q_lat = torch.randn((B, H, C), generator=g).to(dev)
     q_rope = torch.randn((B, H, dr), generator=g).to(dev)
     cq, cs = A.kv_quantize(torch.randn((P_, ps, 1, C), generator=g).to(dev), bits)
     r = torch.randn((P_, ps, 1, dr), generator=g).to(torch.bfloat16).to(dev)
     bt = (torch.randperm(P_ - 1, generator=g)[: B * nb] + 1).reshape(B, nb).to(torch.int32)
-    bt = bt.to(dev)
     pos = torch.tensor([5, 37, nb * ps - 1], dtype=torch.int32, device=dev)
-    kw = dict(bits=bits, scale=1.0 / (C + dr) ** 0.5)
+    return q_lat, q_rope, cq, cs, r, pos, bt.to(dev), dict(bits=bits, scale=1.0 / (C + dr) ** 0.5)
+
+
+def _misaligned(t):
+    """The same values in a buffer one element off 16-byte alignment."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "kv8", "kv4"])
+def test_paged_mla_attn_kernel_vs_plain(dev, bits):
+    """H = 18 heads (a partial group of the kernel's 4 per block), a
+    shuffled block table, slot 0 with its last pages masked and slot 1
+    mid-page; then the dense slot layout through the identity-table view.
+    Pools off 16-byte alignment take the scalar staging, bit-identical to
+    the vector staging; so do rows that are not whole 16-byte vectors
+    (C = 16 at kv4 is 8 bytes, dr = 4 rope rows are 8 bytes), held against
+    the plain version."""
+    g = torch.Generator().manual_seed(5)
+    B, nb, ps = 3, 4, 16
+    q_lat, q_rope, cq, cs, r, pos, bt, kw = _mla_inputs(g, dev, bits, C=64, dr=16)
     a = ops.paged_mla_attn(q_lat, q_rope, cq, cs, r, pos, block_table=bt, impl="cuda", **kw)
     b = ops.paged_mla_attn(q_lat, q_rope, cq, cs, r, pos, block_table=bt, impl="torch", **kw)
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
@@ -106,40 +120,79 @@ def test_paged_mla_attn_kernel_vs_plain(dev, bits):
     def dense(x):
         return None if x is None else x[bt.long()].reshape(B, nb * ps, *x.shape[2:])
 
-    a = ops.paged_mla_attn(q_lat, q_rope, dense(cq), dense(cs), dense(r), pos, impl="cuda", **kw)
+    d = ops.paged_mla_attn(q_lat, q_rope, dense(cq), dense(cs), dense(r), pos, impl="cuda", **kw)
+    torch.testing.assert_close(d, b, atol=1e-5, rtol=1e-5)
+    s = ops.paged_mla_attn(q_lat, q_rope, _misaligned(cq), cs, _misaligned(r), pos,
+                           block_table=bt, impl="cuda", **kw)
+    assert torch.equal(s, a)
+    C, dr = {None: (12, 4), 8: (16, 4), 4: (16, 16)}[bits]
+    q_lat, q_rope, cq, cs, r, pos, bt, kw = _mla_inputs(g, dev, bits, C=C, dr=dr)
+    a = ops.paged_mla_attn(q_lat, q_rope, cq, cs, r, pos, block_table=bt, impl="cuda", **kw)
+    b = ops.paged_mla_attn(q_lat, q_rope, cq, cs, r, pos, block_table=bt, impl="torch", **kw)
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
-    assert build.LAUNCHES["paged_mla_attn"] > 0
-    if bits == 4:  # 16 int4 values are 8 bytes: half a vector
-        with pytest.raises(ValueError, match="16-byte"):
-            ops.paged_mla_attn(q_lat[..., :16].contiguous(), q_rope, cq[..., :8].contiguous(),
-                               cs, r, pos, block_table=bt, impl="cuda", **kw)
+    assert build.LAUNCHES["paged_mla_attn"] >= 4
+
+
+def _first_difference(got: dict, want: dict) -> str:
+    for rid in sorted(want):
+        for i, (x, y) in enumerate(zip(got.get(rid, []), want[rid])):
+            if x != y:
+                return f"request {rid} token {i}: {x} != {y}"
+    return "streams of different lengths"
+
+
+def _mla_engine_streams(dev, policy_name):
+    """Reduced DeepSeek-V3 (two MLA-dense layers) on the CPU (plain
+    versions, paged cache) and on the card (slot and paged caches), fused
+    and unfused; the card runs' launch counts are checked as they go."""
+    cfg = dataclasses.replace(configs.reduced(configs.get_arch("deepseek-v3-671b")),
+                              dense_layers=2)
+    policy = get_policy(policy_name)
+    params = M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=n).astype(np.int32) for n in (3, 9, 5, 2, 7)]
+    outs = {}
+    for fused in (True, False):
+        for device, cache in (("cpu", "paged"), ("cuda", "slot"), ("cuda", "paged")):
+            build.reset_launches()
+            eng = ServeEngine(params if device == "cpu" else _to(params, dev), cfg, policy,
+                              n_slots=2, s_max=32, prefill_chunk=4, cache=cache,
+                              page_size=16 if cache == "paged" else None, fused_attn=fused,
+                              device=device)
+            outs[fused, device, cache] = eng.run(
+                [Request(rid=i, prompt=pr, max_new=6) for i, pr in enumerate(prompts)])
+            if device == "cuda":
+                assert build.LAUNCHES["mpmm"] > 0
+                assert (build.LAUNCHES["paged_mla_attn"] > 0) == fused
+                assert (build.LAUNCHES["paged_scatter"] > 0) == (cache == "paged")
+                assert (build.LAUNCHES["paged_gather"] > 0) == (cache == "paged" and not fused)
+    return outs
 
 
 def test_mla_engine_slot_and_paged_streams_identical(dev):
     """Reduced DeepSeek-V3 (two MLA-dense layers), w4a8, kv8, on the card:
     greedy streams identical on slot and paged caches, fused (through
-    paged_mla_attn) and unfused (paged: through paged_gather)."""
-    cfg = dataclasses.replace(configs.reduced(configs.get_arch("deepseek-v3-671b")),
-                              dense_layers=2)
-    policy = get_policy("w4a8")
-    params = _to(M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu"), dev)
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(1, cfg.vocab, size=n).astype(np.int32) for n in (3, 9, 5, 2, 7)]
-    outs = {}
+    paged_mla_attn) and unfused (paged: through paged_gather), and equal to
+    the same engine's CPU run (plain versions) on both legs."""
+    outs = _mla_engine_streams(dev, "w4a8")
     for fused in (True, False):
+        cpu = outs[fused, "cpu", "paged"]
+        assert all(len(t) == 6 for t in cpu.values())
         for cache in ("slot", "paged"):
-            build.reset_launches()
-            eng = ServeEngine(params, cfg, policy, n_slots=2, s_max=32, prefill_chunk=4,
-                              cache=cache, page_size=16 if cache == "paged" else None,
-                              fused_attn=fused, device=dev)
-            outs[fused, cache] = eng.run(
-                [Request(rid=i, prompt=pr, max_new=6) for i, pr in enumerate(prompts)])
-            assert build.LAUNCHES["mpmm"] > 0
-            assert (build.LAUNCHES["paged_mla_attn"] > 0) == fused
-            assert (build.LAUNCHES["paged_scatter"] > 0) == (cache == "paged")
-            assert (build.LAUNCHES["paged_gather"] > 0) == (cache == "paged" and not fused)
-        assert outs[fused, "slot"] == outs[fused, "paged"]
-        assert all(len(t) == 6 for t in outs[fused, "slot"].values())
+            got = outs[fused, "cuda", cache]
+            assert got == cpu, (fused, cache, _first_difference(got, cpu))
+
+
+def test_mla_engine_kv4_narrow_latent_rows(dev):
+    """The same under w4a8kv4: the reduced config's 16-wide latent rows are
+    8 bytes at kv4, so paged_mla_attn stages them one element at a time; the
+    fused card streams equal the paged ones and the CPU run's."""
+    outs = _mla_engine_streams(dev, "w4a8kv4")
+    for fused in (True, False):
+        cpu = outs[fused, "cpu", "paged"]
+        for cache in ("slot", "paged"):
+            got = outs[fused, "cuda", cache]
+            assert got == cpu, (fused, cache, _first_difference(got, cpu))
 
 
 def test_paged_scatter_kernel_bit_exact(dev):
@@ -223,6 +276,115 @@ def test_paged_gather_kernel_bit_exact(dev, leaf):
     b = ops.paged_gather(pool, bt, impl="torch")
     assert torch.equal(a.cpu(), b)
     assert build.LAUNCHES["paged_gather"] > 0
+
+
+@pytest.mark.parametrize("leaf", ["int8", "f32", "bf16", "odd"])
+def test_paged_copy_kernel_bit_exact(dev, leaf):
+    """Whole-page clones on 16-byte pages and on 15-byte pages (the byte
+    path), disjoint (host ids: one launch), overlapping (a dst page read
+    later as a src reads the original bits), self-copying and repeated
+    sources, with host and device ids (two launches through the staging
+    buffer), against the plain version."""
+    g = torch.Generator().manual_seed(len(leaf))
+    shape = {"int8": (9, 4, 2, 8), "f32": (9, 4, 2), "bf16": (9, 4, 2, 8), "odd": (9, 3, 5)}[leaf]
+    pool = (torch.randn(shape, generator=g) * 40).clamp(-100, 100)
+    pool = pool.to({"bf16": torch.bfloat16, "f32": torch.float32}.get(leaf, torch.int8))
+    cases = [([3, 1], [5, 6]), ([1, 2], [2, 3]), ([4, 2, 5], [4, 1, 2]), ([3, 3], [0, 6]),
+             ([9, -1, 2], [1, -2, 11])]
+    for src, dst in cases:
+        s, d = (torch.tensor(x, dtype=torch.int32) for x in (src, dst))
+        want = ops.paged_copy(pool.clone(), s, d, impl="torch")
+        for ids in ((s, d), (s.to(dev), d.to(dev))):
+            build.reset_launches()
+            got = ops.paged_copy(pool.to(dev), *ids, impl="cuda")
+            assert torch.equal(got.cpu(), want), (leaf, src, dst)
+            direct = ids[0].device.type == "cpu" and not set(src) & set(dst)
+            assert build.LAUNCHES["paged_copy"] == (1 if direct else 2)
+
+
+def _index_page_bytes(cache) -> dict:
+    """Every page the prefix index pins -> its bytes on every cache leaf."""
+    pages = []
+
+    def walk(node):
+        for ch in node.children.values():
+            pages.append(ch.page)
+            walk(ch)
+
+    walk(cache._root)
+    return {p: [a[p].clone() for layer in cache.caches for a in layer.values()] for p in pages}
+
+
+def _prefix_requests(vocab):
+    """Two sharers diverging mid-page, an exact duplicate (the S-1 cap), a
+    cold prompt and a shorter sharer (tests/test_prefix.py's stream)."""
+    rng = np.random.RandomState(0)
+    shared = rng.randint(1, vocab, size=10).astype(np.int32)
+    u = [rng.randint(1, vocab, size=5).astype(np.int32) for _ in range(3)]
+    prompts = [np.concatenate([shared, u[0]]), np.concatenate([shared, u[1]]),
+               np.concatenate([shared, u[0]]), rng.randint(1, vocab, size=15).astype(np.int32),
+               shared[:8].copy()]
+    return [Request(rid=i, prompt=p, max_new=4) for i, p in enumerate(prompts)]
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "deepseek-v3-671b"])
+def test_prefix_engine_on_cuda_matches_cold_paged_and_cpu(dev, arch):
+    """Reduced internlm2 and reduced DeepSeek-V3 (two MLA-dense layers),
+    w4a8: the prefix engine on the card clones pages through the paged_copy
+    kernel, and its streams equal the card's cold paged streams and the CPU
+    prefix run's."""
+    cfg = configs.reduced(configs.get_arch(arch))
+    if arch == "deepseek-v3-671b":
+        cfg = dataclasses.replace(cfg, dense_layers=2)
+    policy = get_policy("w4a8")
+    params = M.init_params(torch.Generator().manual_seed(1), cfg, policy, device="cpu")
+    kw = dict(n_slots=2, s_max=32, prefill_chunk=4, page_size=4)
+    outs, metrics = {}, {}
+    for device, cache in (("cpu", "prefix"), ("cuda", "paged"), ("cuda", "prefix")):
+        build.reset_launches()
+        eng = ServeEngine(params if device == "cpu" else _to(params, dev), cfg, policy,
+                          cache=cache, device=device, **kw)
+        outs[device, cache] = eng.run(_prefix_requests(cfg.vocab))
+        metrics[device, cache] = eng.metrics()
+        if device == "cuda":
+            assert (build.LAUNCHES["paged_copy"] > 0) == (cache == "prefix")
+            assert build.LAUNCHES["paged_scatter"] > 0
+    assert outs["cuda", "prefix"] == outs["cuda", "paged"] == outs["cpu", "prefix"]
+    m = metrics["cuda", "prefix"]
+    assert m["cache/cow_copies"] >= 1 and m["cache/prefix_hit_rate"] > 0
+    assert {k: v for k, v in m.items() if k.startswith("cache/")} == {
+        k: v for k, v in metrics["cpu", "prefix"].items() if k.startswith("cache/")}
+
+
+def test_shared_page_content_survives_sharer_completion(dev):
+    """On the card: a sharer's prefill gathers and scatters back its whole
+    row, shared pages included, and leaves every byte of the pages the index
+    pins unchanged; the longer sharer's stream equals the cold paged one."""
+    from repro_torch.serve import SamplingParams
+
+    cfg = configs.reduced(configs.get_arch("internlm2-1.8b"))
+    policy = get_policy("w4a8")
+    params = _to(M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu"), dev)
+    rng = np.random.RandomState(7)
+    shared = rng.randint(1, cfg.vocab, size=9).astype(np.int32)
+    long_p = np.concatenate([shared, rng.randint(1, cfg.vocab, size=4)])
+    kw = dict(n_slots=2, s_max=24, prefill_chunk=4, page_size=4, device=dev)
+    cold = ServeEngine(params, cfg, policy, cache="paged", **kw)
+    want = cold.run([Request(rid=0, prompt=long_p.copy(), max_new=6),
+                     Request(rid=1, prompt=shared.copy(), max_new=1)])
+    eng = ServeEngine(params, cfg, policy, cache="prefix", **kw)
+    h0 = eng.submit(long_p.copy(), SamplingParams(max_new=6), rid=0)
+    eng.step()
+    before = _index_page_bytes(eng.cache)
+    assert len(before) == 3
+    h1 = eng.submit(shared.copy(), SamplingParams(max_new=1), rid=1)
+    eng.step()
+    assert eng.metrics()["cache/tokens_matched"] == 8
+    after = _index_page_bytes(eng.cache)
+    for p, leaves in before.items():
+        assert all(torch.equal(a, b) for a, b in zip(leaves, after[p], strict=True)), p
+    eng.drain()
+    assert {0: h0.result(), 1: h1.result()} == want
 
 
 def test_engine_on_cuda_matches_cpu_and_launches_every_kernel(dev):

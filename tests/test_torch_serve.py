@@ -156,7 +156,7 @@ def test_unported_modes_raise(params):
     tp = params[1]
     kw = dict(n_slots=1, s_max=16, device="cpu")
     for extra in (dict(mixed=True), dict(spec="self"), dict(trace=object()),
-                  dict(cache="prefix"), dict(prefill="stepwise")):
+                  dict(prefill="stepwise")):
         with pytest.raises(NotImplementedError):
             ServeEngine(tp, TTINY, TPOLICY, **kw, **extra)
     eng = ServeEngine(tp, TTINY, TPOLICY, **kw)
