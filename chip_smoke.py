@@ -44,7 +44,11 @@ Phases, in order (any failure ends the run with a nonzero exit):
      paged_mla_attn's time per decode step beside its bound, its plain
      version and ``F.scaled_dot_product_attention`` on the bf16 cell.
      Phase 2 holds paged_mla_attn against its plain version on bf16 / kv8 /
-     kv4 at H 128, C 512, dr 64, pages of 16 (tolerance ATTN_TOL);
+     kv4 at H 128, C 512, dr 64, pages of 16 (tolerance ATTN_TOL). Then
+     one more run: the same three layers weight-only w4 (WO_POLICY, the
+     w4a8 weights with each ``beta`` dropped) with the 8-bit latent cache,
+     slot then paged, fused: streams identical, wdqmm launched, mpmm not;
+     then its teacher-forced step (kernel vs plain);
   9. the prefix path (run right after phase 5, on internlm2's weights):
      a 360-token shared system prompt (22 full pages and 8 rows) drawn from
      SEED and five requests: (a) shared + 152 unique tokens, (b) shared + 24
@@ -56,12 +60,31 @@ Phases, in order (any failure ends the run with a nonzero exit):
      fewer prefill calls spent. Phase 2 holds paged_copy bit-exact against
      its plain version on every internlm2 kv8 and DeepSeek-V3 latent leaf
      (disjoint, overlapping and self-copies; host and device ids), and
-     phase 7 times one COW clone (all 96 leaves).
+     phase 7 times one COW clone (all 96 leaves);
+ 10. the weight-only path (run right after phase 7, on internlm2's weights):
+     policy WO_POLICY (every projection and the head weight-only w4, bf16
+     activations, 8-bit KV cache) over the w4a8 packed weights with each
+     ``beta`` dropped, the 4 requests of phase 3 on the slot and then the
+     paged cache, then phase 9's five requests on a cold paged and a prefix
+     engine. Slot and paged streams identical, prefix streams identical to
+     the cold paged ones; wdqmm, paged_attn, paged_scatter and paged_copy
+     launched, mpmm not. Then a teacher-forced step (kernel vs plain), the
+     step breakdown, and wdqmm's time per decode step (169 calls at M = 4)
+     beside its bound, its plain version and one ``F.linear`` a projection
+     over the same weights dequantized to bf16 ahead of time (the
+     unquantized deployment). Phase 2 holds wdqmm against its plain version
+     at w 8, 4 and 2 on internlm2's five main-path (N, K) and its head and
+     on every (N, K) of DeepSeek-V3's MLA-dense path (wq_a, wq_b, wkv_a, wo,
+     up and gate, down, head; wq_b's K 1536 ends in a partial staging
+     chunk) at M = 4 and 16, and on a ragged shape (M 5, N 37, K 44: the scalar path), within WDQMM_TOL * sum_k |x w|,
+     the same call twice bit-identical.
 
-Phases 3, 4, 5, 8 and 9 each start with every launch count at 0 (phase 8
-once for its fused runs, once for its unfused runs and once for its prefix
-run) and read the counts at their end; the kernels line gives each kernel
-the count of its own path (paged_copy: phase 9's prefix run).
+Phases 3, 4, 5, 8, 9 and 10 each start with every launch count at 0 (phase
+8 once for its fused runs, once for its unfused runs, once for its
+weight-only runs and once for its prefix run; phase 10 once for its slot and
+paged runs and once for its prefix run) and read the counts at their end;
+the kernels line gives each kernel the count of its own path (paged_copy:
+phase 9's prefix run; wdqmm: phase 10's slot and paged runs).
 
 The line before the last is the kernels JSON, the last line the result
 JSON.
@@ -109,6 +132,26 @@ TAB1 = (256, 64)
 CALLS = 50
 
 
+def wo_policy():
+    """Every projection and the head weight-only w4 (bf16 activations),
+    routers bf16, an 8-bit KV cache: the reference's ``_uniform`` with
+    x = y = None."""
+    from repro_torch.core.policy import BF16, LayerPrecision, PrecisionPolicy
+
+    return PrecisionPolicy(name="w4only", default=LayerPrecision(None, 4, None),
+                           per_class={"router": BF16}, kv_cache_bits=8)
+
+
+def weight_only(params):
+    """The same tree without each linear's ``beta``: a w4a8 model's packed
+    weights served weight-only, with no second draw."""
+    if isinstance(params, dict):
+        return {k: weight_only(v) for k, v in params.items() if k != "beta"}
+    if isinstance(params, list):
+        return [weight_only(v) for v in params]
+    return params
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -129,6 +172,19 @@ def main_path_mm_shapes(cfg):
     L = cfg.n_layers
     return [(cfg.n_heads * cfg.head_dim, d, L), (kv, d, 2 * L), (d, cfg.n_heads * cfg.head_dim, L),
             (f, d, 2 * L), (d, f, L), (cfg.vocab_padded, d, 1)]
+
+
+def mla_mm_shapes(mcfg):
+    """(N, K) of every projection wdqmm serves on DeepSeek-V3's MLA-dense
+    path: wq_a, wq_b, wkv_a, wo, up and gate, down, and the head (wkv_b is
+    dequantized whole, not multiplied)."""
+    from repro_torch.models import model as M
+
+    a, f = mcfg.mla_cfg, M._mlp_cfg(mcfg, "mla_dense").d_ff
+    H = a.n_heads
+    return [(a.q_lora, a.d_model), (H * (a.d_nope + a.d_rope), a.q_lora),
+            (a.kv_lora + a.d_rope, a.d_model), (a.d_model, H * a.d_v), (f, a.d_model),
+            (a.d_model, f), (mcfg.vocab_padded, a.d_model)]
 
 
 def check_mpmm(torch, dev, cfg, report):
@@ -182,6 +238,50 @@ def check_mpmm(torch, dev, cfg, report):
             n += 1
     report["mpmm"] = {"max_abs_err": worst, "checks": n}
     log(f"mpmm: {n} comparisons bit-exact (27 cells x 3 kinds x signedness; main-path shapes)")
+
+
+def check_wdqmm(torch, dev, cfg, mcfg, report):
+    """wdqmm against its plain version (bf16 activations) at w 8, 4 and 2:
+    the main-path (N, K) of internlm2 and of DeepSeek-V3's MLA-dense layers,
+    heads included, at M = 4 and 16, and a ragged shape on the scalar path;
+    within WDQMM_TOL * sum_k |x w| of the plain version, and the same call
+    twice bit-identical."""
+    from repro_torch.core import pack as P
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wdqmm import TOL
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    eps = torch.tensor(3.7e-3, device=dev)
+    shapes = [(N, K) for N, K, _ in main_path_mm_shapes(cfg)]
+    shapes += mla_mm_shapes(mcfg)  # wq_b's K 1536 ends in a partial staging chunk
+    cases = [(M, N, K) for M in (N_SLOTS, 16) for N, K in shapes] + [(5, 37, 44)]
+    worst = ratio = 0.0
+    n = 0
+    for wb in (8, 4, 2):
+        for M, N, K in cases:
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            w_p = torch.randint(-128, 128, (N, K * wb // 8), generator=g, device=dev,
+                                dtype=torch.int32).to(torch.int8)
+            a = ops.wdqmm(x, w_p, eps, w_bits=wb, impl="cuda")
+            again = ops.wdqmm(x, w_p, eps, w_bits=wb, impl="cuda")
+            b = ops.wdqmm(x, w_p, eps, w_bits=wb, impl="torch")
+            scale = x.float().abs() @ (P.unpack(w_p, wb, signed=True).float() * eps).abs().T
+            torch.cuda.synchronize()
+            err = (a - b).abs()
+            if not torch.equal(a, again):
+                raise AssertionError(f"wdqmm w={wb} {(M, N, K)}: two calls differ")
+            if not torch.isfinite(a).all() or bool((err > TOL * scale).any()):
+                raise AssertionError(f"wdqmm w={wb} {(M, N, K)}: |kernel - plain| "
+                                     f"{float(err.max())} above {TOL} * sum |x w|")
+            worst = max(worst, float(err.max()))
+            ratio = max(ratio, float((err / scale.clamp_min(1e-30)).max()))
+            n += 1
+            del scale
+    report["wdqmm"] = {"max_abs_err": worst, "tol": TOL, "max_err_ratio": ratio, "checks": n}
+    log(f"wdqmm: {n} comparisons within {TOL:.3g} * sum |x w| of the plain version (largest "
+        f"|kernel - plain| {worst:.3e}, at most {ratio:.3e} * sum |x w|), each call twice "
+        f"bit-identical (w 8/4/2; internlm2 and DeepSeek-V3 main-path shapes and heads, "
+        f"M = 4 and 16; ragged (5, 37, 44))")
 
 
 def make_pool(torch, g, dev, P_, ps, hkv, d, bits):
@@ -510,7 +610,7 @@ def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None):
     if cache == "prefix":
         pages += (f", at most {shared[0]} pages shared by live requests, hit rate "
                   f"{m['cache/prefix_hit_rate']:.4f}, {m['cache/cow_copies']} COW clones")
-    log(f"serve[{cache}{'' if fused_attn else ', unfused'}]: {toks} tokens in {dt:.3f} s ({toks / dt:.2f} tokens/s end to end), "
+    log(f"serve[{cfg.name}, {policy.name}, {cache}{'' if fused_attn else ', unfused'}]: {toks} tokens in {dt:.3f} s ({toks / dt:.2f} tokens/s end to end), "
         f"{m['decode_steps']} decode steps, step EMA {m['step_ema_s'] * 1e3:.2f} ms, "
         f"TTFT p50 {m['slo/ttft_p50_s']:.3f} s, TPOT p50 {m['slo/tpot_p50_s'] * 1e3:.2f} ms, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{pages}")
@@ -898,7 +998,7 @@ def kernel_row(r, launches, report) -> dict:
 
 
 #: device kernels the step breakdown names (everything else is PyTorch's)
-KERNEL_NAMES = ("mpmm_kernel", "paged_mla_attn_kernel", "paged_attn_kernel",
+KERNEL_NAMES = ("mpmm_kernel", "wdqmm_kernel", "paged_mla_attn_kernel", "paged_attn_kernel",
                 "paged_scatter_kernel", "paged_gather_kernel")
 
 
@@ -940,11 +1040,99 @@ def step_breakdown(torch, dev, cfg, policy, params):
     parts = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
     top = "; ".join(f"{k} {v:.3f} ms" for k, v in
                     sorted(ops_ms.items(), key=lambda kv: -kv[1])[:6])
-    log(f"decode step breakdown ({cfg.name}, {cfg.n_layers} layers, slot cache, 4 slots at "
+    log(f"decode step breakdown ({cfg.name}, {policy.name}, {cfg.n_layers} layers, slot cache, 4 slots at "
         f"159..543 cached rows): wall "
         f"{wall:.2f} ms (no profiler), device busy {busy:.3f} ms "
         f"({100 * (1 - busy / wall):.1f}% idle), {n_kernels} device kernels; {parts}")
     log(f"  top device ops: {top}")
+
+
+def wdqmm_step_row(torch, dev, cfg, params) -> dict:
+    """wdqmm per decode step (4 slots): the 169 projections at M = 4 with
+    bf16 activations over every layer's own w4 weights (0.85 GB: the 50 MB
+    L2 holds none of them between uses), its plain version, and one
+    ``F.linear`` a projection over the same weights dequantized to bf16
+    ahead of time (the unquantized deployment weight-only serving is for);
+    per call at each main-path shape too (weights L2-warm)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import pack as P
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    B = N_SLOTS
+    lin = linears(params)
+
+    def K_of(p):
+        return p["w_packed"].shape[1] * 2
+
+    def step(M, impl):
+        xs = {K: torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+              for K in {K_of(p) for p in lin}}
+        return lambda: [ops.wdqmm(xs[K_of(p)], p["w_packed"], p["eps_w"], w_bits=4, impl=impl)
+                        for p in lin]
+
+    for N, K, calls in main_path_mm_shapes(cfg):
+        p = next(q for q in lin if tuple(q["w_packed"].shape) == (N, K // 2))
+        for M in (B, 16):
+            x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+            one, _, _ = device_ms(lambda: [ops.wdqmm(x, p["w_packed"], p["eps_w"], w_bits=4,
+                                                     impl="cuda") for _ in range(CALLS)],
+                                  names=("wdqmm_kernel",))
+            log(f"  wdqmm w4 M={M} N={N} K={K}: {one / CALLS * 1e3:.1f} us device per call "
+                f"({CALLS} back to back, weights L2-warm; bound "
+                f"{(N * K / 2) / HBM_BYTES_PER_S * 1e6:.2f} us), x{calls} per decode step")
+    t, tw, how = device_ms(step(B, "cuda"))
+    tp, tpw, _ = device_ms(step(B, "torch"), reps=3, warmup=1)
+    t16, t16w, _ = device_ms(step(16, "cuda"))
+    xs = {K: torch.randn((B, K), generator=g, device=dev).to(torch.bfloat16)
+          for K in {K_of(p) for p in lin}}
+    deq = [(P.unpack(p["w_packed"], 4, signed=True).to(torch.float32) * p["eps_w"]).to(
+        torch.bfloat16) for p in lin]
+    tl, tlw, _ = device_ms(lambda: [F.linear(xs[w.shape[1]], w) for w in deq])
+    gb = sum(w.numel() * 2 for w in deq) / 1e9
+    del deq
+    log(f"  wdqmm w4, one decode step (169 calls, M={B}): {t:.4f} ms device ({how}), {tw:.3f} "
+        f"ms wall; plain {tp:.3f} ms device, {tpw:.3f} ms wall; at M=16 (a prefill chunk's "
+        f"shapes): {t16:.4f} ms device, {t16w:.3f} ms wall; F.linear over the weights "
+        f"dequantized to bf16 ahead of time ({gb:.2f} GB, the unquantized deployment): {tl:.4f} ms "
+        f"device, {tlw:.3f} ms wall")
+    nbytes = sum(B * K_of(p) * 2 + p["w_packed"].numel() + B * p["w_packed"].shape[0] * 4 + 4
+                 for p in lin)
+    nops = sum(2 * B * p["w_packed"].shape[0] * K_of(p) for p in lin)
+    return dict(name="wdqmm", route="cuda", source="src/repro_torch/csrc/wdqmm.cu",
+                replaces="src/repro/kernels/wdqmm.py:45", ms=t, plain_ms=tp, bytes=nbytes,
+                ops=nops, peak=F32_FLOPS_PER_S, library_ms=tl)
+
+
+def weight_only_path(torch, dev, cfg, params, report) -> tuple[dict, dict]:
+    """Phase 10: internlm2 at full width served weight-only w4 over the
+    w4a8 packed weights (each ``beta`` dropped): slot, paged, then the
+    prefix path; the teacher-forced step, the step breakdown and wdqmm's
+    timing row. Returns (the raw kernel row, wdqmm's launches on the slot
+    and paged runs)."""
+    from repro_torch.kernels import build
+
+    policy, wparams = wo_policy(), weight_only(params)
+    build.reset_launches()  # the weight-only serving path starts here
+    out_slot, _ = serve(torch, dev, cfg, policy, wparams, "slot")
+    out_paged, _ = serve(torch, dev, cfg, policy, wparams, "paged")
+    launches = dict(build.LAUNCHES)  # the weight-only serving path ends here
+    log(f"launches on the weight-only serving path: {launches}")
+    if out_slot != out_paged:
+        raise AssertionError("weight-only: slot and paged token streams differ")
+    if launches.get("mpmm", 0) or not all(
+            launches.get(k, 0) for k in ("wdqmm", "paged_attn", "paged_scatter")):
+        raise AssertionError(f"weight-only serving path: wdqmm, paged_attn and paged_scatter "
+                             f"must run, mpmm not: {launches}")
+    log("weight-only slot and paged token streams identical")
+    prefix_launches, _ = prefix_path(torch, dev, cfg, policy, wparams, key="weight-only ")
+    if prefix_launches.get("mpmm", 0) or not prefix_launches.get("wdqmm", 0):
+        raise AssertionError(f"weight-only prefix path: wdqmm must run, mpmm not: "
+                             f"{prefix_launches}")
+    teacher_forced(torch, dev, cfg, policy, wparams, report, key="teacher_forced_w4only")
+    step_breakdown(torch, dev, cfg, policy, wparams)
+    return wdqmm_step_row(torch, dev, cfg, wparams), {"wdqmm": launches["wdqmm"]}
 
 
 def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
@@ -977,6 +1165,23 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
     for name in ("mpmm", "paged_mla_attn", "paged_scatter"):
         if fused_launches.get(name, 0) == 0:
             raise AssertionError(f"kernel {name} was not launched on the fused MLA path")
+    wo, wparams = wo_policy(), weight_only(params)
+    build.reset_launches()  # the weight-only MLA path starts here
+    wo_slot, _ = serve(torch, dev, cfg, wo, wparams, "slot")
+    wo_paged, _ = serve(torch, dev, cfg, wo, wparams, "paged")
+    wo_launches = dict(build.LAUNCHES)  # the weight-only MLA path ends here
+    log(f"launches on the weight-only MLA path: {wo_launches}")
+    if wo_slot != wo_paged:
+        raise AssertionError("MLA weight-only: slot and paged token streams differ")
+    if wo_launches.get("mpmm", 0) or not all(
+            wo_launches.get(k, 0) for k in ("wdqmm", "paged_mla_attn", "paged_scatter")):
+        raise AssertionError(f"MLA weight-only path: wdqmm, paged_mla_attn and paged_scatter "
+                             f"must run, mpmm not: {wo_launches}")
+    same = sum(a == b for rid in out_paged for a, b in zip(out_paged[rid], wo_paged[rid]))
+    log(f"MLA weight-only: slot and paged streams identical; {same} of "
+        f"{sum(len(t) for t in out_paged.values())} tokens equal the w4a8 streams (not gated)")
+    teacher_forced(torch, dev, cfg, wo, wparams, report, key="teacher_forced_mla_w4only")
+    del wparams
     build.reset_launches()  # the unfused MLA serving path starts here
     unf_slot, _ = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False)
     unf_paged, _ = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
@@ -1112,6 +1317,7 @@ def main() -> int:
     check_paged_gather(torch, dev, cfg, report)
     check_paged_mla_attn(torch, dev, configs.get_arch(MLA_ARCH), report)
     check_paged_copy(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
+    check_wdqmm(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1156,6 +1362,8 @@ def main() -> int:
     teacher_forced(torch, dev, cfg, policy, params, report)
     step_breakdown(torch, dev, cfg, policy, params)
     rows = kernel_table(torch, dev, cfg, params, launches, report)
+    wo_row, wo_launches = weight_only_path(torch, dev, cfg, params, report)
+    rows.insert(1, kernel_row(wo_row, wo_launches, report))
     del params
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,15 +1,16 @@
 """QuantizedLinear, serve mode (counterpart of ``repro.core.linear``).
 
-The integer serving path: weights live PACKED sub-byte in device memory,
-activations are quantized (signed, offset-binary storage), the matmul is the
-mpmm kernel (int32 accumulation), and the output is dequantized to the
-input's dtype. Weight layout is PULP-NN's filter-major (d_out, d_in): the
-contraction axis is the packed axis.
+The integer serving path: weights live PACKED sub-byte in device memory. A
+fully quantized layer quantizes its activations (signed, offset-binary
+storage) and runs the mpmm kernel (int32 accumulation); a weight-only layer
+keeps its activations bf16 and runs the wdqmm kernel (in-kernel unpack and
+dequantize, f32 accumulation). The output is cast to the input's dtype.
+Weight layout is PULP-NN's filter-major (d_out, d_in): the contraction axis
+is the packed axis.
 
 Cast points mirror the reference exactly: the input is cast to f32 before
 quantizing, the bias is added in f32, then the result is cast to the input
-dtype. The QAT training branch and weight-only (wdqmm) layers are not
-ported yet.
+dtype. The QAT training branch is not ported yet.
 """
 
 from __future__ import annotations
@@ -59,19 +60,19 @@ def linear_apply(params: dict, x: torch.Tensor, lp: LayerPrecision, *,
         if w is None:
             raise ValueError("params lack 'w'; converted for serving only")
         y = x2.to(torch.float32) @ w.to(torch.float32).T
-    elif not lp.act_quantized:
-        raise NotImplementedError(
-            "weight-only layers need the wdqmm kernel, which the port does not have yet")
     else:
         if "w_packed" in params:
             w_p, eps_w = params["w_packed"], params["eps_w"]
         else:  # on-the-fly conversion (tests / small models)
             wq, eps_w = Q.quantize_weight(params["w"].to(torch.float32), lp.w_bits)
             w_p = P.pack(wq, lp.w_bits)
-        xq, eps_x = Q.quantize_act_signed(x2.to(torch.float32), params["beta"], lp.x_bits)
-        x_p = P.pack(xq, lp.x_bits)
-        y = ops.mpmm(x_p, w_p, None, x_bits=lp.x_bits, w_bits=lp.w_bits, y_bits=8,
-                     x_signed=True, out_kind="f32", out_scale=eps_x * eps_w, impl=impl)
+        if lp.act_quantized:
+            xq, eps_x = Q.quantize_act_signed(x2.to(torch.float32), params["beta"], lp.x_bits)
+            x_p = P.pack(xq, lp.x_bits)
+            y = ops.mpmm(x_p, w_p, None, x_bits=lp.x_bits, w_bits=lp.w_bits, y_bits=8,
+                         x_signed=True, out_kind="f32", out_scale=eps_x * eps_w, impl=impl)
+        else:  # weight-only: bf16 activations, in-kernel unpack and dequantize
+            y = ops.wdqmm(x2, w_p, eps_w, w_bits=lp.w_bits, impl=impl)
     if "b" in params:
         y = y + params["b"]
     return y.to(out_dtype).reshape(*lead, -1)

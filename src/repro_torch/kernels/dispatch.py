@@ -15,7 +15,8 @@ tensors, the plain version for CPU tensors. There is no fallback: on a CUDA
 device a kernel that does not build or launch raises.
 
 Ops in the registry: ``mpmm`` and ``conv2d`` (all 27 (x, w, y) cells),
-``qntpack`` (one cell per output width y), ``paged_gather``,
+``qntpack`` (one cell per output width y), ``wdqmm`` (one cell per weight
+width w), ``paged_gather``,
 ``paged_scatter`` and ``paged_copy`` (one storage-agnostic cell each),
 ``paged_attn`` and ``paged_mla_attn`` (one cell per KV width each).
 """
@@ -115,7 +116,8 @@ def coverage(op: str, impl: str) -> set[tuple]:
 
 def validate_coverage() -> None:
     """The import-time gate over the cells the port has: mpmm and conv2d
-    cover all 27 permutations, qntpack every output width, the page movers
+    cover all 27 permutations, qntpack every output width, wdqmm every
+    weight width, the page movers
     (paged_gather, paged_scatter, paged_copy) one cell each, paged_attn and
     paged_mla_attn every KV width, on both implementations."""
     missing: list[str] = []
@@ -127,6 +129,10 @@ def validate_coverage() -> None:
         for b in BITS:
             if b not in have_y:
                 missing.append(f"qntpack[y={b}]@{impl}")
+        have_w = {c[1] for c in coverage("wdqmm", impl)}
+        for b in BITS:
+            if b not in have_w:
+                missing.append(f"wdqmm[w={b}]@{impl}")
         for op in ("paged_gather", "paged_scatter", "paged_copy"):
             if not coverage(op, impl):
                 missing.append(f"{op}@{impl}")
@@ -141,8 +147,8 @@ def validate_coverage() -> None:
 
 def cells_for_policy(policy) -> list[KernelKey]:
     """The cells a policy's serving path routes through: fully quantized
-    layers hit mpmm (signed activations, f32 out, y_bits=8 requant vector);
-    weight-only layers would hit wdqmm, which the port does not have yet."""
+    layers hit mpmm (signed activations, f32 out, y_bits=8 requant vector),
+    weight-only layers (bf16 activations) hit wdqmm at their weight width."""
     cells: set[KernelKey] = set()
     for cls in LAYER_CLASSES:
         lp = policy.of(cls)
@@ -183,7 +189,8 @@ def _register_library() -> None:
         paged_scatter_ref,
     )
     from repro_torch.kernels.qntpack import qntpack_cuda
-    from repro_torch.kernels.ref import conv2d_ref, mpmm_ref, qntpack_ref
+    from repro_torch.kernels.ref import conv2d_ref, mpmm_ref, qntpack_ref, wdqmm_ref
+    from repro_torch.kernels.wdqmm import wdqmm_cuda
 
     for x_bits, w_bits, y_bits in PERMUTATIONS:
         name = perm_name(x_bits, w_bits, y_bits)
@@ -203,6 +210,11 @@ def _register_library() -> None:
         register("qntpack", y_bits=y_bits, impl="torch",
                  fn=functools.partial(qntpack_ref, y_bits=y_bits),
                  name=f"qntpack_u{y_bits}_ref")
+    for w_bits in BITS:
+        register("wdqmm", w_bits=w_bits, impl="cuda",
+                 fn=functools.partial(wdqmm_cuda, w_bits=w_bits), name=f"wdqmm_i{w_bits}")
+        register("wdqmm", w_bits=w_bits, impl="torch",
+                 fn=functools.partial(wdqmm_ref, w_bits=w_bits), name=f"wdqmm_i{w_bits}_ref")
     register("paged_gather", impl="cuda", fn=paged_gather_cuda, name="paged_gather")
     register("paged_gather", impl="torch", fn=paged_gather_ref, name="paged_gather_ref")
     register("paged_scatter", impl="cuda", fn=paged_scatter_cuda, name="paged_scatter")

@@ -1,7 +1,7 @@
 """Public entry points for the port's kernels (counterpart of
-``repro.kernels.ops``): ``mpmm``, ``qntpack``, ``conv2d``, ``paged_gather``,
-``paged_scatter``, ``paged_copy``, ``paged_attn`` and ``paged_mla_attn``, plus
-the quantize-and-pack helpers.
+``repro.kernels.ops``): ``mpmm``, ``wdqmm``, ``qntpack``, ``conv2d``,
+``paged_gather``, ``paged_scatter``, ``paged_copy``, ``paged_attn`` and
+``paged_mla_attn``, plus the quantize-and-pack helpers.
 
 Every call routes through the dispatch registry. ``impl="auto"`` launches
 the CUDA kernel for CUDA tensors and uses the plain PyTorch version for CPU
@@ -57,6 +57,23 @@ def mpmm(
     scale = (torch.as_tensor(out_scale, dtype=torch.float32, device=dev).reshape(1)
              if out_kind == "f32" else None)
     return entry.fn(x_p, w_p, rqv, scale, x_signed=x_signed, out_kind=out_kind)
+
+
+def wdqmm(
+    x: torch.Tensor,  # (M, K) bf16/f32 activations
+    w_p: torch.Tensor,  # (N, K/rw) packed signed weights
+    eps_w,  # f32 scalar (a tensor on the operands' device on the hot path)
+    *,
+    w_bits: int,
+    impl: Impl = "auto",
+) -> torch.Tensor:
+    """Weight-only dequant matmul (the weight-only layers' path) -> (M, N)
+    f32. Nothing is padded: the kernel masks its ragged edges."""
+    entry = dispatch.lookup("wdqmm", device=x.device, w_bits=w_bits, impl=impl)
+    eps = torch.as_tensor(eps_w, dtype=torch.float32, device=x.device)
+    if entry.key.impl == "torch":
+        return entry.fn(x, w_p, eps)
+    return entry.fn(x.contiguous(), w_p.contiguous(), eps.reshape(1))
 
 
 def qntpack(

@@ -1,6 +1,7 @@
 """Plain PyTorch oracles for the packed kernels (counterpart of
 ``repro.kernels.ref``): the matmul, the standalone QntPack and the paper's
-Reference-Layer conv. Bit-exact ground truth.
+Reference-Layer conv (bit-exact ground truth), and the weight-only dequant
+matmul (the f32 twin of ``repro.kernels.wdqmm.wdqmm_ref``).
 
 The integer products are float64 matmuls of the unpacked values: every
 partial sum is an integer below 2^53 (|sum| <= K * 255 * 128, K = 9C for
@@ -43,6 +44,16 @@ def mpmm_ref(
     if out_kind != "packed":
         raise ValueError(out_kind)
     return P.pack(Q.requant(phi, rq), y_bits)
+
+
+def wdqmm_ref(x: torch.Tensor, w_p: torch.Tensor, eps_w, *, w_bits: int) -> torch.Tensor:
+    """Weight-only dequant matmul: y[m, n] = sum_k x[m, k] * (eps_w * w[n, k])
+    in f32. ``x`` (M, K) bf16/f32, ``w_p`` (N, K/rw) packed signed, ``eps_w``
+    an f32 scalar. The dequantized weights are their own f32 array (each
+    product ``w * eps_w`` rounded once), as in the reference's twin."""
+    eps = torch.as_tensor(eps_w, dtype=torch.float32, device=w_p.device)
+    w = P.unpack(w_p, w_bits, signed=True).to(torch.float32) * eps
+    return x.to(torch.float32) @ w.T
 
 
 def qntpack_ref(phi: torch.Tensor, rq: Q.RequantParams, *, y_bits: int) -> torch.Tensor:

@@ -8,7 +8,11 @@ Tolerances: mpmm, conv2d and qntpack are integer kernels and paged_gather,
 paged_scatter and paged_copy copy kernels, all bit-exact;
 paged_attn and paged_mla_attn follow the plain version's page-blocked
 softmax but sum inside their dots in another order, so atol = rtol = 1e-5
-(the reference's own fused-vs-twin bound).
+(the reference's own fused-vs-twin bound); wdqmm sums the plain version's
+f32 products in another order, so |kernel - plain| <= TOL * sum_k |x w|
+(TOL = 2^-20, ``kernels/wdqmm.py``). A weight-only engine on the card may
+then pick the other token where two bf16 logits tie; its streams must equal
+the CPU run's, or differ first at such a tie.
 """
 
 import dataclasses
@@ -21,9 +25,16 @@ torch = pytest.importorskip("torch")
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import pack as P  # noqa: E402
 from repro_torch.core import quant as Q  # noqa: E402
-from repro_torch.core.policy import PERMUTATIONS, get_policy  # noqa: E402
+from repro_torch.core.policy import (  # noqa: E402
+    BF16,
+    PERMUTATIONS,
+    LayerPrecision,
+    PrecisionPolicy,
+    get_policy,
+)
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels.ref import conv2d_ref, im2col  # noqa: E402
+from repro_torch.kernels.wdqmm import TOL as WDQMM_TOL  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
@@ -441,3 +452,156 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# ------------------------------------------------------------------ wdqmm
+
+
+def _wdqmm_operands(g, dev, M_, N, K, wb, dtype):
+    x = torch.randn((M_, K), generator=g).to(dtype).to(dev)
+    w = torch.randint(-(1 << (wb - 1)), 1 << (wb - 1), (N, K), generator=g,
+                      dtype=torch.int32).to(torch.int8)
+    eps = torch.tensor(0.0173, device=dev)
+    return x, P.pack(w, wb).to(dev), eps, w.to(dev)
+
+
+def _wdqmm_bound(x, w, eps):
+    return WDQMM_TOL * (x.double().abs() @ (w.double() * float(eps)).abs().T)
+
+
+@pytest.mark.parametrize("w_bits", [8, 4, 2])
+def test_wdqmm_kernel_vs_plain(dev, w_bits):
+    """M = 1, 4, 16 and 17 (two row tiles), a ragged N, K = 2048 and 4160
+    (vector path, several staged chunks), K = 44 (scalar path), N past
+    4096 and 16384 (the launcher's wider warps), bf16 and f32 activations;
+    then a misaligned weight view (scalar path) and a misaligned activation
+    view (vector path, staged one value at a time): every output within
+    WDQMM_TOL * sum_k |x w| of the plain version."""
+    g = torch.Generator().manual_seed(w_bits)
+    for M_ in (1, 4, 16, 17):
+        for N, K in ((37, 2048), (40, 4160), (21, 44), (4100, 256), (16390, 64)):
+            for dtype in (torch.bfloat16, torch.float32):
+                x, w_p, eps, w = _wdqmm_operands(g, dev, M_, N, K, w_bits, dtype)
+                a = ops.wdqmm(x, w_p, eps, w_bits=w_bits, impl="cuda")
+                b = ops.wdqmm(x, w_p, eps, w_bits=w_bits, impl="torch")
+                assert a.dtype == torch.float32 and a.shape == (M_, N)
+                assert ((a - b).double().abs() <= _wdqmm_bound(x, w, eps)).all(), (M_, N, K)
+    x, w_p, eps, w = _wdqmm_operands(g, dev, 5, 33, 2048, w_bits, torch.bfloat16)
+    want = ops.wdqmm(x, w_p, eps, w_bits=w_bits, impl="torch")
+    for xx, ww in ((x, _misaligned(w_p)), (_misaligned(x), w_p)):
+        got = ops.wdqmm(xx, ww, eps, w_bits=w_bits, impl="cuda")
+        assert ((got - want).double().abs() <= _wdqmm_bound(x, w, eps)).all()
+    assert build.LAUNCHES["wdqmm"] > 0
+
+
+@pytest.mark.parametrize("w_bits", [8, 4, 2])
+def test_wdqmm_kernel_deterministic_and_row_independent(dev, w_bits):
+    """On the vector path (aligned weights) and on the scalar path (a
+    misaligned weight view), each with its own fixed order: the same call
+    twice gives the same bits, and a row gives the same bits alone, in a
+    decode-sized call (M = 4), in a prefill chunk (M = 16) and from a
+    misaligned copy of the activations."""
+    g = torch.Generator().manual_seed(10 + w_bits)
+    for N in (200, 5000, 17000):  # the launcher's 1, 2 and 4 columns a warp
+        x, w_p, eps, _ = _wdqmm_operands(g, dev, 16, N, 2048, w_bits, torch.bfloat16)
+        for w_view in (w_p, _misaligned(w_p)):
+            def run(xx):
+                return ops.wdqmm(xx, w_view, eps, w_bits=w_bits, impl="cuda")
+
+            y16 = run(x)
+            assert torch.equal(y16, run(x))
+            assert torch.equal(y16[:4], run(x[:4]))
+            assert torch.equal(y16[9:10], run(x[9:10]))
+            assert torch.equal(y16, run(_misaligned(x)))
+
+
+def _wo_policy(name):
+    """Weight-only w4 everywhere, or the mixed policy: attention through
+    mpmm at (8, 4, 8), FFN and head weight-only w2. Routers bf16, kv8."""
+    if name == "w4only":
+        return PrecisionPolicy(name=name, default=LayerPrecision(None, 4, None),
+                               per_class={"router": BF16}, kv_cache_bits=8)
+    return PrecisionPolicy(name=name, default=LayerPrecision(None, 2, None),
+                           per_class={"attn_qkv": LayerPrecision(8, 4, 8),
+                                      "attn_out": LayerPrecision(8, 4, 8), "router": BF16},
+                           kv_cache_bits=8)
+
+
+def replay_to_first_tie(prefill, decode, prompt, want, got, atol=0.05):
+    """Replay the expected stream ``want`` of one request through two
+    models, the expected one and the one under test: ``prefill(toks, pos,
+    kw)`` takes a (1, 4) int32 chunk of the prompt into slot 0 (``kw`` holds
+    ``last_idx`` and ``head`` on the last chunk) and ``decode(toks, pos)`` one
+    (1, 1) token; each returns both models' logits as flat f32 numpy arrays.
+    The logits agree within ``atol`` at every step, and at the first step
+    where ``got`` parts from ``want`` the expected model's logits of the two
+    chosen tokens are within ``atol``: a tie that the two f32 sums break
+    differently. Returns that step."""
+    pos = 0
+    for off in range(0, len(prompt), 4):
+        n = min(4, len(prompt) - off)
+        toks = np.zeros((1, 4), np.int32)
+        toks[0, :n] = prompt[off:off + n]
+        kw = dict(last_idx=n - 1, head=True) if off + n >= len(prompt) else {}
+        r, g = prefill(toks, pos, kw)
+        pos += n
+    for i, (a, b) in enumerate(zip(want, got)):
+        np.testing.assert_allclose(g, r, atol=atol, rtol=0)
+        if a != b:
+            assert abs(float(r[a] - r[b])) <= atol, (i, a, b, r[a], r[b])
+            return i
+        r, g = decode(np.array([[a]], np.int32), pos)
+        pos += 1
+    raise AssertionError("the streams did not differ")
+
+
+def _first_tie(params, cparams, cfg, policy, prompt, want, got, dev):
+    """The CPU stream's tokens through the CPU (plain versions) and the card
+    (kernels) models, to the first tie (``replay_to_first_tie``)."""
+    caches = {d: M.init_cache(cfg, policy, 1, 32, device=d) for d in ("cpu", dev)}
+    ps = {"cpu": params, dev: cparams}
+
+    def both(step):
+        return tuple(step(d).float().cpu().numpy().ravel() for d in ps)
+
+    def prefill(toks, pos, kw):
+        return both(lambda d: M.prefill_into_slot(ps[d], torch.from_numpy(toks).to(d), 0, pos,
+                                                  caches[d], cfg, policy, **kw))
+
+    def decode(toks, pos):
+        return both(lambda d: M.decode_step(
+            ps[d], torch.from_numpy(toks).to(d),
+            torch.tensor([pos], dtype=torch.int32, device=d), caches[d], cfg, policy,
+            fused_attn=True))
+
+    replay_to_first_tie(prefill, decode, prompt, want, got)
+
+
+@pytest.mark.parametrize("policy_name", ["w4only", "mixed"])
+def test_weight_only_engine_on_cuda_matches_cpu(dev, policy_name):
+    """Reduced internlm2-1.8b under a weight-only policy (and the mixed one):
+    the card's slot and paged streams are identical (one kernel, one sum
+    order), wdqmm launched (mpmm only in the mixed policy), and equal to the
+    CPU run's, or first different at a tie of the CPU logits."""
+    cfg = configs.reduced(configs.get_arch("internlm2-1.8b"))
+    policy = _wo_policy(policy_name)
+    params = M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu")
+    cparams = _to(params, dev)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=n).astype(np.int32) for n in (3, 9, 5, 2, 7)]
+    outs = {}
+    for device, cache in (("cpu", "paged"), ("cuda", "slot"), ("cuda", "paged")):
+        build.reset_launches()
+        eng = ServeEngine(params if device == "cpu" else cparams, cfg, policy, n_slots=2,
+                          s_max=32, prefill_chunk=4, cache=cache,
+                          page_size=16 if cache == "paged" else None, device=device)
+        outs[device, cache] = eng.run(
+            [Request(rid=i, prompt=pr, max_new=6) for i, pr in enumerate(prompts)])
+        if device == "cuda":
+            assert build.LAUNCHES["wdqmm"] > 0 and build.LAUNCHES["paged_attn"] > 0
+            assert (build.LAUNCHES["mpmm"] > 0) == (policy_name == "mixed")
+    assert outs["cuda", "slot"] == outs["cuda", "paged"]
+    want, got = outs["cpu", "paged"], outs["cuda", "paged"]
+    for rid, pr in enumerate(prompts):
+        if got[rid] != want[rid]:
+            _first_tie(params, cparams, cfg, policy, pr, want[rid], got[rid], dev)

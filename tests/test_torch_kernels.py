@@ -222,11 +222,27 @@ def test_dispatch_registry_covers_the_port_and_counts():
 
 
 def test_weight_only_policy_is_refused_up_front():
+    """A weight-only policy is refused up front (KeyError at
+    ``ensure_policy_supported``, the coverage gate naming the cell) exactly
+    when its wdqmm cell is missing. With the registry as shipped, wdqmm is
+    registered at every weight width on both implementations and the policy
+    passes."""
     from repro_torch.core.policy import LayerPrecision, PrecisionPolicy
 
     wo = PrecisionPolicy(name="w4only", default=LayerPrecision(None, 4, None))
-    with pytest.raises(KeyError):
-        dispatch.ensure_policy_supported(wo)
+    for impl in dispatch.IMPLS:
+        assert {c[1] for c in dispatch.coverage("wdqmm", impl)} == {8, 4, 2}
+    dispatch.ensure_policy_supported(wo)
+    key = dispatch.KernelKey("wdqmm", None, 4, None, "torch")
+    entry = dispatch._REGISTRY.pop(key)
+    try:
+        with pytest.raises(KeyError, match="wdqmm"):
+            dispatch.ensure_policy_supported(wo)
+        with pytest.raises(RuntimeError, match=r"wdqmm\[w=4\]@torch"):
+            dispatch.validate_coverage()
+    finally:
+        dispatch._REGISTRY[key] = entry
+    dispatch.ensure_policy_supported(wo)
 
 
 def test_dispatch_covers_conv_qntpack_and_gather():
