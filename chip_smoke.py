@@ -31,7 +31,8 @@ Phases, in order (any failure ends the run with a nonzero exit):
      path from the same cache (largest logit difference, argmax agreement);
   7. each kernel's time beside its bound and its plain version's time (per
      decode step for the serving kernels; per call at the paper's shape for
-     conv2d, also at 224 x 224, and qntpack);
+     conv2d, also at 224 x 224, and qntpack; wdqmm's and flash_mha's rows
+     are timed at the end of phases 10 and 11, after their paths ran);
   8. the MLA serving path: ServeEngine serving DeepSeek-V3 at its published
      widths cut to its three dense (MLA) layers, policy w4a8 with an 8-bit
      latent cache, the same 4 greedy requests, on the slot cache and then
@@ -77,14 +78,38 @@ Phases, in order (any failure ends the run with a nonzero exit):
      on every (N, K) of DeepSeek-V3's MLA-dense path (wq_a, wq_b, wkv_a, wo,
      up and gate, down, head; wq_b's K 1536 ends in a partial staging
      chunk) at M = 4 and 16, and on a ragged shape (M 5, N 37, K 44: the scalar path), within WDQMM_TOL * sum_k |x w|,
-     the same call twice bit-identical.
+     the same call twice bit-identical;
+ 11. whole-prompt prefill and whole-sequence scoring (run right after phase
+     10, on internlm2's w4a8 weights): four prompts of PREFILL_LEN (512)
+     tokens drawn from SEED; ``model.prefill_step`` writes them into a fresh
+     dense cache (``init_cache(cfg, policy, 4, 1024)``) in one forward
+     (flash_mha over the fresh bf16 k/v, the cache written kv8), then 32
+     greedy fused decode steps run from that cache (paged_attn); then
+     ``model.forward(mode="serve")`` scores the same tokens. Gates: flash_mha
+     launched once a layer (24) in each call; forward's last-position
+     logits bit-identical to prefill_step's; prefill_step on the kernel path
+     against the plain path from the same tokens, argmax agreeing on all four
+     prompts. Printed, not gated: both calls' wall time beside chunked
+     prefill of the same prompts (ChunkedPrefill, chunks of 16), how far
+     the greedy streams after the two prefills agree, and prefill_step's
+     device time by kernel. Then flash_mha's time
+     per prefill_step (24 calls at B 4, S 512, 16 / 8 heads, D 128) beside
+     its bound (q . k at the bf16 rate, P . V at the f32 rate), its plain
+     version and ``F.scaled_dot_product_attention``. Phase 2 holds flash_mha
+     against its plain version (ATTN_TOL, each call twice bit-identical) on
+     the reference test's shapes, internlm2's full shape in bf16 and f32,
+     ragged Sq != Sk both ways, strided operands and a window whose last
+     row sees one key; a window that leaves rows with no key is refused by
+     both.
 
-Phases 3, 4, 5, 8, 9 and 10 each start with every launch count at 0 (phase
-8 once for its fused runs, once for its unfused runs, once for its
+Phases 3, 4, 5, 8, 9, 10 and 11 each start with every launch count at 0
+(phase 8 once for its fused runs, once for its unfused runs, once for its
 weight-only runs and once for its prefix run; phase 10 once for its slot and
-paged runs and once for its prefix run) and read the counts at their end;
+paged runs and once for its prefix run; phase 11 once for prefill_step and
+its decode steps and once for forward) and read the counts at their end;
 the kernels line gives each kernel the count of its own path (paged_copy:
-phase 9's prefix run; wdqmm: phase 10's slot and paged runs).
+phase 9's prefix run; wdqmm: phase 10's slot and paged runs; flash_mha:
+phase 11's prefill_step).
 
 The line before the last is the kernels JSON, the last line the result
 JSON.
@@ -105,6 +130,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 
 #: paged_attn / paged_mla_attn kernel vs plain version: both follow the same
@@ -121,6 +147,8 @@ COLD_STEPS = 8
 
 PROMPT_LENS = (128, 256, 384, 512)
 MAX_NEW = 32
+#: phase 11: four prompts of this many tokens, prefilled whole
+PREFILL_LEN = 512
 #: the prefix path: a shared system prompt of 22 full pages and 8 rows, and
 #: the unique tail lengths of requests (a) and (b)
 SHARED_LEN, UNIQ_A, UNIQ_B = 360, 152, 24
@@ -557,6 +585,70 @@ def check_paged_copy(torch, dev, cfg, mcfg, report):
         f"{PAGE_SIZE}; disjoint, overlapping and self-copies; host and device ids)")
 
 
+def flash_case(torch, g, dev, B, Sq, Sk, Hq, Hkv, D, dtype, layout="bshd"):
+    """Random q, k, v in the model's (B, S, H, D) layout; ``layout="bhsd"``
+    gives the same shapes as transposed views of (B, H, S, D) storage (the
+    Pallas kernel's layout), which the kernel reads through its strides."""
+    def one(S, H):
+        if layout == "bhsd":
+            return torch.randn((B, H, S, D), generator=g, device=dev).to(dtype).transpose(1, 2)
+        return torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+
+    return one(Sq, Hq), one(Sk, Hkv), one(Sk, Hkv)
+
+
+def check_flash_mha(torch, dev, cfg, report):
+    """flash_mha against its plain version on the card within ATTN_TOL
+    (atol = rtol), each call twice bit-identical: the reference test's
+    shapes (tests/test_ssm_attn.py: B 2, S 35, D 16; GQA 1 and 2; causal,
+    full, window 10; f32), internlm2's full shape (B 4, S 512, 16 / 8 heads,
+    D 128, causal; bf16 as the model passes it, and f32), a ragged Sq != Sk,
+    operands read through (B, H, S, D) strides and a window whose last row
+    sees one key (Sq = Sk + window - 1). Both refuse a window that leaves a
+    row with no key (Sq 300, Sk 100, window 50)."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    Hq, Hkv, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [((2, 35, 35, 2 * gqa, 2, 16, f32, "bshd"), causal, window)
+             for gqa, causal, window in ((1, True, None), (2, True, None), (1, False, None),
+                                         (1, True, 10))]
+    cases += [((N_SLOTS, 512, 512, Hq, Hkv, D, bf16, "bshd"), True, None),
+              ((N_SLOTS, 512, 512, Hq, Hkv, D, f32, "bshd"), True, None),
+              ((2, 100, 300, Hq, Hkv, D, bf16, "bshd"), True, None),
+              ((2, 300, 100, Hq, Hkv, D, bf16, "bshd"), True, None),
+              ((2, 200, 200, Hq, Hkv, D, bf16, "bhsd"), True, 70),
+              ((2, 300, 100, Hq, Hkv, D, bf16, "bshd"), True, 201)]
+    worst = 0.0
+    for (B, Sq, Sk, hq, hkv, d, dtype, layout), causal, window in cases:
+        q, k, v = flash_case(torch, g, dev, B, Sq, Sk, hq, hkv, d, dtype, layout)
+        kw = dict(causal=causal, window=window)
+        a = ops.flash_mha(q, k, v, impl="cuda", **kw)
+        again = ops.flash_mha(q, k, v, impl="cuda", **kw)
+        b = ops.flash_mha(q, k, v, impl="torch", **kw)
+        torch.cuda.synchronize()
+        err = (a - b).abs()
+        name = (f"flash_mha B={B} Sq={Sq} Sk={Sk} {hq}/{hkv} heads D={d} {str(dtype)[6:]} "
+                f"{layout} causal={causal} window={window}")
+        if not torch.equal(a, again):
+            raise AssertionError(f"{name}: two calls differ")
+        if not torch.isfinite(a).all() or bool((err > ATTN_TOL * (1 + b.abs())).any()):
+            raise AssertionError(f"{name}: max |kernel - plain| {float(err.max())} above "
+                                 f"{ATTN_TOL} (atol = rtol)")
+        log(f"{name}: max |kernel - plain| = {float(err.max()):.3e}, twice bit-identical")
+        worst = max(worst, float(err.max()))
+    q, k, v = flash_case(torch, g, dev, 2, 300, 100, Hq, Hkv, D, bf16)
+    for impl in ("cuda", "torch"):
+        try:
+            ops.flash_mha(q, k, v, causal=True, window=50, impl=impl)
+        except ValueError as e:
+            log(f"flash_mha impl={impl} Sq=300 Sk=100 window=50: refused ({e})")
+        else:
+            raise AssertionError(f"flash_mha impl={impl} took rows that see no key")
+    report["flash_mha"] = {"max_abs_err": worst, "tol": ATTN_TOL, "checks": len(cases) + 2}
+
+
 # ------------------------------------------------------------- phase 3 - 6
 
 
@@ -833,7 +925,7 @@ def kernel_table(torch, dev, cfg, params, launches, report):
     nops = sum(2 * B * p["w_packed"].shape[0] * p["w_packed"].shape[1] * 2 for p in lin)
     rows.append(dict(name="mpmm", route="cuda", source="src/repro_torch/csrc/mpmm.cu",
                      replaces="src/repro/kernels/mpmm.py:122", ms=t, plain_ms=tp,
-                     bytes=nbytes, ops=nops, peak=INT8_OPS_PER_S, library_ms=None))
+                     bytes=nbytes, work=[(nops, INT8_OPS_PER_S)], library_ms=None))
 
     # paged_attn: one call per layer at kv8, each layer on its own page pool
     cases = [attn_case(torch, dev, cfg, 8, g) for _ in range(L)]
@@ -856,7 +948,7 @@ def kernel_table(torch, dev, cfg, params, launches, report):
         f"{tpw:.3f} ms wall")
     rows.append(dict(name="paged_attn", route="cuda", source="src/repro_torch/csrc/paged_attn.cu",
                      replaces="src/repro/kernels/paged_attn.py:142", ms=t, plain_ms=tp,
-                     bytes=nbytes, ops=nops, peak=F32_FLOPS_PER_S, library_ms=None))
+                     bytes=nbytes, work=[(nops, F32_FLOPS_PER_S)], library_ms=None))
 
     # paged_scatter: the 4 leaves of every layer's pool take one new row per slot
     news = [torch.ones((B, 1, *a.shape[2:]), dtype=a.dtype, device=dev)
@@ -883,7 +975,7 @@ def kernel_table(torch, dev, cfg, params, launches, report):
     rows.append(dict(name="paged_scatter", route="cuda",
                      source="src/repro_torch/csrc/paged_scatter.cu",
                      replaces="src/repro/kernels/paged_gather.py:91", ms=t, plain_ms=tp,
-                     bytes=nbytes, ops=0, peak=F32_FLOPS_PER_S, library_ms=tl))
+                     bytes=nbytes, work=[], library_ms=tl))
 
     # paged_gather: the unfused step reads the 4 leaves of every layer's pool
     # through the block table (B = 4, 64 pages each)
@@ -905,7 +997,7 @@ def kernel_table(torch, dev, cfg, params, launches, report):
     rows.append(dict(name="paged_gather", route="cuda",
                      source="src/repro_torch/csrc/paged_gather.cu",
                      replaces="src/repro/kernels/paged_gather.py:52", ms=t, plain_ms=tp,
-                     bytes=nbytes, ops=0, peak=F32_FLOPS_PER_S, library_ms=tl))
+                     bytes=nbytes, work=[], library_ms=tl))
 
     # paged_copy: one COW clone as the prefix cache makes it, one page on
     # every leaf of every layer (4 x 24 = 96 calls), host ids (one launch a
@@ -929,7 +1021,7 @@ def kernel_table(torch, dev, cfg, params, launches, report):
         f"index_select + index_copy_ (ids on the card) {tl:.4f} ms device, {tlw:.3f} ms wall")
     rows.append(dict(name="paged_copy", route="cuda", source="src/repro_torch/csrc/paged_copy.cu",
                      replaces="src/repro/kernels/paged_gather.py:141", ms=t, plain_ms=tp,
-                     bytes=nbytes, ops=0, peak=F32_FLOPS_PER_S, library_ms=tl))
+                     bytes=nbytes, work=[], library_ms=tl))
 
     # qntpack and conv2d: per call, timed over CALLS back-to-back launches
     # of the kernel's wrapper with the requant vector already on the card
@@ -956,8 +1048,8 @@ def kernel_table(torch, dev, cfg, params, launches, report):
         f"{tw * 1e3:.2f} us wall; plain {tp * 1e3:.2f} us device, {tpw * 1e3:.2f} us wall")
     rows.append(dict(name="qntpack", route="cuda", source="src/repro_torch/csrc/qntpack.cu",
                      replaces="src/repro/kernels/qntpack.py:28", ms=t, plain_ms=tp,
-                     bytes=4 * M_ * N_ + M_ * N_ // 2 + rqv.numel() * 4, ops=15 * M_ * N_,
-                     peak=F32_FLOPS_PER_S, library_ms=None))
+                     bytes=4 * M_ * N_ + M_ * N_ // 2 + rqv.numel() * 4,
+                     work=[(15 * M_ * N_, F32_FLOPS_PER_S)], library_ms=None))
 
     # conv2d: the quickstart's cell (8, 4, 4) at the paper's shape, and at
     # 224 x 224 with the paper's widths (C 32 -> 64)
@@ -977,16 +1069,17 @@ def kernel_table(torch, dev, cfg, params, launches, report):
         if (H, W) == paper[:2]:
             rows.append(dict(name="conv2d", route="cuda", source="src/repro_torch/csrc/conv2d.cu",
                              replaces="src/repro/kernels/conv2d.py:71", ms=t, plain_ms=tp,
-                             bytes=nbytes, ops=nops, peak=INT8_OPS_PER_S, library_ms=None))
+                             bytes=nbytes, work=[(nops, INT8_OPS_PER_S)], library_ms=None))
 
     return [kernel_row(r, launches, report) for r in rows]
 
 
 def kernel_row(r, launches, report) -> dict:
     """One entry of the kernels line: the bound from the row's bytes and
-    operations, the launches of its path, its check's largest error."""
+    its work, a list of (operations, peak rate of their type) whose times
+    add; the launches of its path, its check's largest error."""
     t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = r["ops"] / r["peak"] * 1e3
+    t_ops = sum(n / peak for n, peak in r["work"]) * 1e3
     return {
         "name": r["name"], "route": r["route"], "source": r["source"],
         "replaces": r["replaces"], "launches": int(launches.get(r["name"], 0)),
@@ -999,14 +1092,12 @@ def kernel_row(r, launches, report) -> dict:
 
 #: device kernels the step breakdown names (everything else is PyTorch's)
 KERNEL_NAMES = ("mpmm_kernel", "wdqmm_kernel", "paged_mla_attn_kernel", "paged_attn_kernel",
-                "paged_scatter_kernel", "paged_gather_kernel")
+                "flash_mha_kernel", "paged_scatter_kernel", "paged_gather_kernel")
 
 
 def step_breakdown(torch, dev, cfg, policy, params):
     """Profile one full-width decode step on the kernel path: wall time,
     device busy time (so the idle share), and device time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models import model as M
 
     caches = M.init_cache(cfg, policy, N_SLOTS, S_MAX, device=dev)
@@ -1014,14 +1105,24 @@ def step_breakdown(torch, dev, cfg, policy, params):
     pos = torch.tensor([n + MAX_NEW - 1 for n in PROMPT_LENS], dtype=torch.int32, device=dev)
     step = lambda: M.decode_step(params, toks, pos, caches, cfg, policy,  # noqa: E731
                                  fused_attn=True)
+    profile_breakdown(torch, step, f"decode step breakdown ({cfg.name}, {policy.name}, "
+                      f"{cfg.n_layers} layers, slot cache, 4 slots at 159..543 cached rows)")
+
+
+def profile_breakdown(torch, step, label: str, reps: int = 3):
+    """Wall time of ``step`` (mean of ``reps`` after two warm-up calls, no
+    profiler), then one profiled call: device busy time (so the idle
+    share), device time by kernel and the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
     for _ in range(2):
         step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(3):
+    for _ in range(reps):
         step()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / 3
+    wall = (time.perf_counter() - t0) * 1e3 / reps
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
@@ -1040,9 +1141,7 @@ def step_breakdown(torch, dev, cfg, policy, params):
     parts = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
     top = "; ".join(f"{k} {v:.3f} ms" for k, v in
                     sorted(ops_ms.items(), key=lambda kv: -kv[1])[:6])
-    log(f"decode step breakdown ({cfg.name}, {policy.name}, {cfg.n_layers} layers, slot cache, 4 slots at "
-        f"159..543 cached rows): wall "
-        f"{wall:.2f} ms (no profiler), device busy {busy:.3f} ms "
+    log(f"{label}: wall {wall:.2f} ms (no profiler), device busy {busy:.3f} ms "
         f"({100 * (1 - busy / wall):.1f}% idle), {n_kernels} device kernels; {parts}")
     log(f"  top device ops: {top}")
 
@@ -1102,7 +1201,7 @@ def wdqmm_step_row(torch, dev, cfg, params) -> dict:
     nops = sum(2 * B * p["w_packed"].shape[0] * K_of(p) for p in lin)
     return dict(name="wdqmm", route="cuda", source="src/repro_torch/csrc/wdqmm.cu",
                 replaces="src/repro/kernels/wdqmm.py:45", ms=t, plain_ms=tp, bytes=nbytes,
-                ops=nops, peak=F32_FLOPS_PER_S, library_ms=tl)
+                work=[(nops, F32_FLOPS_PER_S)], library_ms=tl)
 
 
 def weight_only_path(torch, dev, cfg, params, report) -> tuple[dict, dict]:
@@ -1133,6 +1232,185 @@ def weight_only_path(torch, dev, cfg, params, report) -> tuple[dict, dict]:
     teacher_forced(torch, dev, cfg, policy, wparams, report, key="teacher_forced_w4only")
     step_breakdown(torch, dev, cfg, policy, wparams)
     return wdqmm_step_row(torch, dev, cfg, wparams), {"wdqmm": launches["wdqmm"]}
+
+
+def flash_step_row(torch, dev, cfg) -> dict:
+    """flash_mha per prefill_step of N_SLOTS x PREFILL_LEN tokens: one causal
+    call a layer over the layer's own bf16 q, k, v (24 sets of 16.8 MB, so
+    each call finds its operands in device memory, not in the 50 MB L2; in a
+    real prefill the projections have just written them), beside its bound,
+    its plain version and one ``F.scaled_dot_product_attention`` a layer
+    (f32, is_causal, kv heads repeated, (B, H, S, D); TF32 off)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    B, S, L = N_SLOTS, PREFILL_LEN, cfg.n_layers
+    Hq, Hkv, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    sets = [flash_case(torch, g, dev, B, S, S, Hq, Hkv, D, torch.bfloat16) for _ in range(L)]
+
+    def step(impl):
+        return lambda: [ops.flash_mha(q, k, v, causal=True, impl=impl) for q, k, v in sets]
+
+    t, tw, how = device_ms(step("cuda"))
+    tp, tpw, _ = device_ms(step("torch"), reps=3, warmup=1)
+    G = Hq // Hkv
+    lib_in = [(q.float().transpose(1, 2).contiguous(),
+               k.float().repeat_interleave(G, dim=2).transpose(1, 2).contiguous(),
+               v.float().repeat_interleave(G, dim=2).transpose(1, 2).contiguous())
+              for q, k, v in sets]
+    sdpa = lambda: [F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+                    for q, k, v in lib_in]
+    worst = max(float((lib.transpose(1, 2) - kern).abs().max())
+                for lib, kern in zip(sdpa(), step("cuda")()))
+    tl, tlw, _ = device_ms(sdpa)
+    del lib_in
+    nbytes = L * (B * S * Hq * D * 2 + 2 * B * S * Hkv * D * 2 + B * S * Hq * D * 4)
+    # q . k multiplies bf16 by bf16 and sums in f32, which a bf16 tensor-core
+    # product does; P . V multiplies f32 probabilities, which only f32 does
+    half = L * 2 * B * Hq * D * (S * (S + 1) // 2)
+    work = [(half, BF16_FLOPS_PER_S), (half, F32_FLOPS_PER_S)]
+    log(f"  flash_mha, one prefill_step ({L} calls, causal, B={B}, S={S}, {Hq}/{Hkv} heads, "
+        f"D={D}, bf16 in, f32 out; operands L2-cold): {t:.4f} ms device ({how}), {tw:.3f} ms "
+        f"wall; plain {tp:.3f} ms device, {tpw:.3f} ms wall; F.scaled_dot_product_attention "
+        f"(f32, is_causal, kv heads repeated) {tl:.4f} ms device, {tlw:.3f} ms wall; max |SDPA "
+        f"- kernel| = {worst:.3e}; {half / 1e9:.1f} GFLOP q . k at bf16 "
+        f"({half / BF16_FLOPS_PER_S * 1e3:.4f} ms) + {half / 1e9:.1f} GFLOP P . V at f32 "
+        f"({half / F32_FLOPS_PER_S * 1e3:.4f} ms), {nbytes / 1e6:.0f} MB "
+        f"({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    return dict(name="flash_mha", route="cuda", source="src/repro_torch/csrc/flash_mha.cu",
+                replaces="src/repro/kernels/flash.py:79", ms=t, plain_ms=tp, bytes=nbytes,
+                work=work, library_ms=tl)
+
+
+def whole_prompts(torch, dev, cfg):
+    """Phase 11's four prompts of PREFILL_LEN tokens, drawn from SEED."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    toks = rng.randint(1, cfg.vocab, size=(N_SLOTS, PREFILL_LEN)).astype(np.int32)
+    return torch.from_numpy(toks).to(dev)
+
+
+def greedy_decode(torch, dev, cfg, policy, params, caches, logits, steps=MAX_NEW):
+    """``steps`` greedy fused decode steps for every slot from a cache that
+    holds PREFILL_LEN rows, starting from the prefill's last logits. Returns
+    the streams, one list a slot."""
+    from repro_torch.models import model as M
+
+    out = [[] for _ in range(N_SLOTS)]
+    for i in range(steps):
+        toks = M.sample_tokens(logits[:, -1], [0.0] * N_SLOTS)[:, None]
+        for s, t in enumerate(toks[:, 0].tolist()):
+            out[s].append(t)
+        if i + 1 < steps:
+            pos = torch.full((N_SLOTS,), PREFILL_LEN + i, dtype=torch.int32, device=dev)
+            logits = M.decode_step(params, toks, pos, caches, cfg, policy, fused_attn=True)
+    return out
+
+
+def whole_prompt_path(torch, dev, cfg, policy, params, report) -> tuple[dict, dict]:
+    """Phase 11: internlm2 at full width, w4a8 with kv8. ``prefill_step``
+    writes four prompts of PREFILL_LEN tokens into a fresh dense cache in one
+    forward (flash_mha over the fresh k/v), then MAX_NEW greedy fused decode
+    steps run from it; ``forward(mode="serve")`` scores the same tokens.
+    Gates: flash_mha launched once a layer in each call, forward's last
+    position bit-identical to prefill_step's logits, the kernel path's
+    prefill_step against the plain path's with argmax agreeing. Printed: the
+    wall time of both prefills beside chunked prefill of the same prompts
+    (ChunkedPrefill, chunks of 16), how far the greedy streams agree, and
+    prefill_step's breakdown (device busy, time by kernel).
+    Returns (flash_mha's raw kernel row, its launches on the prefill path)."""
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.serve.cache import SlotCache
+    from repro_torch.serve.prefill import ChunkedPrefill
+
+    toks = whole_prompts(torch, dev, cfg)
+    L = cfg.n_layers
+
+    def prefill(impl="auto"):
+        caches = M.init_cache(cfg, policy, N_SLOTS, S_MAX, device=dev)
+        logits, _ = M.prefill_step(params, {"tokens": toks}, caches, cfg, policy, impl=impl)
+        return logits, caches
+
+    prefill()  # warm-up: the first full-width shapes' allocations and library handles
+    torch.cuda.synchronize()
+    build.reset_launches()  # the whole-prompt prefill path starts here
+    t0 = time.perf_counter()
+    logits, caches = prefill()
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    streams = greedy_decode(torch, dev, cfg, policy, params, caches, logits)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # the whole-prompt prefill path ends here
+    log(f"launches on the whole-prompt prefill path (prefill_step + {MAX_NEW - 1} decode "
+        f"steps): {launches}")
+    if launches.get("flash_mha", 0) != L:
+        raise AssertionError(f"prefill_step launched flash_mha {launches.get('flash_mha', 0)} "
+                             f"times, want {L} (one a layer)")
+    for name in ("mpmm", "paged_attn"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"kernel {name} was not launched on the whole-prompt path")
+
+    build.reset_launches()  # the whole-sequence forward starts here
+    t0 = time.perf_counter()
+    full, _ = M.forward(params, {"tokens": toks}, cfg, policy, mode="serve")
+    torch.cuda.synchronize()
+    t_forward = time.perf_counter() - t0
+    fwd_launches = dict(build.LAUNCHES)  # the whole-sequence forward ends here
+    log(f"launches on forward(mode='serve'): {fwd_launches}")
+    if fwd_launches.get("flash_mha", 0) != L:
+        raise AssertionError(f"forward launched flash_mha {fwd_launches.get('flash_mha', 0)} "
+                             f"times, want {L}")
+    if tuple(full.shape) != (N_SLOTS, PREFILL_LEN, cfg.vocab_padded) or not bool(
+            torch.isfinite(full.float()).all()):
+        raise AssertionError(f"forward logits: shape {tuple(full.shape)} or not finite")
+    if not torch.equal(full[:, -1:], logits):
+        d = float((full[:, -1:].float() - logits.float()).abs().max())
+        raise AssertionError(f"forward's last-position logits differ from prefill_step's by {d}")
+    log(f"forward(mode='serve') over {N_SLOTS} x {PREFILL_LEN} tokens: logits "
+        f"{tuple(full.shape)} in {t_forward:.3f} s wall; last position bit-identical to "
+        f"prefill_step's")
+    del full
+
+    plain, _ = prefill(impl="torch")
+    torch.cuda.synchronize()
+    a, b = logits[:, -1].float(), plain[:, -1].float()
+    diff = float((a - b).abs().max())
+    agree = bool(torch.equal(a.argmax(-1), b.argmax(-1)))
+    log(f"teacher_forced_prefill ({cfg.name}, {L} layers, full width, {N_SLOTS} x "
+        f"{PREFILL_LEN} tokens): max |logit kernel - plain| = {diff:.4g}, argmax agree: "
+        f"{agree}, logit scale {float(b.abs().max()):.4g}")
+    report["teacher_forced_prefill"] = {"max_logit_diff": diff, "argmax_agree": agree}
+    if not agree:
+        raise AssertionError("whole-prompt prefill: kernel and plain argmax differ")
+
+    cache = SlotCache(cfg, policy, N_SLOTS, S_MAX, device=dev)
+    pre = ChunkedPrefill(params, cfg, policy, chunk=16, device=dev)
+    lasts = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s_, p in enumerate(toks.cpu().numpy()):
+        cache.acquire(PREFILL_LEN + MAX_NEW)
+        lasts.append(pre.prefill(cache, s_, p))
+    torch.cuda.synchronize()
+    t_chunked = time.perf_counter() - t0
+    chunked = greedy_decode(torch, dev, cfg, policy, params, cache.caches, torch.cat(lasts))
+    same = sum(a_ == b_ for x, y in zip(streams, chunked) for a_, b_ in zip(x, y))
+    prefix = [next((i for i, (a_, b_) in enumerate(zip(x, y)) if a_ != b_), MAX_NEW)
+              for x, y in zip(streams, chunked)]
+    log(f"whole-prompt prefill_step of {N_SLOTS} x {PREFILL_LEN} tokens: {t_prefill:.3f} s "
+        f"wall; chunked prefill of the same prompts (ChunkedPrefill, chunks of 16, "
+        f"{pre.jit_calls} calls): {t_chunked:.3f} s wall")
+    log(f"greedy streams after whole-prompt vs chunked prefill (not gated: whole-prompt "
+        f"attends over the fresh bf16 k/v, chunked over the dequantized kv8 cache): {same} of "
+        f"{N_SLOTS * MAX_NEW} tokens equal, first difference at steps {prefix}")
+    del cache, pre, lasts, caches
+    profile_breakdown(torch, lambda: prefill()[0], f"prefill_step breakdown ({cfg.name}, "
+                      f"{policy.name}, {L} layers, {N_SLOTS} x {PREFILL_LEN} tokens)", reps=2)
+    return flash_step_row(torch, dev, cfg), {"flash_mha": launches["flash_mha"]}
 
 
 def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
@@ -1262,7 +1540,7 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
     row = dict(name="paged_mla_attn", route="cuda",
                source="src/repro_torch/csrc/paged_mla_attn.cu",
                replaces="src/repro/kernels/paged_attn.py:299", ms=t, plain_ms=tp,
-               bytes=nbytes, ops=nops, peak=F32_FLOPS_PER_S, library_ms=tl)
+               bytes=nbytes, work=[(nops, F32_FLOPS_PER_S)], library_ms=tl)
     return row, {"paged_mla_attn": fused_launches["paged_mla_attn"]}
 
 
@@ -1318,6 +1596,7 @@ def main() -> int:
     check_paged_mla_attn(torch, dev, configs.get_arch(MLA_ARCH), report)
     check_paged_copy(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
     check_wdqmm(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
+    check_flash_mha(torch, dev, cfg, report)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1364,6 +1643,8 @@ def main() -> int:
     rows = kernel_table(torch, dev, cfg, params, launches, report)
     wo_row, wo_launches = weight_only_path(torch, dev, cfg, params, report)
     rows.insert(1, kernel_row(wo_row, wo_launches, report))
+    flash_row, flash_launches = whole_prompt_path(torch, dev, cfg, policy, params, report)
+    rows.insert(3, kernel_row(flash_row, flash_launches, report))
     del params
     gc.collect()
     torch.cuda.empty_cache()

@@ -18,7 +18,8 @@ Ops in the registry: ``mpmm`` and ``conv2d`` (all 27 (x, w, y) cells),
 ``qntpack`` (one cell per output width y), ``wdqmm`` (one cell per weight
 width w), ``paged_gather``,
 ``paged_scatter`` and ``paged_copy`` (one storage-agnostic cell each),
-``paged_attn`` and ``paged_mla_attn`` (one cell per KV width each).
+``paged_attn`` and ``paged_mla_attn`` (one cell per KV width each),
+``flash_mha`` (one cell: f32 math over bf16 or f32 operands).
 """
 
 from __future__ import annotations
@@ -118,8 +119,8 @@ def validate_coverage() -> None:
     """The import-time gate over the cells the port has: mpmm and conv2d
     cover all 27 permutations, qntpack every output width, wdqmm every
     weight width, the page movers
-    (paged_gather, paged_scatter, paged_copy) one cell each, paged_attn and
-    paged_mla_attn every KV width, on both implementations."""
+    (paged_gather, paged_scatter, paged_copy) and flash_mha one cell each,
+    paged_attn and paged_mla_attn every KV width, on both implementations."""
     missing: list[str] = []
     for impl in IMPLS:
         for op in ("mpmm", "conv2d"):
@@ -133,7 +134,7 @@ def validate_coverage() -> None:
         for b in BITS:
             if b not in have_w:
                 missing.append(f"wdqmm[w={b}]@{impl}")
-        for op in ("paged_gather", "paged_scatter", "paged_copy"):
+        for op in ("paged_gather", "paged_scatter", "paged_copy", "flash_mha"):
             if not coverage(op, impl):
                 missing.append(f"{op}@{impl}")
         for op in ("paged_attn", "paged_mla_attn"):
@@ -173,6 +174,7 @@ def ensure_policy_supported(policy) -> None:
 
 def _register_library() -> None:
     from repro_torch.kernels.conv2d import conv2d_cuda
+    from repro_torch.kernels.flash import flash_mha_cuda
     from repro_torch.kernels.mpmm import mpmm_cuda
     from repro_torch.kernels.paged_attn import (
         paged_attn_cuda,
@@ -189,7 +191,13 @@ def _register_library() -> None:
         paged_scatter_ref,
     )
     from repro_torch.kernels.qntpack import qntpack_cuda
-    from repro_torch.kernels.ref import conv2d_ref, mpmm_ref, qntpack_ref, wdqmm_ref
+    from repro_torch.kernels.ref import (
+        conv2d_ref,
+        flash_mha_ref,
+        mpmm_ref,
+        qntpack_ref,
+        wdqmm_ref,
+    )
     from repro_torch.kernels.wdqmm import wdqmm_cuda
 
     for x_bits, w_bits, y_bits in PERMUTATIONS:
@@ -221,6 +229,8 @@ def _register_library() -> None:
     register("paged_scatter", impl="torch", fn=paged_scatter_ref, name="paged_scatter_ref")
     register("paged_copy", impl="cuda", fn=paged_copy_cuda, name="paged_copy")
     register("paged_copy", impl="torch", fn=paged_copy_ref, name="paged_copy_ref")
+    register("flash_mha", impl="cuda", fn=flash_mha_cuda, name="flash_mha")
+    register("flash_mha", impl="torch", fn=flash_mha_ref, name="flash_mha_ref")
     for kv_bits in KV_BITS:
         tag = "bf16" if kv_bits is None else f"kv{kv_bits}"
         register("paged_attn", w_bits=kv_bits, impl="cuda",

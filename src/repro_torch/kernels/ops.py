@@ -1,7 +1,7 @@
 """Public entry points for the port's kernels (counterpart of
 ``repro.kernels.ops``): ``mpmm``, ``wdqmm``, ``qntpack``, ``conv2d``,
-``paged_gather``, ``paged_scatter``, ``paged_copy``, ``paged_attn`` and
-``paged_mla_attn``, plus the quantize-and-pack helpers.
+``paged_gather``, ``paged_scatter``, ``paged_copy``, ``paged_attn``,
+``paged_mla_attn`` and ``flash_mha``, plus the quantize-and-pack helpers.
 
 Every call routes through the dispatch registry. ``impl="auto"`` launches
 the CUDA kernel for CUDA tensors and uses the plain PyTorch version for CPU
@@ -221,6 +221,24 @@ def paged_mla_attn(
         (c, c_s, r), block_table = _dense_as_pool(
             (c, c_s, r), B, S, _snap_divisor(PAGED_ATTN_BS, S))
     return entry.fn(q_lat, q_rope, c, c_s, r, pos, block_table, scale=scale)
+
+
+def flash_mha(
+    q: torch.Tensor,  # (B, Sq, Hq, D) bf16 or f32
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    impl: Impl = "auto",
+) -> torch.Tensor:
+    """Whole-sequence flash attention forward (``flash_mha_pallas``'s
+    function in the model's (B, S, H, D) layout): causal and/or windowed,
+    GQA by ``h // (Hq / Hkv)``, positions from 0 on both sides. v's head
+    dim equals the key's. Returns (B, Sq, Hq, D) f32; nothing is padded or
+    transposed here."""
+    entry = dispatch.lookup("flash_mha", device=q.device, impl=impl)
+    return entry.fn(q, k, v, causal=causal, window=window)
 
 
 # ------------------------------------------------------- quantize-and-pack IO

@@ -1,7 +1,10 @@
 """Plain PyTorch oracles for the packed kernels (counterpart of
 ``repro.kernels.ref``): the matmul, the standalone QntPack and the paper's
-Reference-Layer conv (bit-exact ground truth), and the weight-only dequant
-matmul (the f32 twin of ``repro.kernels.wdqmm.wdqmm_ref``).
+Reference-Layer conv (bit-exact ground truth), the weight-only dequant
+matmul (the f32 twin of ``repro.kernels.wdqmm.wdqmm_ref``), and the
+whole-sequence flash attention (the function of
+``repro.kernels.flash.flash_mha_pallas``, in the order of the reference's
+CPU path ``repro.models.attention.flash_attention``).
 
 The integer products are float64 matmuls of the unpacked values: every
 partial sum is an integer below 2^53 (|sum| <= K * 255 * 128, K = 9C for
@@ -91,3 +94,86 @@ def im2col(x_p: torch.Tensor, x_bits: int) -> torch.Tensor:
         [torch.stack([xp[dy:dy + H, dx:dx + W, :] for dx in range(3)], dim=2)
          for dy in range(3)], dim=2)  # (H, W, 3, 3, C)
     return cols.reshape(H * W, -1)
+
+
+BIG_NEG = -2.0e9
+
+
+def flash_mha_check_rows(Sq: int, Sk: int, window) -> None:
+    """Refuse inputs in which some query row sees no key. Row q sees the
+    keys kpos < Sk with q - kpos < window (and kpos <= q when causal), so
+    without a window every row sees key 0, and with one the last row sees
+    a key iff Sq < Sk + window (window >= 1). What such a row would return
+    is not defined: the reference's CPU path gives the mean of v, the
+    Pallas kernel 0 or a mean depending on its blocks."""
+    if Sk < 1:
+        raise ValueError("flash_mha needs at least one key")
+    if window is not None and (window < 1 or Sq >= Sk + window):
+        raise ValueError(f"flash_mha: window {window} with Sq={Sq}, Sk={Sk} leaves query rows "
+                         f"that see no key (needs window >= 1 and Sq < Sk + window)")
+
+
+def flash_mha_ref(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k: torch.Tensor,  # (B, Sk, Hkv, D)
+    v: torch.Tensor,  # (B, Sk, Hkv, D)
+    *,
+    causal: bool = True,
+    window=None,
+) -> torch.Tensor:
+    """Flash attention forward in f32 -> (B, Sq, Hq, D) f32. q, k and v are
+    cast to f32; ``s = q . k * (1 / sqrt(D))``; keys past Sk, in the future
+    (``causal``: kpos <= qpos, positions from 0 on both sides) or outside
+    the ``window`` (qpos - kpos < window) score BIG_NEG; a running max,
+    denominator and accumulator over kv chunks; ``acc / max(l, 1e-30)``.
+    Query and kv chunks of 512 rows (zero-padded, padded keys masked) and
+    GQA by repeating kv heads, as the reference's CPU path
+    (``_attn_chunk`` / ``flash_attention``) orders its sums at its default
+    chunks. v's head dim must equal the key's, as in ``flash_mha_pallas``
+    (whose v block takes the key's width); every query row must see a key
+    (:func:`flash_mha_check_rows`)."""
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, Dv = v.shape
+    flash_mha_check_rows(Sq, Sk, window)
+    if Dv != D or k.shape != (B, Sk, Hkv, D):
+        raise ValueError(f"flash_mha: v's head dim {Dv} must equal the query's and key's {D}; "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if Hq % Hkv:
+        raise ValueError(f"flash_mha: Hq={Hq} not a multiple of Hkv={Hkv}")
+    groups = Hq // Hkv
+    scale = 1.0 / (D**0.5)
+    qc, kc = min(512, Sq), min(512, Sk)
+    pq, pk = -Sq % qc, -Sk % kc
+    dev = q.device
+    qf = torch.nn.functional.pad(q.to(torch.float32), (0, 0, 0, 0, 0, pq))
+    kf = torch.nn.functional.pad(k.to(torch.float32), (0, 0, 0, 0, 0, pk))
+    vf = torch.nn.functional.pad(v.to(torch.float32), (0, 0, 0, 0, 0, pk))
+    if groups > 1:
+        kf = torch.repeat_interleave(kf, groups, dim=2)
+        vf = torch.repeat_interleave(vf, groups, dim=2)
+    qpos = torch.arange(Sq + pq, device=dev)
+    kpos = torch.arange(Sk + pk, device=dev)
+    neg = torch.tensor(BIG_NEG, dtype=torch.float32, device=dev)
+    outs = []
+    for i in range(0, Sq + pq, qc):
+        qb, qp = qf[:, i:i + qc], qpos[i:i + qc]
+        m = torch.full((B, Hq, qc), BIG_NEG, dtype=torch.float32, device=dev)
+        l = torch.zeros((B, Hq, qc), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Hq, qc, D), dtype=torch.float32, device=dev)
+        for j in range(0, Sk + pk, kc):
+            kp = kpos[j:j + kc]
+            s = torch.einsum("bqhd,bkhd->bhqk", qb, kf[:, j:j + kc]) * scale
+            mask = (kp < Sk)[None, :].expand(qc, kc)
+            if causal:
+                mask = mask & (kp[None, :] <= qp[:, None])
+            if window is not None:
+                mask = mask & ((qp[:, None] - kp[None, :]) < window)
+            s = torch.where(mask[None, None], s, neg)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vf[:, j:j + kc])
+            m = m_new
+        outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2))
+    return torch.cat(outs, dim=1)[:, :Sq]

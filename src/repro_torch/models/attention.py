@@ -8,13 +8,18 @@ MLA caches hold the compressed latent ``c`` (B, S_max, 1, kv_lora/r) with
 its scales ``c_s`` (B, S_max, 1) and the shared rope key ``r`` (B, S_max,
 1, d_rope) bf16, dense or pooled the same way.
 
-Ported branches of :func:`attn_apply`: fused single-token decode (the
+Ported branches of :func:`attn_apply`: whole-sequence attention without a
+cache and whole-prompt prefill into a dense cache (both through the
+flash_mha kernel, over the fresh k/v), fused single-token decode (the
 paged_attn kernel, dense or paged cache) and the one-pass softmax through
 the dequantized cache (unfused decode, and ``attend_cached`` chunked
 prefill); a paged cache is read for it through the paged_gather kernel.
-:func:`mla_apply` has the same two serve branches: fused absorbed decode
-through the paged_mla_attn kernel, and the absorbed softmax over the
-dequantized latents. Whole-sequence (flash) attention is not ported yet.
+:func:`mla_apply` has the two decode-side serve branches: fused absorbed
+decode through the paged_mla_attn kernel, and the absorbed softmax over the
+dequantized latents. Its whole-sequence branch raises: the reference calls
+``flash_attention`` there with a value head of d_v = 128 against a
+query/key head of d_nope + d_rope = 192, which ``flash_mha_pallas`` (its
+``v`` block takes the key's width) cannot compute either.
 
 The port writes caches IN PLACE (the reference returns new arrays): a
 cache dict's tensors are updated where they live and the dict is returned.
@@ -73,6 +78,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     c = cos[:, :, None, :].to(x.dtype)
     s = sin[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+# ------------------------------------------ whole-sequence (flash) attention
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    impl: ops.Impl = "auto") -> torch.Tensor:
+    """q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D) -> (B, Sq, Hq, D) in q's dtype,
+    through the flash_mha kernel (its plain version on CPU tensors). The
+    math is f32; the result is cast to q's dtype, as in the reference."""
+    return ops.flash_mha(q, k, v, causal=causal, window=window, impl=impl).to(q.dtype)
 
 
 # ------------------------------------------------------- quantized KV cache
@@ -201,11 +218,16 @@ def attn_apply(
     block_table: Optional[torch.Tensor] = None,
     fused: bool = False,
 ):
-    """Returns (y, cache). ``fused`` routes single-token decode through the
-    paged_attn kernel (dense or paged cache); otherwise the step attends
-    through the dequantized cache in one softmax pass (a paged cache is
-    gathered into logical rows first), which is also the ``attend_cached``
-    path of chunked prefill."""
+    """Returns (y, cache). Without a cache the whole sequence attends
+    causally through the flash_mha kernel. With a dense cache and S > 1
+    (not ``attend_cached``) this is whole-prompt prefill: the quantized k/v
+    are written at ``cache_pos`` and the attention runs over the fresh bf16
+    k/v, not the dequantized cache, as in the reference; a paged cache
+    refuses it. ``fused`` routes single-token decode through the paged_attn
+    kernel (dense or paged cache); otherwise the step attends through the
+    dequantized cache in one softmax pass (a paged cache is gathered into
+    logical rows first), which is also the ``attend_cached`` path of chunked
+    prefill."""
     B, S, _ = x.shape
     lp_qkv, lp_out = policy.of("attn_qkv"), policy.of("attn_out")
     q = linear_apply(params["wq"], x, lp_qkv, impl=impl).reshape(B, S, cfg.n_heads, cfg.head_dim)
@@ -215,16 +237,21 @@ def attn_apply(
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    if cache is None:
-        raise NotImplementedError("whole-sequence (flash) attention is not ported yet")
-    if S > 1 and not attend_cached:
-        raise NotImplementedError("whole-prompt prefill is not ported yet; prefill in chunks")
-    fused_decode = fused and S == 1
+    prefill = cache is not None and S > 1 and not attend_cached
+    if block_table is not None and prefill:
+        raise NotImplementedError(
+            "whole-sequence prefill over a paged cache is unsupported: prefill through "
+            "model.prefill_into_pages (chunked) or decode token by token")
+    fused_decode = fused and cache is not None and S == 1
     bits = policy.kv_cache_bits
-    pos_b = torch.as_tensor(cache_pos, dtype=torch.int32, device=x.device).reshape(-1).expand(B)
-    cache = cache_update(cache, k, v, pos_b, bits, block_table=block_table, impl=impl)
+    if cache is not None:
+        pos_b = torch.as_tensor(cache_pos, dtype=torch.int32,
+                                device=x.device).reshape(-1).expand(B)
+        cache = cache_update(cache, k, v, pos_b, bits, block_table=block_table, impl=impl)
 
-    if fused_decode:
+    if cache is None or prefill:
+        y = flash_attention(q, k, v, causal=True, window=cfg.window, impl=impl)
+    elif fused_decode:
         y = ops.paged_attn(
             q[:, 0].to(torch.float32), cache["k"], cache.get("k_s"), cache["v"],
             cache.get("v_s"), pos_b.contiguous(), bits=bits, block_table=block_table,
@@ -330,10 +357,12 @@ def mla_apply(
     q_rope = apply_rope(q_rope, cos, sin)
     k_rope = apply_rope(k_rope, cos, sin)
 
-    if cache is None:
-        raise NotImplementedError("whole-sequence (flash) MLA is not ported yet")
-    if S > 1 and not attend_cached:
-        raise NotImplementedError("whole-prompt prefill is not ported yet; prefill in chunks")
+    if cache is None or (S > 1 and not attend_cached):
+        raise NotImplementedError(
+            "whole-sequence MLA (forward, prefill_step) is not ported: the reference attends "
+            f"there with a value head of d_v = {cfg.d_v} against a query/key head of "
+            f"d_nope + d_rope = {cfg.d_nope + cfg.d_rope}, which flash_mha_pallas (its v block "
+            "takes the key's width) cannot compute either; prefill in chunks")
     bits = policy.kv_cache_bits
     pos_b = torch.as_tensor(cache_pos, dtype=torch.int32, device=x.device).reshape(-1).expand(B)
     pg = dict(block_table=block_table, impl=impl)

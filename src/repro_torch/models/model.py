@@ -15,7 +15,8 @@ place.
 
 Every projection routes through ``core.linear`` under the active
 PrecisionPolicy. Ported: serve-mode ``init_params``, ``init_cache``,
-``init_paged_cache``, ``decode_step``, ``prefill_chunk``,
+``init_paged_cache``, ``forward`` (serve mode, dense family),
+``prefill_step``, ``decode_step``, ``prefill_chunk``,
 ``prefill_into_slot``, ``prefill_into_pages`` and greedy ``sample_tokens``.
 Mixture-of-Experts layers (``mla_moe``, the moe family) are not ported:
 a config that has one raises at ``init_params`` / ``init_cache``.
@@ -179,11 +180,15 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, policy: PrecisionPolicy, 
     return params
 
 
-def _run_stack(params, x, pos, cfg: ArchConfig, policy, *, impl, caches, cache_pos,
+def _run_stack(params, x, pos, cfg: ArchConfig, policy, *, impl, caches=None, cache_pos=None,
                attend_cached=False, block_tables=None, fused_attn=False):
+    """The layer stack; ``caches`` None runs it without a cache (the
+    whole-sequence forward)."""
     _, nfn = NORMS[cfg.norm]
     kw = dict(impl=impl, cache_pos=cache_pos, attend_cached=attend_cached,
               block_table=block_tables, fused=fused_attn)
+    if caches is None:
+        caches = [None] * len(params["layers"])
     for lp, cache, kind in zip(params["layers"], caches, _layer_kinds(cfg), strict=True):
         h = nfn(lp["norm1"], x)
         if kind == "mla_dense":
@@ -222,6 +227,49 @@ def _positions(pos, B: int, S: int, device) -> torch.Tensor:
     """(B, S) token positions of a chunk written at ``pos`` ((B,) or (1,))."""
     pos_b = torch.as_tensor(pos, dtype=torch.int32, device=device).reshape(-1).expand(B)
     return pos_b[:, None] + torch.arange(S, dtype=torch.int32, device=device)[None]
+
+
+def _whole_sequence(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                    policy: PrecisionPolicy, *, impl, caches=None) -> torch.Tensor:
+    """The body ``forward`` and ``prefill_step`` share: embed ``tokens``
+    (B, S) at positions 0..S-1 and run the layer stack, writing ``caches``
+    from position 0 when given. Returns the hidden rows before the final
+    norm."""
+    x = embed_apply(params["embed"], tokens).to(torch.bfloat16)
+    B, S = tokens.shape
+    return _run_stack(params, x, _positions(0, B, S, x.device), cfg, policy, impl=impl,
+                      caches=caches, cache_pos=None if caches is None else 0)
+
+
+def forward(params: dict, batch: dict, cfg: ArchConfig, policy: PrecisionPolicy, *,
+            mode: str = "serve", impl: ops.Impl = "auto"):
+    """Whole-sequence forward of the dense family in serve mode (scoring,
+    teacher-forced evaluation): ``batch["tokens"]`` (B, S) at positions
+    0..S-1, causal attention through the flash_mha kernel, no cache.
+    Returns (logits (B, S, V) in the activation dtype, aux) with the
+    reference's ``aux["moe_aux"]`` (0.0 for the dense family). The train
+    mode (QAT) is not ported; MLA layers raise in ``mla_apply``."""
+    if mode != "serve":
+        raise NotImplementedError(f"forward(mode={mode!r}): only the serve mode is ported "
+                                  "(QAT training is not)")
+    _, nfn = NORMS[cfg.norm]
+    x = nfn(params["final_norm"], _whole_sequence(params, batch["tokens"], cfg, policy,
+                                                  impl=impl))
+    logits = linear_apply(params["head"], x, policy.of("head"), impl=impl)
+    return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+
+
+def prefill_step(params: dict, batch: dict, caches: list, cfg: ArchConfig,
+                 policy: PrecisionPolicy, *, impl: ops.Impl = "auto"):
+    """Whole-prompt prefill: ``batch["tokens"]`` (B, S) run as one forward
+    that writes the quantized K/V at positions 0..S-1 of the dense
+    ``caches`` (in place) while attention runs over the fresh k/v through
+    the flash_mha kernel. Returns (last-token logits (B, 1, V), caches); the
+    final norm and the head run on the last row only."""
+    _, nfn = NORMS[cfg.norm]
+    x = _whole_sequence(params, batch["tokens"], cfg, policy, impl=impl, caches=caches)
+    x_last = nfn(params["final_norm"], x[:, -1:])
+    return linear_apply(params["head"], x_last, policy.of("head"), impl=impl), caches
 
 
 def decode_step(params: dict, tokens: torch.Tensor, pos, caches: list, cfg: ArchConfig,

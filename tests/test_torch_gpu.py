@@ -12,7 +12,14 @@ softmax but sum inside their dots in another order, so atol = rtol = 1e-5
 f32 products in another order, so |kernel - plain| <= TOL * sum_k |x w|
 (TOL = 2^-20, ``kernels/wdqmm.py``). A weight-only engine on the card may
 then pick the other token where two bf16 logits tie; its streams must equal
-the CPU run's, or differ first at such a tie.
+the CPU run's, or differ first at such a tie. flash_mha follows the plain
+version's running softmax over other tiles (64 keys against chunks of 512)
+and sums its dots in another order, so atol = rtol = 1e-5 (``kernels/flash.py``
+``TOL``), each call twice bit-identical; the whole-sequence ``forward`` and
+``prefill_step`` on the card then stay within 0.05 of the CPU's logits (a
+bf16 step at logits of 4-8: a rounding of the attention output can flip one
+8-bit activation code of the output projection), argmax agreeing unless the
+CPU's two best are within that bound.
 """
 
 import dataclasses
@@ -33,6 +40,7 @@ from repro_torch.core.policy import (  # noqa: E402
     get_policy,
 )
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels.flash import TOL as FLASH_TOL  # noqa: E402
 from repro_torch.kernels.ref import conv2d_ref, im2col  # noqa: E402
 from repro_torch.kernels.wdqmm import TOL as WDQMM_TOL  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
@@ -605,3 +613,136 @@ def test_weight_only_engine_on_cuda_matches_cpu(dev, policy_name):
     for rid, pr in enumerate(prompts):
         if got[rid] != want[rid]:
             _first_tie(params, cparams, cfg, policy, pr, want[rid], got[rid], dev)
+
+
+# -------------------------------------------------------------- flash_mha
+
+#: (B, Sq, Sk, Hq, Hkv, D, dtype, layout, causal, window): the reference
+#: test's shapes, internlm2's full shape, ragged Sq != Sk both ways, operands
+#: read through (B, H, S, D) strides, a window without causality, GQA 2
+#: over two q tiles, windows whose last row sees one key (Sq = Sk + window - 1)
+FLASH_CASES = [
+    (2, 35, 35, 2, 2, 16, torch.float32, "bshd", True, None),
+    (2, 35, 35, 4, 2, 16, torch.float32, "bshd", True, None),
+    (2, 35, 35, 2, 2, 16, torch.float32, "bshd", False, None),
+    (2, 35, 35, 2, 2, 16, torch.float32, "bshd", True, 10),
+    (4, 512, 512, 16, 8, 128, torch.bfloat16, "bshd", True, None),
+    (2, 100, 300, 16, 8, 128, torch.bfloat16, "bshd", True, None),
+    (2, 300, 100, 16, 8, 128, torch.bfloat16, "bshd", True, None),
+    (2, 200, 200, 16, 8, 128, torch.bfloat16, "bhsd", True, 70),
+    (1, 70, 90, 4, 1, 16, torch.float32, "bhsd", False, 20),
+    (3, 65, 65, 6, 3, 128, torch.bfloat16, "bshd", True, None),
+    (2, 300, 100, 16, 8, 128, torch.bfloat16, "bshd", True, 201),
+    (1, 60, 30, 4, 1, 16, torch.float32, "bshd", False, 31),
+]
+
+
+def _flash_operands(g, dev, B, Sq, Sk, Hq, Hkv, D, dtype, layout):
+    def one(S, H):
+        if layout == "bhsd":
+            return torch.randn((B, H, S, D), generator=g).to(dtype).to(dev).transpose(1, 2)
+        return torch.randn((B, S, H, D), generator=g).to(dtype).to(dev)
+
+    return one(Sq, Hq), one(Sk, Hkv), one(Sk, Hkv)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_flash_mha_kernel_vs_plain(dev, case):
+    """Every case within FLASH_TOL of the plain version, the same call twice
+    bit-identical, one launch a call."""
+    *shape, causal, window = case
+    g = torch.Generator().manual_seed(sum(shape[:6]))
+    q, k, v = _flash_operands(g, dev, *shape)
+    n0 = build.LAUNCHES["flash_mha"]
+    a = ops.flash_mha(q, k, v, causal=causal, window=window, impl="cuda")
+    again = ops.flash_mha(q, k, v, causal=causal, window=window, impl="cuda")
+    b = ops.flash_mha(q, k, v, causal=causal, window=window, impl="torch")
+    assert build.LAUNCHES["flash_mha"] - n0 == 2
+    assert a.dtype == torch.float32 and a.shape == q.shape and a.is_contiguous()
+    assert torch.equal(a, again)
+    torch.testing.assert_close(a, b, atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+def test_flash_mha_rows_do_not_depend_on_sq(dev):
+    """A query row's bits depend on its position and the keys, not on how
+    many rows the call holds: the first 100 rows of an Sq = 300 call equal an
+    Sq = 100 call's (causal and windowed)."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v = _flash_operands(g, dev, 2, 300, 300, 16, 8, 128, torch.bfloat16, "bshd")
+    for window in (None, 50):
+        full = ops.flash_mha(q, k, v, causal=True, window=window, impl="cuda")
+        part = ops.flash_mha(q[:, :100], k, v, causal=True, window=window, impl="cuda")
+        assert torch.equal(full[:, :100], part)
+
+
+def test_flash_mha_refuses_what_it_cannot_take(dev):
+    """A head width it is not built for, mixed dtypes, a head dim that is
+    not contiguous, bf16 rows off 4-byte boundaries and a window that
+    leaves query rows with no key raise (no fallback to the plain
+    version)."""
+    g = torch.Generator().manual_seed(2)
+    q, k, v = _flash_operands(g, dev, 1, 8, 8, 2, 2, 16, torch.float32, "bshd")
+    with pytest.raises(ValueError, match="head dim 24"):
+        ops.flash_mha(*_flash_operands(g, dev, 1, 8, 8, 2, 1, 24, torch.float32, "bshd"),
+                      impl="cuda")
+    with pytest.raises(TypeError):
+        ops.flash_mha(q, k.to(torch.bfloat16), v, impl="cuda")
+    v_t = torch.randn((1, 8, 16, 2), generator=g).to(dev).transpose(2, 3)  # d strided
+    with pytest.raises(ValueError, match="contiguous along the head dim"):
+        ops.flash_mha(q, k, v_t, impl="cuda")
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    odd = _misaligned(kb)  # bf16 rows one element off a 4-byte boundary
+    with pytest.raises(ValueError, match="4-byte boundaries"):
+        ops.flash_mha(qb, odd, vb, impl="cuda")
+    n0 = build.LAUNCHES["flash_mha"]
+    with pytest.raises(ValueError, match="see no key"):
+        ops.flash_mha(*_flash_operands(g, dev, 2, 300, 100, 16, 8, 128, torch.bfloat16, "bshd"),
+                      causal=True, window=50, impl="cuda")
+    assert build.LAUNCHES["flash_mha"] == n0
+
+
+def test_forward_and_prefill_step_on_cuda_match_cpu(dev):
+    """Reduced internlm2-1.8b, w4a8, kv8: ``prefill_step`` and
+    ``forward(mode="serve")`` on the card launch flash_mha once a layer,
+    forward's last position equals prefill_step's logits bit for bit, and
+    both stay within 0.05 of the CPU run (plain versions); then six greedy
+    fused decode steps from the prefilled caches, fed the CPU's tokens, stay
+    within the same bound. Argmax agrees wherever the CPU's two best logits
+    are more than 0.05 apart."""
+    cfg = configs.reduced(configs.get_arch("internlm2-1.8b"))
+    policy = get_policy("w4a8")
+    params = M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu")
+    cparams = _to(params, dev)
+    toks = torch.from_numpy(np.random.RandomState(4).randint(1, cfg.vocab, size=(2, 40))
+                            .astype(np.int32))
+    out = {}
+    for d, p in (("cpu", params), (dev, cparams)):
+        caches = M.init_cache(cfg, policy, 2, 64, device=d)
+        build.reset_launches()
+        pre, _ = M.prefill_step(p, {"tokens": toks.to(d)}, caches, cfg, policy)
+        n_pre = build.LAUNCHES["flash_mha"]
+        full, _ = M.forward(p, {"tokens": toks.to(d)}, cfg, policy)
+        if d == dev:
+            assert n_pre == build.LAUNCHES["flash_mha"] - n_pre == cfg.n_layers
+        assert torch.equal(full[:, -1:], pre)
+        out[str(d)] = (pre, full, caches)
+
+    def check(a, b, what):
+        a, b = a.float().cpu(), b.float()
+        assert float((a - b).abs().max()) <= 0.05, what
+        top2 = b.topk(2, dim=-1).values
+        clear = (top2[..., 0] - top2[..., 1]) > 0.05
+        assert torch.equal(a.argmax(-1)[clear], b.argmax(-1)[clear]), what
+
+    (pre_c, full_c, caches_c), (pre_g, full_g, caches_g) = out["cpu"], out[str(dev)]
+    check(pre_g, pre_c, "prefill_step")
+    check(full_g, full_c, "forward")
+    logits = pre_c
+    for i in range(6):
+        t = logits.float().argmax(-1).to(torch.int32)
+        pos = torch.full((2,), 40 + i, dtype=torch.int32)
+        logits = M.decode_step(params, t, pos, caches_c, cfg, policy, fused_attn=True)
+        got = M.decode_step(cparams, t.to(dev), pos.to(dev), caches_g, cfg, policy,
+                            fused_attn=True)
+        check(got, logits, f"decode step {i}")
