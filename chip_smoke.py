@@ -100,16 +100,50 @@ Phases, in order (any failure ends the run with a nonzero exit):
      the reference test's shapes, internlm2's full shape in bf16 and f32,
      ragged Sq != Sk both ways, strided operands and a window whose last
      row sees one key; a window that leaves rows with no key is refused by
-     both.
+     both;
+ 12. decode attention over a dense quantized cache (run right after phase
+     11): ``prefill_step`` writes phase 11's four prompts into a fresh kv8
+     dense cache, one fused greedy decode step records each layer's query,
+     cache and paged_attn output, and ``kernels.qkv_decode.qkv_decode`` (the
+     module API, its only path, as in the reference) runs every layer's
+     attention again at the shared pos PREFILL_LEN (24 launches). Gates,
+     within ``row_tol`` (ATTN_TOL scaled to each attention row's score and
+     value sizes; the elementwise ATTN_TOL is printed): qkv_decode against
+     its plain version and against dequantize-then-attend in f32;
+     paged_attn against the same with the bf16 rounding of the dequantized
+     cache (the reference's oracle). Then
+     qkv_decode's time per call (B 4, S 1024, 16 / 8 heads, D 128, pos 1023,
+     kv8 and kv4) beside its bound, its plain version and
+     ``F.scaled_dot_product_attention`` over K/V dequantized ahead of time.
+     Phase 2 holds qkv_decode against its plain version (ATTN_TOL, each
+     call twice bit-identical) on the reference test's shapes with pos at
+     its edges (-1, 0, block ends) and at internlm2's full shape (kv8 and
+     kv4, pos 0, 511, 1023);
+ 13. the sampled serving path (run right after phase 12, on internlm2's
+     w4a8 weights): phase 3's four requests at temperature 0.8, top-k 40,
+     top-p 0.95, request i with seed 1000 + i, on the slot and the paged
+     cache; phase 9's five requests sampled the same way on a cold paged
+     and a prefix engine; the four with request 0 greedy beside three
+     sampled; the four at top-k 1. Gates: slot and paged streams identical,
+     prefix identical to cold paged; the mixed batch's sampled streams equal
+     their first run's and its greedy one phase 3's; top-k 1 equal to phase
+     3's greedy streams or first parting at a token whose two best logits
+     tie (read from the logits the engine sampled); mpmm, paged_attn and
+     paged_scatter launched. Printed: a sampled decode step's device and
+     wall time beside a greedy step's from the same cache, and the
+     sampler's own device time. Phase 7's paged_attn row also times
+     ``F.scaled_dot_product_attention`` on the bf16 cell (f32 over the dense
+     view, kv heads repeated), its library yardstick.
 
-Phases 3, 4, 5, 8, 9, 10 and 11 each start with every launch count at 0
-(phase 8 once for its fused runs, once for its unfused runs, once for its
-weight-only runs and once for its prefix run; phase 10 once for its slot and
-paged runs and once for its prefix run; phase 11 once for prefill_step and
-its decode steps and once for forward) and read the counts at their end;
+Phases 3, 4, 5, 8, 9, 10, 11, 12 and 13 each start with every launch count
+at 0 (phase 8 once for its fused runs, once for its unfused runs, once for
+its weight-only runs and once for its prefix run; phase 10 once for its slot
+and paged runs and once for its prefix run; phase 11 once for prefill_step
+and its decode steps and once for forward; phase 13 once for its slot and
+paged runs and once for its prefix run) and read the counts at their end;
 the kernels line gives each kernel the count of its own path (paged_copy:
 phase 9's prefix run; wdqmm: phase 10's slot and paged runs; flash_mha:
-phase 11's prefill_step).
+phase 11's prefill_step; qkv_decode: phase 12).
 
 The line before the last is the kernels JSON, the last line the result
 JSON.
@@ -121,6 +155,7 @@ import dataclasses
 import gc
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -158,6 +193,10 @@ SEED = 0
 TAB1 = (256, 64)
 #: launches per timed window for the per-call kernel times
 CALLS = 50
+#: phase 13: how the sampled requests decode, and the greedy / sampled
+#: decode steps whose walls are compared
+SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.95)
+STEP_PAIRS = 10
 
 
 def wo_policy():
@@ -649,6 +688,52 @@ def check_flash_mha(torch, dev, cfg, report):
     report["flash_mha"] = {"max_abs_err": worst, "tol": ATTN_TOL, "checks": len(cases) + 2}
 
 
+def qkv_case(torch, g, dev, B, S, Hq, Hkv, D, bits):
+    """q (B, Hq, D) and a dense cache of S rows quantized by the port's
+    ``kv_quantize`` (int8 or packed int4 codes, f32 scales)."""
+    from repro_torch.models import attention as A
+
+    kq, ks = A.kv_quantize(torch.randn((B, S, Hkv, D), generator=g, device=dev), bits)
+    vq, vs = A.kv_quantize(torch.randn((B, S, Hkv, D), generator=g, device=dev), bits)
+    return torch.randn((B, Hq, D), generator=g, device=dev), kq, ks, vq, vs
+
+
+def check_qkv_decode(torch, dev, cfg, report):
+    """qkv_decode against its plain version on the card within ATTN_TOL
+    (atol = rtol), each call twice bit-identical: the reference test's
+    shapes (tests/test_ssm_attn.py: B 2, S 32, Hkv 2, D 16, bs 8; GQA 1 and
+    2; kv8 and kv4) with pos at its edges (-1: nothing visible, the mean of
+    v; 0; a block's last and the next block's first key), and internlm2's
+    full shape (B 4, S 1024, 16 / 8 heads, D 128, kv8 and kv4, pos 0, 511
+    and 1023)."""
+    from repro_torch.kernels import qkv_decode as QD
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    Hq, Hkv, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    cases = [(2, 32, 2 * gqa, 2, 16, bits, pos, bs)
+             for bits, gqa, pos, bs in ((8, 1, 30, 8), (8, 2, 12, 8), (4, 1, 31, 8), (8, 2, -1, 8),
+                                        (4, 2, 0, 32), (8, 1, 7, 8), (4, 2, 8, 8))]
+    cases += [(N_SLOTS, S_MAX, Hq, Hkv, D, bits, pos, 512) for bits in (8, 4)
+              for pos in (0, 511, 1023)]
+    worst = 0.0
+    for B, S, hq, hkv, d, bits, pos, bs in cases:
+        q, kq, ks, vq, vs = qkv_case(torch, g, dev, B, S, hq, hkv, d, bits)
+        a = QD.qkv_decode(q, kq, ks, vq, vs, pos, bits=bits, bs=bs)
+        again = QD.qkv_decode(q, kq, ks, vq, vs, pos, bits=bits, bs=bs)
+        b = QD.qkv_decode_plain(q, kq, ks, vq, vs, pos, bits=bits, bs=bs)
+        torch.cuda.synchronize()
+        err = (a - b).abs()
+        name = f"qkv_decode B={B} S={S} {hq}/{hkv} heads D={d} kv{bits} pos={pos} bs={bs}"
+        if not torch.equal(a, again):
+            raise AssertionError(f"{name}: two calls differ")
+        if not torch.isfinite(a).all() or bool((err > QD.TOL * (1 + b.abs())).any()):
+            raise AssertionError(f"{name}: max |kernel - plain| {float(err.max())} above "
+                                 f"{QD.TOL} (atol = rtol)")
+        log(f"{name}: max |kernel - plain| = {float(err.max()):.3e}, twice bit-identical")
+        worst = max(worst, float(err.max()))
+    report["qkv_decode"] = {"max_abs_err": worst, "tol": QD.TOL, "checks": len(cases)}
+
+
 # ------------------------------------------------------------- phase 3 - 6
 
 
@@ -676,7 +761,24 @@ def prefix_requests(cfg, Request):
             for i, p in enumerate(prompts)]
 
 
-def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None):
+def sampled_requests(reqs, greedy=(), **over):
+    """The same requests sampled as phase 13 samples them (SAMPLING, request
+    i with seed 1000 + i; ``over`` replaces fields), except the rids in
+    ``greedy``."""
+    from repro_torch.serve import SamplingParams
+
+    for r in reqs:
+        if r.rid not in greedy:
+            r.params = SamplingParams(max_new=r.max_new, seed=1000 + r.rid,
+                                      **{**SAMPLING, **over})
+    return reqs
+
+
+def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None, ties=None):
+    """Serve ``reqs`` (default: phase 3's four greedy requests). With a dict
+    ``ties``, record in it for each token a request draws whether the two
+    best logits it was drawn from tie: {(rid, index): bool}."""
+    from repro_torch.models import model as M
     from repro_torch.serve import Request, ServeEngine
 
     eng = ServeEngine(params, cfg, policy, n_slots=N_SLOTS, s_max=S_MAX, cache=cache,
@@ -687,11 +789,29 @@ def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None):
     def peak_shared(rid, tok):
         shared[0] = max(shared[0], eng.cache.pages_shared())
 
+    sample_tokens = M.sample_tokens
+
+    def recording(logits, *lanes):
+        top = logits.float().topk(2, dim=-1).values.tolist()
+        if logits.shape[0] == 1:  # admission: the request that has no token yet
+            live = [next(r for r in eng.slot_req if r is not None and not r.out)]
+        else:
+            live = eng.slot_req
+        for r, (a, b) in zip(live, top):
+            if r is not None:
+                ties[r.rid, len(r.out)] = a == b
+        return sample_tokens(logits, *lanes)
+
+    if ties is not None:
+        M.sample_tokens = recording
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = eng.run(reqs if reqs is not None else requests(cfg, Request),
-                  on_token=peak_shared if cache == "prefix" else None)
+    try:
+        out = eng.run(reqs if reqs is not None else requests(cfg, Request),
+                      on_token=peak_shared if cache == "prefix" else None)
+    finally:
+        M.sample_tokens = sample_tokens
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     m = eng.metrics()
@@ -702,7 +822,9 @@ def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None):
     if cache == "prefix":
         pages += (f", at most {shared[0]} pages shared by live requests, hit rate "
                   f"{m['cache/prefix_hit_rate']:.4f}, {m['cache/cow_copies']} COW clones")
-    log(f"serve[{cfg.name}, {policy.name}, {cache}{'' if fused_attn else ', unfused'}]: {toks} tokens in {dt:.3f} s ({toks / dt:.2f} tokens/s end to end), "
+    mode = "" if reqs is None or all(r.params is None or r.params.greedy for r in reqs) else (
+        ", sampled")
+    log(f"serve[{cfg.name}, {policy.name}, {cache}{'' if fused_attn else ', unfused'}{mode}]: {toks} tokens in {dt:.3f} s ({toks / dt:.2f} tokens/s end to end), "
         f"{m['decode_steps']} decode steps, step EMA {m['step_ema_s'] * 1e3:.2f} ms, "
         f"TTFT p50 {m['slo/ttft_p50_s']:.3f} s, TPOT p50 {m['slo/tpot_p50_s'] * 1e3:.2f} ms, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{pages}")
@@ -753,16 +875,20 @@ def reference_layer_path(torch, dev):
     return launches
 
 
-def prefix_path(torch, dev, cfg, policy, params, key="") -> tuple[dict, dict]:
-    """Phase 9 (and phase 8's prefix run): the five requests on a cold
-    paged engine, then on a prefix engine. Returns the prefix run's launch
-    counts and the two engines' metrics."""
+def prefix_path(torch, dev, cfg, policy, params, key="", sampled=False) -> tuple[dict, dict]:
+    """Phase 9 (and phase 8's prefix run, and phase 13's with ``sampled``):
+    the five requests on a cold paged engine, then on a prefix engine.
+    Returns the prefix run's launch counts and the two engines' metrics."""
     from repro_torch.kernels import build
     from repro_torch.serve import Request
 
-    cold, mc = serve(torch, dev, cfg, policy, params, "paged", reqs=prefix_requests(cfg, Request))
+    def reqs():
+        out = prefix_requests(cfg, Request)
+        return sampled_requests(out) if sampled else out
+
+    cold, mc = serve(torch, dev, cfg, policy, params, "paged", reqs=reqs())
     build.reset_launches()  # the prefix path starts here
-    warm, mw = serve(torch, dev, cfg, policy, params, "prefix", reqs=prefix_requests(cfg, Request))
+    warm, mw = serve(torch, dev, cfg, policy, params, "prefix", reqs=reqs())
     launches = dict(build.LAUNCHES)  # the prefix path ends here
     log(f"launches on the {key}prefix path: {launches}")
     if warm != cold:
@@ -946,9 +1072,10 @@ def kernel_table(torch, dev, cfg, params, launches, report):
     log(f"  paged_attn kv8, one decode step ({L} calls, B={B}, {valid} cached rows per "
         f"layer): {t:.3f} ms device ({how}), {tw:.3f} ms wall; plain {tp:.3f} ms device, "
         f"{tpw:.3f} ms wall")
+    tl = paged_attn_library_ms(torch, dev, cfg, g)
     rows.append(dict(name="paged_attn", route="cuda", source="src/repro_torch/csrc/paged_attn.cu",
                      replaces="src/repro/kernels/paged_attn.py:142", ms=t, plain_ms=tp,
-                     bytes=nbytes, work=[(nops, F32_FLOPS_PER_S)], library_ms=None))
+                     bytes=nbytes, work=[(nops, F32_FLOPS_PER_S)], library_ms=tl))
 
     # paged_scatter: the 4 leaves of every layer's pool take one new row per slot
     news = [torch.ones((B, 1, *a.shape[2:]), dtype=a.dtype, device=dev)
@@ -1074,6 +1201,37 @@ def kernel_table(torch, dev, cfg, params, launches, report):
     return [kernel_row(r, launches, report) for r in rows]
 
 
+def paged_attn_library_ms(torch, dev, cfg, g) -> float:
+    """paged_attn's library yardstick, as paged_mla_attn's: one decode step
+    (a call per layer, each on its own pool) on the bf16 cell, the kernel
+    beside ``F.scaled_dot_product_attention`` in f32 over the dense view of
+    the same pages (kv heads repeated, a boolean mask from pos, the same
+    scale). Returns SDPA's device ms per step."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    L, B, G = cfg.n_layers, N_SLOTS, cfg.n_heads // cfg.kv_heads
+    cases = [attn_case(torch, dev, cfg, None, g) for _ in range(L)]
+    kern = lambda: [ops.paged_attn(q, k, ks, v, vs, pos, bits=None, block_table=bt,  # noqa: E731
+                                   impl="cuda") for q, k, ks, v, vs, pos, bt in cases]
+    tb, _, _ = device_ms(kern)
+    sdpa_in = []
+    for q, k, _ks, v, _vs, pos, bt in cases:
+        dense = lambda x: x[bt.long()].reshape(B, S_MAX, *x.shape[2:]).float().repeat_interleave(  # noqa: E731
+            G, dim=2).transpose(1, 2).contiguous()
+        mask = (torch.arange(S_MAX, device=dev)[None] <= pos[:, None].long())[:, None, None]
+        sdpa_in.append((q[:, :, None], dense(k), dense(v), mask))
+    sdpa = lambda: [F.scaled_dot_product_attention(q, k, v, attn_mask=m)  # noqa: E731
+                    for q, k, v, m in sdpa_in]
+    worst = max(float((lib[:, :, 0] - out).abs().max()) for lib, out in zip(sdpa(), kern()))
+    tl, tlw, _ = device_ms(sdpa)
+    log(f"  paged_attn bf16 cell, one decode step ({L} calls, L2-cold): {tb:.4f} ms device; "
+        f"F.scaled_dot_product_attention (f32, dense view, kv heads repeated, boolean mask) "
+        f"{tl:.4f} ms device, {tlw:.3f} ms wall; max |SDPA - kernel| = {worst:.3e}")
+    return tl
+
+
 def kernel_row(r, launches, report) -> dict:
     """One entry of the kernels line: the bound from the row's bytes and
     its work, a list of (operations, peak rate of their type) whose times
@@ -1092,7 +1250,8 @@ def kernel_row(r, launches, report) -> dict:
 
 #: device kernels the step breakdown names (everything else is PyTorch's)
 KERNEL_NAMES = ("mpmm_kernel", "wdqmm_kernel", "paged_mla_attn_kernel", "paged_attn_kernel",
-                "flash_mha_kernel", "paged_scatter_kernel", "paged_gather_kernel")
+                "flash_mha_kernel", "paged_scatter_kernel", "paged_gather_kernel",
+                "qkv_decode_kernel")
 
 
 def step_breakdown(torch, dev, cfg, policy, params):
@@ -1413,6 +1572,267 @@ def whole_prompt_path(torch, dev, cfg, policy, params, report) -> tuple[dict, di
     return flash_step_row(torch, dev, cfg), {"flash_mha": launches["flash_mha"]}
 
 
+def dense_cache_path(torch, dev, cfg, policy, params, report) -> tuple[dict, dict]:
+    """Phase 12: qkv_decode over the dense kv8 cache that ``prefill_step``
+    wrote for phase 11's four 512-token prompts. One fused greedy decode
+    step from that cache (every sequence at position PREFILL_LEN, so one
+    scalar pos serves them all) records, for every layer, the query and the
+    cache leaves it handed to paged_attn and paged_attn's output; then
+    qkv_decode runs each layer's attention again (one launch a layer: the
+    path whose launches the kernels line counts). Gates, each within
+    ``row_tol``: qkv_decode against its plain version and against
+    dequantize-then-attend in f32 (``dense_attention``, one softmax over all
+    visible keys); paged_attn's recorded output against the same with the
+    dequantized cache rounded through bf16 (``qkv_decode_ref``, the
+    reference's oracle), which shows that qkv_decode and paged_attn read the
+    same query and cache and part only by that rounding. Phase 2's
+    elementwise ATTN_TOL (atol = rtol) is printed beside, not gated: at the
+    model's scores (|s| up to ~17) the orders of the f32 sums move an output
+    near 0 by more than 1e-5 while its row averages values of ~5. The gap
+    between qkv_decode and paged_attn is printed beside the reference test's
+    5e-3, which holds on its unit-variance inputs, not at the model's
+    scores. Returns (qkv_decode's raw kernel row, its launches)."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import qkv_decode as QD
+    from repro_torch.models import model as M
+
+    toks = whole_prompts(torch, dev, cfg)
+    caches = M.init_cache(cfg, policy, N_SLOTS, S_MAX, device=dev)
+    logits, _ = M.prefill_step(params, {"tokens": toks}, caches, cfg, policy)
+    nxt = M.sample_tokens(logits[:, -1], [0.0] * N_SLOTS)[:, None]
+    pos = torch.full((N_SLOTS,), PREFILL_LEN, dtype=torch.int32, device=dev)
+    seen, paged_attn = [], ops.paged_attn
+
+    def record(q, k, k_s, v, v_s, p, **kw):
+        out = paged_attn(q, k, k_s, v, v_s, p, **kw)
+        if kw.get("block_table") is None and kw.get("bits") == 8:
+            seen.append((q, k, k_s, v, v_s, out))
+        return out
+
+    ops.paged_attn = record
+    try:
+        M.decode_step(params, nxt, pos, caches, cfg, policy, fused_attn=True)
+    finally:
+        ops.paged_attn = paged_attn
+    if len(seen) != cfg.n_layers:
+        raise AssertionError(f"recorded {len(seen)} dense kv8 paged_attn calls, want "
+                             f"{cfg.n_layers}")
+    build.reset_launches()  # the qkv_decode path starts here
+    outs = [QD.qkv_decode(q, k, ks, v, vs, PREFILL_LEN, bits=8) for q, k, ks, v, vs, _ in seen]
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)  # the qkv_decode path ends here
+    log(f"launches on the qkv_decode path ({cfg.n_layers} layers of the prefilled dense kv8 "
+        f"cache, pos {PREFILL_LEN}): {launches}")
+    if launches.get("qkv_decode", 0) != cfg.n_layers:
+        raise AssertionError(f"qkv_decode launched {launches.get('qkv_decode', 0)} times, want "
+                             f"{cfg.n_layers}")
+    worst = {"plain": 0.0, "f32 oracle": 0.0, "paged_attn vs bf16 oracle": 0.0}
+    elementwise = {k: 0.0 for k in worst}  # max |a - b| / (1 + |b|), against ATTN_TOL
+    gap = within = 0.0
+    for i, (out, (q, k, ks, v, vs, pa)) in enumerate(zip(outs, seen)):
+        tol = row_tol(torch, q, k, ks, v, vs, PREFILL_LEN)
+        pairs = {"plain": (out, QD.qkv_decode_plain(q, k, ks, v, vs, PREFILL_LEN, bits=8)),
+                 "f32 oracle": (out, dense_attention(torch, q, k, ks, v, vs, PREFILL_LEN)),
+                 "paged_attn vs bf16 oracle": (pa, QD.qkv_decode_ref(q, k, ks, v, vs,
+                                                                     PREFILL_LEN, bits=8))}
+        for what, (a, b) in pairs.items():
+            err = (a - b).abs()
+            if not torch.isfinite(a).all() or bool((err > tol).any()):
+                j = int((err / tol).argmax())
+                raise AssertionError(f"layer {i}: {what}: difference {float(err.flatten()[j])} "
+                                     f"above its bound {float(tol.expand_as(err).flatten()[j])}")
+            worst[what] = max(worst[what], float((err / tol).max()))
+            elementwise[what] = max(elementwise[what], float((err / (1 + b.abs())).max()))
+        gap = max(gap, float((out - pa).abs().max()))
+        within = max(within, float(((out - pa).abs() / (1 + pa.abs())).max()))
+    scale = max(float(pa.abs().max()) for *_, pa in seen)
+    log(f"qkv_decode over the prefilled dense kv8 cache ({cfg.n_layers} layers, B={N_SLOTS}, "
+        f"S={S_MAX}, pos {PREFILL_LEN}), largest difference over its row_tol bound: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+        + "; largest |a - b| / (1 + |b|) (elementwise, against ATTN_TOL, not gated): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in elementwise.items())
+        + f"; |qkv_decode - paged_attn| up to {gap:.3e} (f32 against bf16 dequantization; "
+        f"{within:.3e} of 1 + |out|, the reference test's bound 5e-3 "
+        f"{'met' if within <= 5e-3 else 'not met'}; attention outputs up to {scale:.4g})")
+    report["qkv_decode_model_cache"] = {"err_over_row_tol": worst, "elementwise": elementwise}
+    del seen, outs, caches
+    return qkv_decode_row(torch, dev, cfg), {"qkv_decode": launches["qkv_decode"]}
+
+
+def row_tol(torch, q, kq, ks, vq, vs, pos):
+    """ATTN_TOL scaled to one attention row's own sizes, for outputs
+    computed from the model's cache: ATTN_TOL * (1 + A) * (1 + V), where A
+    is the row's largest ``scale * sum_d |q_d k_d|`` over its visible keys
+    (a score's rounding grows with it, and an output moves by about the
+    score error times the values' spread) and V the largest |v| it
+    averages. Returns (B, Hq, 1)."""
+    G = q.shape[1] // kq.shape[2]
+    k = (kq.float() * ks[..., None])[:, : pos + 1].repeat_interleave(G, dim=2)
+    v = (vq.float() * vs[..., None])[:, : pos + 1].repeat_interleave(G, dim=2)
+    a = torch.einsum("bhd,bshd->bhs", q.float().abs(), k.abs()).amax(dim=-1) / q.shape[-1] ** 0.5
+    return (ATTN_TOL * (1 + a) * (1 + v.abs().amax(dim=(1, 3))))[..., None]
+
+
+def dense_attention(torch, q, kq, ks, vq, vs, pos):
+    """Dequantize-then-attend in f32 for an int8 dense cache: ``code *
+    scale`` with no bf16 step, kv heads repeated, one softmax over the keys
+    0..pos. An implementation of qkv_decode's function independent of its
+    running softmax. Returns (B, Hq, D) f32."""
+    G = q.shape[1] // kq.shape[2]
+    k = (kq.float() * ks[..., None])[:, : pos + 1].repeat_interleave(G, dim=2)
+    v = (vq.float() * vs[..., None])[:, : pos + 1].repeat_interleave(G, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q.float(), k) / q.shape[-1] ** 0.5
+    return torch.einsum("bhs,bshd->bhd", torch.softmax(s, dim=-1), v)
+
+
+def qkv_decode_row(torch, dev, cfg) -> dict:
+    """qkv_decode per call at B 4, S 1024, 16 / 8 heads, D 128, pos 1023, kv8
+    and kv4: COLD_STEPS calls over distinct caches a window (8 x 8.65 MB at
+    kv8 exceeds the 50 MB L2), beside its bound, its plain version and one
+    ``F.scaled_dot_product_attention`` a call (f32 over K/V dequantized
+    ahead of time, kv heads repeated, (B, H, S, D), a boolean mask from
+    pos). The row is kv8's; kv4's numbers are printed."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import pack as P
+    from repro_torch.kernels import qkv_decode as QD
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    B, S, Hq, Hkv, D = N_SLOTS, S_MAX, cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    pos, G = S - 1, Hq // Hkv
+    out = {}
+    for bits in (8, 4):
+        sets = [qkv_case(torch, g, dev, B, S, Hq, Hkv, D, bits) for _ in range(COLD_STEPS)]
+
+        def calls(fn, sets=sets, bits=bits):
+            return lambda: [fn(q, kq, ks, vq, vs, pos, bits=bits) for q, kq, ks, vq, vs in sets]
+
+        t, tw, how = device_ms(calls(QD.qkv_decode_cuda))
+        tp, _, _ = device_ms(calls(QD.qkv_decode_plain), reps=3, warmup=1)
+        lib_in = []
+        for q, kq, ks, vq, vs in sets:
+            deq = lambda c, s_: (P.unpack(c, bits, signed=True).float() * s_[..., None]  # noqa: E731
+                                 ).repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+            mask = (torch.arange(S, device=dev) <= pos)[None, None, None]
+            lib_in.append((q[:, :, None], deq(kq, ks), deq(vq, vs), mask))
+        sdpa = lambda: [F.scaled_dot_product_attention(q, k, v, attn_mask=m)  # noqa: E731
+                        for q, k, v, m in lib_in]
+        worst = max(float((lib[:, :, 0] - kern).abs().max())
+                    for lib, kern in zip(sdpa(), calls(QD.qkv_decode_cuda)()))
+        tl, _, _ = device_ms(sdpa)
+        del lib_in
+        nbytes = (2 * B * S * Hkv * D * bits // 8 + 2 * B * S * Hkv * 4 + 2 * B * Hq * D * 4)
+        nops = 4 * B * Hq * D * S
+        bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS_PER_S) * 1e3
+        n = COLD_STEPS
+        log(f"  qkv_decode kv{bits} per call (B={B}, S={S}, {Hq}/{Hkv} heads, D={D}, pos {pos}; "
+            f"{n} distinct caches a window, L2-cold): {t / n * 1e3:.2f} us device ({how}), "
+            f"{tw / n * 1e3:.2f} us wall; plain {tp / n * 1e3:.1f} us device; "
+            f"F.scaled_dot_product_attention (f32, K/V dequantized ahead of time, kv heads "
+            f"repeated, boolean mask) {tl / n * 1e3:.2f} us device, max |SDPA - kernel| = "
+            f"{worst:.3e}; bound {bound * 1e3:.3f} us ({nbytes / 1e6:.2f} MB)")
+        out[bits] = dict(name="qkv_decode", route="cuda", source="src/repro_torch/csrc/qkv_decode.cu",
+                         replaces="src/repro/kernels/qkv_decode.py:72", ms=t / n, plain_ms=tp / n,
+                         bytes=nbytes, work=[(nops, F32_FLOPS_PER_S)], library_ms=tl / n)
+    return out[8]
+
+
+def sampled_path(torch, dev, cfg, policy, params, greedy_out) -> dict:
+    """Phase 13: the serving path with seeded sampling (SAMPLING, request i
+    with seed 1000 + i), internlm2 w4a8 kv8 at full width. Phase 3's four
+    requests on the slot and the paged cache; phase 9's five on a cold
+    paged and a prefix engine; the four again with request 0 greedy beside
+    three sampled; the four at top-k 1. Gates: slot and paged streams
+    identical, prefix identical to cold paged; in the mixed batch the
+    sampled requests repeat their first run's streams (run to run, and
+    whatever their neighbours) and the greedy one equals its stream in
+    phase 3's all-greedy batch (``greedy_out``); top-k 1 equals phase 3's
+    greedy streams, or first differs at a token whose two best logits tie
+    (top-k 1 keeps ties, greedy takes the first; the tie is read from the
+    logits the engine sampled); mpmm, paged_attn and paged_scatter launched.
+    Printed: a sampled decode step's wall and device time beside a greedy
+    step's from the same cache (walls: medians of STEP_PAIRS steps of each,
+    taken in turns), and the sampler's device time. Returns the launches of
+    the slot and paged runs."""
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request
+
+    build.reset_launches()  # the sampled serving path starts here
+    out_slot, _ = serve(torch, dev, cfg, policy, params, "slot",
+                        reqs=sampled_requests(requests(cfg, Request)))
+    out_paged, _ = serve(torch, dev, cfg, policy, params, "paged",
+                         reqs=sampled_requests(requests(cfg, Request)))
+    launches = dict(build.LAUNCHES)  # the sampled serving path ends here
+    log(f"launches on the sampled serving path: {launches}")
+    if out_slot != out_paged:
+        raise AssertionError("sampled: slot and paged token streams differ")
+    for name in ("mpmm", "paged_attn", "paged_scatter"):
+        if launches.get(name, 0) == 0:
+            raise AssertionError(f"kernel {name} was not launched on the sampled serving path")
+    same = sum(a == b for rid in out_slot for a, b in zip(out_slot[rid], greedy_out[rid]))
+    log(f"sampled slot and paged token streams identical; {same} of "
+        f"{sum(len(t) for t in out_slot.values())} tokens equal the greedy streams")
+    prefix_path(torch, dev, cfg, policy, params, key="sampled ", sampled=True)
+
+    mixed, _ = serve(torch, dev, cfg, policy, params, "slot",
+                     reqs=sampled_requests(requests(cfg, Request), greedy=(0,)))
+    if mixed[0] != greedy_out[0]:
+        raise AssertionError("a greedy request beside sampled ones left its greedy stream")
+    if any(mixed[r] != out_slot[r] for r in (1, 2, 3)):
+        raise AssertionError("sampled streams changed from run to run or with their neighbours")
+    log("mixed batch (request 0 greedy, 1-3 sampled): the greedy stream equals phase 3's, the "
+        "sampled ones their first run's")
+    ties: dict = {}
+    top1, _ = serve(torch, dev, cfg, policy, params, "paged", ties=ties,
+                    reqs=sampled_requests(requests(cfg, Request), top_k=1))
+    parts = {}
+    for rid, (a, b) in enumerate(zip(top1.values(), greedy_out.values())):
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is not None:
+            if not ties[rid, i]:
+                raise AssertionError(f"top-k 1 request {rid} parts from greedy at token {i}, "
+                                     f"where the two best logits do not tie")
+            parts[rid] = i
+    log(f"top-k 1 streams equal the greedy ones"
+        + (f", except from a tie of the two best logits (request: first token) {parts}"
+           if parts else "") + f"; {sum(ties.values())} of {len(ties)} drawn tokens had tied "
+        f"best logits")
+
+    caches = M.init_cache(cfg, policy, N_SLOTS, S_MAX, device=dev)
+    toks = torch.ones((N_SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor([n + MAX_NEW - 1 for n in PROMPT_LENS], dtype=torch.int32, device=dev)
+    lanes = ([SAMPLING["temperature"]] * N_SLOTS, [SAMPLING["top_k"]] * N_SLOTS,
+             [SAMPLING["top_p"]] * N_SLOTS, [1000 + i for i in range(N_SLOTS)], [5] * N_SLOTS)
+
+    def step(sampled):
+        logits = M.decode_step(params, toks, pos, caches, cfg, policy, fused_attn=True)
+        return M.sample_tokens(logits[:, -1], *(lanes if sampled else ([0.0] * N_SLOTS,)))
+
+    tg, _, how = device_ms(lambda: step(False))
+    ts, _, _ = device_ms(lambda: step(True))
+    walls: dict = {False: [], True: []}
+    for i in range(2 * STEP_PAIRS):
+        sampled = bool(i % 2) != bool(i // 2 % 2)  # greedy, sampled, sampled, greedy, ...
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(sampled)
+        torch.cuda.synchronize()
+        walls[sampled].append((time.perf_counter() - t0) * 1e3)
+    tgw, tsw = (statistics.median(walls[k]) for k in (False, True))
+    logits = M.decode_step(params, toks, pos, caches, cfg, policy, fused_attn=True)[:, -1]
+    tsamp, tsampw, _ = device_ms(lambda: M.sample_tokens(logits, *lanes))
+    tgreedy, _, _ = device_ms(lambda: M.sample_tokens(logits, [0.0] * N_SLOTS))
+    log(f"decode step + sampler ({cfg.name}, {policy.name}, slot cache, 4 slots at 159..543 "
+        f"cached rows; {how}; walls the medians of {STEP_PAIRS} steps each, in turns): greedy "
+        f"{tg:.3f} ms device, {tgw:.3f} ms wall; sampled "
+        f"(temperature {SAMPLING['temperature']}, top-k {SAMPLING['top_k']}, top-p "
+        f"{SAMPLING['top_p']}) {ts:.3f} ms device, {tsw:.3f} ms wall; the sampler alone over "
+        f"(4, {logits.shape[-1]}) logits: {tsamp:.4f} ms device, {tsampw:.3f} ms wall "
+        f"(greedy argmax {tgreedy:.4f} ms device)")
+    return launches
+
+
 def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
     """Phase 8: serve DeepSeek-V3 (three MLA-dense layers, full width) on the
     slot and paged caches, fused then unfused; the teacher-forced step, the
@@ -1597,6 +2017,7 @@ def main() -> int:
     check_paged_copy(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
     check_wdqmm(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
     check_flash_mha(torch, dev, cfg, report)
+    check_qkv_decode(torch, dev, cfg, report)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1645,12 +2066,15 @@ def main() -> int:
     rows.insert(1, kernel_row(wo_row, wo_launches, report))
     flash_row, flash_launches = whole_prompt_path(torch, dev, cfg, policy, params, report)
     rows.insert(3, kernel_row(flash_row, flash_launches, report))
+    qkv_row, qkv_launches = dense_cache_path(torch, dev, cfg, policy, params, report)
+    sampled_path(torch, dev, cfg, policy, params, out_slot)
     del params
     gc.collect()
     torch.cuda.empty_cache()
 
     mla_row, mla_launches = mla_path(torch, dev, policy, report)
     rows.append(kernel_row(mla_row, mla_launches, report))
+    rows.append(kernel_row(qkv_row, qkv_launches, report))
     log(gpu_line())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,12 @@
 """Plain PyTorch oracles for the packed kernels (counterpart of
 ``repro.kernels.ref``): the matmul, the standalone QntPack and the paper's
 Reference-Layer conv (bit-exact ground truth), the weight-only dequant
-matmul (the f32 twin of ``repro.kernels.wdqmm.wdqmm_ref``), and the
+matmul (the f32 twin of ``repro.kernels.wdqmm.wdqmm_ref``), the
 whole-sequence flash attention (the function of
 ``repro.kernels.flash.flash_mha_pallas``, in the order of the reference's
-CPU path ``repro.models.attention.flash_attention``).
+CPU path ``repro.models.attention.flash_attention``) and decode attention
+over a dense quantized cache (``repro.kernels.qkv_decode.qkv_decode_pallas``,
+step for step).
 
 The integer products are float64 matmuls of the unpacked values: every
 partial sum is an integer below 2^53 (|sum| <= K * 255 * 128, K = 9C for
@@ -177,3 +179,56 @@ def flash_mha_ref(
             m = m_new
         outs.append((acc / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2))
     return torch.cat(outs, dim=1)[:, :Sq]
+
+
+def qkv_decode_plain(
+    q: torch.Tensor,  # (B, Hq, D), any float dtype
+    k_q: torch.Tensor,  # (B, S, Hkv, D/r) int8 storage
+    k_s: torch.Tensor,  # (B, S, Hkv) f32 per-(token, head) scales
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    pos: int,
+    *,
+    bits: int = 8,
+    bs: int = 512,
+) -> torch.Tensor:
+    """Decode attention over a dense int8 / packed int4 cache, the function
+    of ``repro.kernels.qkv_decode.qkv_decode_pallas`` step for step: blocks
+    of ``min(bs, S)`` keys (S must be a multiple: the Pallas kernel asserts
+    it, this raises), each dequantized in f32 (``code * scale``, no bf16
+    rounding), ``s = q . k * (1 / sqrt(D))``, keys past the scalar ``pos``
+    at BIG_NEG, and the running softmax from m = BIG_NEG, l = 0, acc = 0;
+    out = ``acc / max(l, 1e-30)``. With pos < 0 every score is BIG_NEG and
+    the result is the mean of v over all S keys. GQA: query head h reads kv
+    head h // (Hq / Hkv). Returns (B, Hq, D) f32."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k_q.shape
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"qkv_decode: Hq={Hq} not a multiple of Hkv={Hkv}")
+    bs_ = min(bs, S)
+    if bs_ < 1 or S % bs_:
+        raise ValueError(f"qkv_decode: S={S} is not a multiple of the key block {bs_}")
+    G = Hq // Hkv
+    dev = q.device
+    scale = 1.0 / (D**0.5)
+    qf = q.to(torch.float32).reshape(B, Hkv, G, D)
+    neg = torch.tensor(BIG_NEG, dtype=torch.float32, device=dev)
+    m = torch.full((B, Hkv, G), BIG_NEG, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, G), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=dev)
+    for j in range(0, S, bs_):
+        kc, vc = k_q[:, j:j + bs_], v_q[:, j:j + bs_]
+        if bits < 8:
+            kc, vc = P.unpack(kc, bits, signed=True), P.unpack(vc, bits, signed=True)
+        kf = kc.to(torch.float32) * k_s[:, j:j + bs_, :, None]  # (B, bs, Hkv, D)
+        vf = vc.to(torch.float32) * v_s[:, j:j + bs_, :, None]
+        s = torch.einsum("bhgd,bshd->bhgs", qf, kf) * scale
+        kpos = torch.arange(j, j + bs_, device=dev)
+        s = torch.where(kpos <= pos, s, neg)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgs,bshd->bhgd", p, vf)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(B, Hq, D)

@@ -17,7 +17,7 @@ Every projection routes through ``core.linear`` under the active
 PrecisionPolicy. Ported: serve-mode ``init_params``, ``init_cache``,
 ``init_paged_cache``, ``forward`` (serve mode, dense family),
 ``prefill_step``, ``decode_step``, ``prefill_chunk``,
-``prefill_into_slot``, ``prefill_into_pages`` and greedy ``sample_tokens``.
+``prefill_into_slot``, ``prefill_into_pages`` and ``sample_tokens``.
 Mixture-of-Experts layers (``mla_moe``, the moe family) are not ported:
 a config that has one raises at ``init_params`` / ``init_cache``.
 """
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import prng
 from repro_torch.core.linear import linear_apply, linear_init
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.kernels import dispatch, ops
@@ -289,16 +290,61 @@ def decode_step(params: dict, tokens: torch.Tensor, pos, caches: list, cfg: Arch
     return linear_apply(params["head"], x, policy.of("head"), impl=impl)
 
 
+def _lane(x, dtype, fill, n: int, device) -> torch.Tensor:
+    """One per-slot host vector on ``device``: a private numpy copy first,
+    so the caller may mutate its own buffer while the copy is in flight
+    (the port's boundary rule, ``serve.boundary``)."""
+    a = np.full(n, fill, dtype) if x is None else np.array(x, dtype=dtype, copy=True)
+    return torch.from_numpy(a.reshape(n)).to(device)
+
+
 def sample_tokens(logits: torch.Tensor, temps, top_k=None, top_p=None, seeds=None,
                   counters=None) -> torch.Tensor:
-    """The batched per-slot sampler, greedy lanes only: argmax over the
-    (padded) vocabulary in f32, first maximum on ties (as ``jnp.argmax``).
-    ``temps`` is the host (B,) vector; a lane with temperature > 0 raises."""
-    if np.any(np.asarray(temps) > 0):
-        raise NotImplementedError(
-            "stochastic sampling (temperature > 0) is not ported yet: ROADMAP "
-            "Queue 1 item 8, seeded sampling")
-    return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
+    """The batched per-slot sampler (counterpart of the reference's
+    ``sample_tokens``): every token the engine emits comes through here.
+
+    ``logits`` is (B, V) on the device; the per-slot vectors are host
+    (B,) sequences: ``temps`` (0 => greedy argmax, first maximum, as
+    ``jnp.argmax``), ``top_k`` (0 => off), ``top_p`` (1.0 => off),
+    ``seeds`` (uint32) and ``counters`` (tokens already emitted for the
+    slot's request). Token ``i`` of a request draws from
+    ``fold_in(PRNGKey(seed), i)`` (``core.prng``, JAX's threefry bit for
+    bit), so a stream depends on (seed, counter) alone.
+
+    A stochastic lane runs the reference's steps: divide by
+    ``max(t, 1e-6)``; one stable descending argsort; keep logits >= the
+    k-th largest (ties kept); softmax; the nucleus keep mask
+    ``(cumsum(sp) - sp) < p`` in sorted order, scattered back; the
+    Gumbel-max draw. Greedy lanes keep their argmax. The reference branches
+    on ``any(temps > 0)`` on the device (``lax.cond``); here the host
+    ``temps`` decide, so an all-greedy step launches nothing beyond the
+    argmax. Returns (B,) int32 on the logits' device."""
+    logits = logits.to(torch.float32)
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    t_host = np.array(temps, dtype=np.float32, copy=True).reshape(-1)
+    if not np.any(t_host > 0):
+        return greedy
+    B, V = logits.shape
+    dev = logits.device
+    t = torch.from_numpy(t_host).to(dev)
+    k = _lane(top_k, np.int64, 0, B, dev)
+    p = _lane(top_p, np.float32, 1.0, B, dev)
+    key = prng.fold_in(prng.prng_key(_lane(seeds, np.int64, 0, B, dev)),
+                       _lane(counters, np.int64, 0, B, dev))
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    lg = logits / torch.maximum(t, torch.tensor(1e-6, dtype=torch.float32, device=dev))[:, None]
+    # one descending sort serves both truncations: top-k only sends entries
+    # below the threshold to -inf, so the order stays a valid descending one
+    order = torch.argsort(-lg, dim=-1, stable=True)
+    kth = lg.gather(1, order.gather(1, torch.clamp(k - 1, 0, V - 1)[:, None]))
+    lg = torch.where((k[:, None] > 0) & (lg < kth), neg_inf, lg)
+    e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    sp = (e / e.sum(dim=-1, keepdim=True)).gather(1, order)
+    keep = torch.zeros_like(lg, dtype=torch.bool).scatter(
+        1, order, (torch.cumsum(sp, dim=-1) - sp) < p[:, None])
+    lg = torch.where(keep, lg, neg_inf)
+    sampled = prng.categorical(key, lg).to(torch.int32)
+    return torch.where(t > 0, sampled, greedy)
 
 
 def prefill_chunk(params: dict, tokens: torch.Tensor, pos, caches: list, cfg: ArchConfig,

@@ -24,8 +24,8 @@ submit work and consume results without touching engine internals:
     are decref'd, never zeroed).
 
 The decode-side contract: every request's tokens are produced by ONE
-batched sampler (``models.model.sample_tokens``) that rides the engine's
-jitted decode step — per-slot temperature/top-k/top-p vectors and a
+batched sampler (``models.model.sample_tokens``) that follows each decode
+step — per-slot temperature/top-k/top-p vectors and a
 counter-based PRNG key (``fold_in(PRNGKey(seed), n_tokens_emitted)``), so
 the sampled stream depends only on (params, logits), never on slot
 assignment, batch composition, or cache backend.

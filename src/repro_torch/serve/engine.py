@@ -11,15 +11,17 @@ same keys as the reference's serialized mode.
 Each step admits waiting requests (blocking chunked prefill; the first
 token comes from the prefill's last-token logits) and then runs ONE decode
 step for every active slot: ``models.model.decode_step`` over ``n_slots``
-static slots with per-slot positions, followed by the greedy sampler.
+static slots with per-slot positions, followed by the batched sampler
+(``models.model.sample_tokens``): per-slot temperature / top-k / top-p /
+seed lanes, token ``i`` of a request drawn from ``fold_in(PRNGKey(seed),
+i)``, greedy lanes (temperature 0) an argmax.
 
 The cache is ``"slot"``, ``"paged"`` or ``"prefix"`` (prefix sharing: the
 admission verbs get the prompt, prefill skips the matched rows and
 ``commit`` publishes the prompt's pages). The engine runs on CUDA unless
 the caller passes ``device="cpu"``; ``device=None`` means CUDA and raises
 where CUDA is absent. Not ported yet: continuous batching (``mixed=True``),
-speculative decoding (``spec``), tracing (``trace``) and stochastic
-sampling.
+speculative decoding (``spec``) and tracing (``trace``).
 """
 
 from __future__ import annotations
@@ -133,7 +135,13 @@ class ServeEngine:
         self._kstats = KernelStatsAccumulator()
         self.slot_req: list[Optional[Request]] = [None] * n_slots
         self.slot_remaining = np.zeros(n_slots, np.int32)
+        # per-slot sampling lanes; an idle slot is greedy (temperature 0)
+        # and its token is discarded
         self._temps = np.zeros(n_slots, np.float32)
+        self._top_ks = np.zeros(n_slots, np.int32)
+        self._top_ps = np.ones(n_slots, np.float32)
+        self._seeds = np.zeros(n_slots, np.uint32)
+        self._counters = np.zeros(n_slots, np.int32)
         self.prefiller = make_prefiller(
             prefill, params, cfg, policy, impl=impl, chunk=prefill_chunk,
             page_size=self.cache.page_size if self.cache.paged else None, device=self.device)
@@ -172,10 +180,6 @@ class ServeEngine:
             raise RuntimeError("engine is closed")
         if req.params is None:
             req.params = SamplingParams(max_new=req.max_new)
-        if not req.params.greedy:
-            raise NotImplementedError(
-                "stochastic sampling (temperature > 0) is not ported yet: ROADMAP "
-                "Queue 1 item 8, seeded sampling")
         req.max_new = req.params.max_new
         if len(req.prompt) == 0:
             raise ValueError("prompt must hold at least one token")
@@ -218,9 +222,10 @@ class ServeEngine:
     # --- request lifecycle: the loop ----------------------------------------
 
     def _step(self, toks: np.ndarray):
-        """One decode + greedy sample step for every slot. ``pos`` and the
-        block tables cross to the device as snapshots (host_copy). Returns
-        (sampled (B,) int32 on the device, logits (B, 1, V))."""
+        """One decode + sample step for every slot. ``pos`` and the block
+        tables cross to the device as snapshots (host_copy), the sampling
+        lanes as ``sample_tokens``' own copies. Returns (sampled (B,) int32
+        on the device, logits (B, 1, V))."""
         t0 = time.perf_counter()
         dev = self.device
         bt = host_copy(self.cache.block_tables, dev) if self.cache.paged else None
@@ -228,7 +233,8 @@ class ServeEngine:
                                host_copy(self.cache.pos, dev), self.cache.caches, self.cfg,
                                self.policy, impl=self.impl, block_tables=bt,
                                fused_attn=self.fused_attn)
-        nxt = M.sample_tokens(logits[:, -1], self._temps)
+        nxt = M.sample_tokens(logits[:, -1], self._temps, self._top_ks, self._top_ps,
+                              self._seeds, self._counters)
         self.monitor.observe(time.perf_counter() - t0)
         return nxt, logits
 
@@ -243,6 +249,10 @@ class ServeEngine:
         self.slot_req[slot] = None
         self.slot_remaining[slot] = 0
         self._temps[slot] = 0.0
+        self._top_ks[slot] = 0
+        self._top_ps[slot] = 1.0
+        self._seeds[slot] = 0
+        self._counters[slot] = 0
         self._progress += 1
         self.cache.release(slot)
         if status == CANCELLED:
@@ -260,6 +270,7 @@ class ServeEngine:
         tok = int(tok)
         r.out.append(tok)
         self.slot_remaining[slot] -= 1
+        self._counters[slot] = len(r.out)  # the PRNG counter of the next token
         self._tokens_out += 1
         now = time.perf_counter()
         if len(r.out) == 1:
@@ -299,12 +310,17 @@ class ServeEngine:
             req.t_admit = time.perf_counter()
             p = as_params(req)
             self._temps[slot] = p.temperature
+            self._top_ks[slot] = p.top_k
+            self._top_ps[slot] = p.top_p
+            self._seeds[slot] = p.seed
+            self._counters[slot] = 0
             self.slot_req[slot] = req
             self.slot_remaining[slot] = req.max_new
             self._progress += 1
             logits = self.prefiller.prefill(self.cache, slot, req.prompt, rid=req.rid)
             self.cache.commit(slot, req.prompt)
-            first = M.sample_tokens(logits[:, -1], np.float32([p.temperature]))
+            first = M.sample_tokens(logits[:, -1], [p.temperature], [p.top_k], [p.top_p],
+                                    [p.seed], [0])
             self._emit(slot, int(first.cpu()[0]))
 
     def _active(self) -> bool:

@@ -19,7 +19,13 @@ and sums its dots in another order, so atol = rtol = 1e-5 (``kernels/flash.py``
 ``prefill_step`` on the card then stay within 0.05 of the CPU's logits (a
 bf16 step at logits of 4-8: a rounding of the attention output can flip one
 8-bit activation code of the output projection), argmax agreeing unless the
-CPU's two best are within that bound.
+CPU's two best are within that bound. qkv_decode follows the plain
+version's running softmax over other tiles (64 keys against blocks of
+``bs``), so atol = rtol = 1e-5 (``kernels/qkv_decode.py`` ``TOL``), each
+call twice bit-identical. The sampler on the card draws the CPU's tokens
+from the same logits (the keys and uniforms are integer arithmetic; CUDA's
+``log`` / ``exp`` and sums may differ by f32 ulps), except where the CPU's
+two best perturbed scores, or a nucleus cut, lie within 4 ulps.
 """
 
 import dataclasses
@@ -31,6 +37,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import pack as P  # noqa: E402
+from repro_torch.core import prng  # noqa: E402
 from repro_torch.core import quant as Q  # noqa: E402
 from repro_torch.core.policy import (  # noqa: E402
     BF16,
@@ -40,12 +47,13 @@ from repro_torch.core.policy import (  # noqa: E402
     get_policy,
 )
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import qkv_decode as QD  # noqa: E402
 from repro_torch.kernels.flash import TOL as FLASH_TOL  # noqa: E402
 from repro_torch.kernels.ref import conv2d_ref, im2col  # noqa: E402
 from repro_torch.kernels.wdqmm import TOL as WDQMM_TOL  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.serve import Request, SamplingParams, ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -746,3 +754,182 @@ def test_forward_and_prefill_step_on_cuda_match_cpu(dev):
         got = M.decode_step(cparams, t.to(dev), pos.to(dev), caches_g, cfg, policy,
                             fused_attn=True)
         check(got, logits, f"decode step {i}")
+
+
+# ------------------------------------------------------------- qkv_decode
+
+#: (B, S, Hq, Hkv, D, bits, pos, bs): the reference test's shapes and pos
+#: edges, then internlm2's full shape at kv8 and kv4
+QKV_CASES = ([(2, 32, 2 * gqa, 2, 16, bits, pos, bs)
+              for bits, gqa, pos, bs in ((8, 1, 30, 8), (8, 2, 12, 8), (4, 1, 31, 8),
+                                         (8, 2, -1, 8), (4, 2, 0, 32), (8, 1, 8, 8))]
+             + [(4, 1024, 16, 8, 128, bits, pos, 512) for bits in (8, 4)
+                for pos in (0, 511, 1023, -1)]
+             + [(3, 100, 16, 8, 128, 8, 70, 100)])  # S not a multiple of the kernel's tile
+
+
+def _qkv_operands(g, dev, B, S, Hq, Hkv, D, bits):
+    kq, ks = A.kv_quantize(torch.randn((B, S, Hkv, D), generator=g), bits)
+    vq, vs = A.kv_quantize(torch.randn((B, S, Hkv, D), generator=g), bits)
+    q = torch.randn((B, Hq, D), generator=g)
+    return tuple(t.to(dev) for t in (q, kq, ks, vq, vs))
+
+
+@pytest.mark.parametrize("case", QKV_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_qkv_decode_kernel_vs_plain(dev, case):
+    """Within QKV_TOL of the plain version, the same call twice
+    bit-identical, one launch a call."""
+    B, S, Hq, Hkv, D, bits, pos, bs = case
+    g = torch.Generator().manual_seed(B * S + D + bits)
+    q, kq, ks, vq, vs = _qkv_operands(g, dev, B, S, Hq, Hkv, D, bits)
+    n0 = build.LAUNCHES["qkv_decode"]
+    a = QD.qkv_decode(q, kq, ks, vq, vs, pos, bits=bits, bs=bs)
+    again = QD.qkv_decode(q, kq, ks, vq, vs, pos, bits=bits, bs=bs)
+    b = QD.qkv_decode_plain(q, kq, ks, vq, vs, pos, bits=bits, bs=bs)
+    assert build.LAUNCHES["qkv_decode"] - n0 == 2
+    assert a.dtype == torch.float32 and a.shape == q.shape
+    assert torch.equal(a, again)
+    torch.testing.assert_close(a, b, atol=QD.TOL, rtol=QD.TOL)
+
+
+def test_qkv_decode_refuses_what_it_cannot_take(dev):
+    """A head width it is not built for, a cache off 16-byte alignment and
+    S % bs raise; nothing falls back to the plain version."""
+    g = torch.Generator().manual_seed(5)
+    q, kq, ks, vq, vs = _qkv_operands(g, dev, 2, 32, 4, 2, 32, 8)
+    n0 = build.LAUNCHES["qkv_decode"]
+    with pytest.raises(ValueError, match="head dim 32"):
+        QD.qkv_decode(q, kq, ks, vq, vs, 3)
+    q, kq, ks, vq, vs = _qkv_operands(g, dev, 2, 32, 4, 2, 16, 8)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        QD.qkv_decode(q, _misaligned(kq), ks, vq, vs, 3)
+    with pytest.raises(ValueError, match="multiple of the key block"):
+        QD.qkv_decode(q, kq, ks, vq, vs, 3, bs=12)
+    assert build.LAUNCHES["qkv_decode"] == n0
+
+
+# ----------------------------------------------------------------- sampler
+
+
+def _cpu_near_tie(lg_row, t, k, p, seed, ctr, near=4) -> bool:
+    """Replay one lane's sampling steps on the CPU: True where the two best
+    perturbed scores, or some token's exclusive cumulative probability and
+    ``p``, lie within ``near`` f32 ulps."""
+    def ulps(a, b):
+        a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+
+    lg = torch.from_numpy(lg_row) / max(float(t), 1e-6)
+    order = torch.argsort(-lg, stable=True)
+    kth = lg[order[min(max(k - 1, 0), lg.numel() - 1)]]
+    lg = torch.where((k > 0) & (lg < kth), torch.tensor(float("-inf")), lg)
+    e = torch.exp(lg - lg.max())
+    sp = (e / e.sum())[order]
+    excl = (torch.cumsum(sp, 0) - sp).numpy()
+    if p < 1.0 and (ulps(excl, np.float32(p)) <= near).any():
+        return True
+    keep = torch.zeros_like(lg, dtype=torch.bool).scatter(0, order, torch.from_numpy(excl < p))
+    key = prng.fold_in(prng.prng_key(int(seed)), int(ctr))
+    scores = (prng.gumbel(key, lg.numel()) + torch.where(keep, lg, torch.tensor(float("-inf"))))
+    a, b = np.sort(scores.numpy()[np.isfinite(scores.numpy())])[-2:]
+    return bool(ulps(a, b) <= near)
+
+
+@pytest.mark.parametrize("V", [1000, 92544])
+def test_sampler_on_cuda_matches_cpu(dev, V):
+    """seed x counter x temperature x top-k x top-p over four logit rows
+    (ties included; V = 92544 is internlm2's padded vocabulary): the card's
+    tokens equal the CPU's except at replayed near ties."""
+    import itertools
+
+    rng = np.random.RandomState(5)
+    rows = (rng.randn(4, V) * 3).astype(np.float32)
+    rows[1, :50] = rows[1].max() + 1.0
+    rows[2] = np.round(rows[2])
+    rows[3] = torch.from_numpy(rows[3]).to(torch.bfloat16).float().numpy()
+    grid = list(itertools.product(range(4), (0, 1, 2**31, 2**32 - 1), (0, 1, 7, 2**31 - 1),
+                                  (0.5, 1.0, 2.0), (0, 1, 16), (0.5, 0.95, 1.0)))
+    for lo in range(0, len(grid), 1296):
+        part = grid[lo:lo + 1296]
+        logits = np.stack([rows[r] for r, *_ in part])
+        lanes = (np.array([x[3] for x in part], np.float32), np.array([x[4] for x in part]),
+                 np.array([x[5] for x in part], np.float32), np.array([x[1] for x in part]),
+                 np.array([x[2] for x in part]))
+        cpu = M.sample_tokens(torch.from_numpy(logits), *lanes).numpy()
+        gpu = M.sample_tokens(torch.from_numpy(logits).to(dev), *lanes).cpu().numpy()
+        for i in np.flatnonzero(cpu != gpu):
+            r, seed, ctr, t, k, p = part[i]
+            assert _cpu_near_tie(rows[r], t, k, p, seed, ctr), part[i]
+
+
+def _record_top_ties(monkeypatch, eng) -> dict:
+    """While ``eng`` runs, record for each token a request draws whether the
+    two best logits it was drawn from tie: {(rid, index): bool}."""
+    ties, orig = {}, M.sample_tokens
+
+    def wrapped(logits, temps, *a, **kw):
+        top = logits.float().topk(2, dim=-1).values.cpu()
+        if logits.shape[0] == 1:  # admission: the request that has no token yet
+            lanes = [next(r for r in eng.slot_req if r is not None and not r.out)]
+        else:
+            lanes = eng.slot_req
+        for r, (a_, b_) in zip(lanes, top.tolist()):
+            if r is not None:
+                ties[r.rid, len(r.out)] = a_ == b_
+        return orig(logits, temps, *a, **kw)
+
+    monkeypatch.setattr(M, "sample_tokens", wrapped)
+    return ties
+
+
+def _parts_only_at_ties(got, greedy, ties) -> bool:
+    """Each stream equals its greedy stream, or first differs at a token
+    whose two best logits tie."""
+    for rid, (a, b) in enumerate(zip(got, greedy)):
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is not None and not ties[rid, i]:
+            return False
+    return True
+
+
+def test_sampled_engine_on_cuda_streams_across_caches(dev, monkeypatch):
+    """Reduced internlm2-1.8b, w4a8, kv8, on the card: sampled streams equal
+    run to run and on the slot, paged and prefix caches; a greedy request
+    beside sampled ones equals its greedy stream in an all-greedy batch;
+    top-k 1 is greedy (where the two best logits tie, top-k 1 keeps both
+    and may draw the other: such a step is replayed and must be a tie)."""
+    cfg = configs.reduced(configs.get_arch("internlm2-1.8b"))
+    policy = get_policy("w4a8")
+    params = _to(M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu"), dev)
+    rng = np.random.RandomState(2)
+    shared = rng.randint(1, cfg.vocab, size=8)
+    prompts = [np.concatenate([shared, rng.randint(1, cfg.vocab, size=n)]).astype(np.int32)
+               for n in (3, 5, 2)] + [rng.randint(1, cfg.vocab, size=7).astype(np.int32)]
+
+    def engine(cache):
+        return ServeEngine(params, cfg, policy, n_slots=2, s_max=32, prefill_chunk=4,
+                           cache=cache, page_size=4 if cache != "slot" else None, device=dev)
+
+    def run(eng, sp):
+        hs = [eng.submit(p.copy(), sp(i)) for i, p in enumerate(prompts)]
+        eng.drain()
+        return [h.result() for h in hs]
+
+    def sampled(i):
+        if i == 3:
+            return SamplingParams(max_new=6)
+        return SamplingParams(temperature=0.8, top_k=40, top_p=0.95, seed=1000 + i, max_new=6)
+
+    build.reset_launches()
+    slot = run(engine("slot"), sampled)
+    assert build.LAUNCHES["mpmm"] > 0 and build.LAUNCHES["paged_attn"] > 0
+    assert slot == run(engine("slot"), sampled) == run(engine("paged"), sampled) == run(
+        engine("prefix"), sampled)
+    geng = engine("slot")
+    ties = _record_top_ties(monkeypatch, geng)
+    greedy = run(geng, lambda i: SamplingParams(max_new=6))
+    monkeypatch.undo()
+    assert slot[3] == greedy[3] and slot[:3] != greedy[:3]
+    topk1 = run(engine("paged"),
+                lambda i: SamplingParams(temperature=0.8, top_k=1, seed=i, max_new=6))
+    assert _parts_only_at_ties(topk1, greedy, ties)

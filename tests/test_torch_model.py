@@ -278,8 +278,13 @@ def test_sample_tokens_greedy_first_maximum():
     ref = RM.sample_tokens(jnp.asarray(logits.numpy()), jnp.zeros(2), jnp.zeros(2, jnp.int32),
                            jnp.ones(2), jnp.zeros(2, jnp.uint32), jnp.zeros(2, jnp.int32))
     assert got.tolist() == np.asarray(ref).tolist() == [1, 0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TM.sample_tokens(logits, np.array([0.0, 0.7], np.float32))
+    # a stochastic lane beside the greedy one: the greedy lane keeps its
+    # first maximum, the other draws the reference's token among the ties
+    lanes = (np.array([0.0, 0.7], np.float32), np.zeros(2, np.int32), np.ones(2, np.float32),
+             np.array([0, 9], np.uint32), np.array([0, 4], np.int32))
+    got = TM.sample_tokens(logits, *lanes)
+    ref = RM.sample_tokens(jnp.asarray(logits.numpy()), *map(jnp.asarray, lanes))
+    assert got.tolist() == np.asarray(ref).tolist() and got[0] == 1
 
 
 def test_unported_paths_raise():
