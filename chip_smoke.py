@@ -10,7 +10,9 @@ Phases, in order (any failure ends the run with a nonzero exit):
      mpmm on all 27 cells x 3 output kinds at a small shape and on the five
      main-path (N, K) at M = 4 and 16 (bit-exact); paged_scatter (bit-exact,
      scratch page excluded); paged_attn on bf16 / kv8 / kv4, with and without
-     a window (tolerance ATTN_TOL); conv2d on all 27 cells at the paper's
+     a window (tolerance ATTN_TOL), each call twice bit-identical and each
+     slot's output the same alone, in the batch and beside other positions;
+     conv2d on all 27 cells at the paper's
      Reference Layer and at a ragged shape, qntpack on every output width at
      the Tab. 1 shape, paged_gather on every cache leaf (all bit-exact);
   3. the serving path: ServeEngine serving internlm2-1.8b at full width under
@@ -33,6 +35,10 @@ Phases, in order (any failure ends the run with a nonzero exit):
      decode step for the serving kernels; per call at the paper's shape for
      conv2d, also at 224 x 224, and qntpack; wdqmm's and flash_mha's rows
      are timed at the end of phases 10 and 11, after their paths ran);
+     paged_attn per step at kv8 (the row), kv4 and on the bf16 cell; kv8
+     and the bf16 cell each beside ``F.scaled_dot_product_attention`` in
+     f32 over their K/V dequantized ahead of time (kv8 the row's library
+     time, bf16 printed);
   8. the MLA serving path: ServeEngine serving DeepSeek-V3 at its published
      widths cut to its three dense (MLA) layers, policy w4a8 with an 8-bit
      latent cache, the same 4 greedy requests, on the slot cache and then
@@ -131,9 +137,7 @@ Phases, in order (any failure ends the run with a nonzero exit):
      tie (read from the logits the engine sampled); mpmm, paged_attn and
      paged_scatter launched. Printed: a sampled decode step's device and
      wall time beside a greedy step's from the same cache, and the
-     sampler's own device time. Phase 7's paged_attn row also times
-     ``F.scaled_dot_product_attention`` on the bf16 cell (f32 over the dense
-     view, kv heads repeated), its library yardstick.
+     sampler's own device time.
 
 Phases 3, 4, 5, 8, 9, 10, 11, 12 and 13 each start with every launch count
 at 0 (phase 8 once for its fused runs, once for its unfused runs, once for
@@ -395,6 +399,22 @@ def check_paged_attn(torch, dev, cfg, report):
             if not torch.isfinite(a).all() or err > tol:
                 raise AssertionError(f"paged_attn bits={bits} window={window}: err {err} > {tol}")
             worst = max(worst, err)
+        # the same call again, and each slot served alone or beside other
+        # positions: the same bits (fixed splits, a fixed merge order)
+        kw = dict(bits=bits, block_table=bt, window=100)
+        a = ops.paged_attn(q, k, ks, v, vs, pos, impl="cuda", **kw)
+        if not torch.equal(a, ops.paged_attn(q, k, ks, v, vs, pos, impl="cuda", **kw)):
+            raise AssertionError(f"paged_attn bits={bits}: two calls differ")
+        full = ops.paged_attn(q, k, ks, v, vs, pos, bits=bits, block_table=bt, impl="cuda")
+        other = pos.clone()
+        other[0], other[2] = int(pos[3]), 5
+        moved = ops.paged_attn(q, k, ks, v, vs, other, bits=bits, block_table=bt, impl="cuda")
+        alone = [ops.paged_attn(q[i:i + 1], k, ks, v, vs, pos[i:i + 1], bits=bits,
+                                block_table=bt[i:i + 1], impl="cuda") for i in range(N_SLOTS)]
+        if not (all(torch.equal(full[i:i + 1], x) for i, x in enumerate(alone))
+                and torch.equal(full[1::2], moved[1::2])):
+            raise AssertionError(f"paged_attn bits={bits}: a slot's output depends on the "
+                                 f"other slots")
         # the dense slot layout through the identity-table view
         dk = k[1:].reshape(N_SLOTS, S_MAX, *k.shape[2:])
         dks = None if ks is None else ks[1:].reshape(N_SLOTS, S_MAX, *ks.shape[2:])
@@ -408,6 +428,8 @@ def check_paged_attn(torch, dev, cfg, report):
             raise AssertionError(f"paged_attn dense view bits={bits}: err {err}")
         worst = max(worst, err)
     report["paged_attn"] = {"max_abs_err": worst, "tol": ATTN_TOL}
+    log("paged_attn: each call twice bit-identical; each slot's output the same alone, in the "
+        "batch and beside other positions")
 
 
 def mla_case(torch, dev, mcfg, bits, g, pos=None):
@@ -1065,14 +1087,30 @@ def kernel_table(torch, dev, cfg, params, launches, report):
     tp, tpw, _ = device_ms(attn_step("torch"), reps=3, warmup=1)
     pos = cases[0][5]
     valid = sum(int(p) + 1 for p in pos.tolist())
-    row_bytes = cfg.kv_heads * (cfg.head_dim + 4)  # int8 row + f32 scale, per token
     q, bt = cases[0][0], cases[0][6]
-    nbytes = L * (2 * valid * row_bytes + 2 * q.numel() * 4 + bt.numel() * 4 + B * 4)
+
+    def attn_bytes(row_bytes):  # K and V rows (and scales) once, q in, out, table, pos
+        return L * (2 * valid * cfg.kv_heads * row_bytes + 2 * q.numel() * 4 + bt.numel() * 4
+                    + B * 4)
+
+    nbytes = attn_bytes(cfg.head_dim + 4)  # int8 row + f32 scale, per token and head
     nops = L * 4 * cfg.n_heads * cfg.head_dim * valid
     log(f"  paged_attn kv8, one decode step ({L} calls, B={B}, {valid} cached rows per "
-        f"layer): {t:.3f} ms device ({how}), {tw:.3f} ms wall; plain {tp:.3f} ms device, "
+        f"layer): {t:.4f} ms device ({how}), {tw:.3f} ms wall; plain {tp:.3f} ms device, "
         f"{tpw:.3f} ms wall")
-    tl = paged_attn_library_ms(torch, dev, cfg, g)
+    tl = paged_attn_library_ms(torch, dev, cfg, cases, 8)
+    for bits, row_bytes in ((4, cfg.head_dim // 2 + 4), (None, 2 * cfg.head_dim)):
+        other = [attn_case(torch, dev, cfg, bits, g) for _ in range(L)]
+        tb, tbw, howb = device_ms(lambda other=other, bits=bits: [
+            ops.paged_attn(q_, k, ks, v, vs, p_, bits=bits, block_table=b_, impl="cuda")
+            for q_, k, ks, v, vs, p_, b_ in other])
+        tag = "bf16 cell" if bits is None else f"kv{bits}"
+        log(f"  paged_attn {tag}, one decode step ({L} calls): {tb:.4f} ms device ({howb}), "
+            f"{tbw:.3f} ms wall; bound {attn_bytes(row_bytes) / HBM_BYTES_PER_S * 1e3:.5f} ms "
+            f"(bytes)")
+        if bits is None:
+            paged_attn_library_ms(torch, dev, cfg, other, None)
+        del other
     rows.append(dict(name="paged_attn", route="cuda", source="src/repro_torch/csrc/paged_attn.cu",
                      replaces="src/repro/kernels/paged_attn.py:142", ms=t, plain_ms=tp,
                      bytes=nbytes, work=[(nops, F32_FLOPS_PER_S)], library_ms=tl))
@@ -1201,34 +1239,39 @@ def kernel_table(torch, dev, cfg, params, launches, report):
     return [kernel_row(r, launches, report) for r in rows]
 
 
-def paged_attn_library_ms(torch, dev, cfg, g) -> float:
-    """paged_attn's library yardstick, as paged_mla_attn's: one decode step
-    (a call per layer, each on its own pool) on the bf16 cell, the kernel
-    beside ``F.scaled_dot_product_attention`` in f32 over the dense view of
-    the same pages (kv heads repeated, a boolean mask from pos, the same
-    scale). Returns SDPA's device ms per step."""
+def paged_attn_library_ms(torch, dev, cfg, cases, bits) -> float:
+    """paged_attn's library yardstick, as paged_mla_attn's and qkv_decode's:
+    one decode step (a call per layer, each on its own pool) of
+    ``F.scaled_dot_product_attention`` in f32 over the dense view of the
+    same pages, dequantized ahead of time with the kernel's rounding (kv
+    heads repeated, a boolean mask from pos, the same scale). Returns SDPA's
+    device ms per step."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.paged_attn import _dequant
 
-    L, B, G = cfg.n_layers, N_SLOTS, cfg.n_heads // cfg.kv_heads
-    cases = [attn_case(torch, dev, cfg, None, g) for _ in range(L)]
-    kern = lambda: [ops.paged_attn(q, k, ks, v, vs, pos, bits=None, block_table=bt,  # noqa: E731
-                                   impl="cuda") for q, k, ks, v, vs, pos, bt in cases]
-    tb, _, _ = device_ms(kern)
+    B, G = N_SLOTS, cfg.n_heads // cfg.kv_heads
     sdpa_in = []
-    for q, k, _ks, v, _vs, pos, bt in cases:
-        dense = lambda x: x[bt.long()].reshape(B, S_MAX, *x.shape[2:]).float().repeat_interleave(  # noqa: E731
-            G, dim=2).transpose(1, 2).contiguous()
+    for q, k, ks, v, vs, pos, bt in cases:
+        def dense(x, s_):
+            pages = bt.long().flatten()
+            x = _dequant(x[pages], None if s_ is None else s_[pages], bits)
+            return x.reshape(B, S_MAX, *x.shape[2:]).repeat_interleave(G, dim=2).transpose(
+                1, 2).contiguous()
         mask = (torch.arange(S_MAX, device=dev)[None] <= pos[:, None].long())[:, None, None]
-        sdpa_in.append((q[:, :, None], dense(k), dense(v), mask))
+        sdpa_in.append((q[:, :, None], dense(k, ks), dense(v, vs), mask))
     sdpa = lambda: [F.scaled_dot_product_attention(q, k, v, attn_mask=m)  # noqa: E731
                     for q, k, v, m in sdpa_in]
-    worst = max(float((lib[:, :, 0] - out).abs().max()) for lib, out in zip(sdpa(), kern()))
+    kern = [ops.paged_attn(q, k, ks, v, vs, pos, bits=bits, block_table=bt, impl="cuda")
+            for q, k, ks, v, vs, pos, bt in cases]
+    worst = max(float((lib[:, :, 0] - out).abs().max()) for lib, out in zip(sdpa(), kern))
     tl, tlw, _ = device_ms(sdpa)
-    log(f"  paged_attn bf16 cell, one decode step ({L} calls, L2-cold): {tb:.4f} ms device; "
-        f"F.scaled_dot_product_attention (f32, dense view, kv heads repeated, boolean mask) "
-        f"{tl:.4f} ms device, {tlw:.3f} ms wall; max |SDPA - kernel| = {worst:.3e}")
+    tag = "bf16 cell" if bits is None else f"kv{bits}"
+    log(f"  paged_attn {tag}: F.scaled_dot_product_attention (f32 over K/V dequantized ahead "
+        f"of time, dense view, kv heads repeated, boolean mask), one decode step "
+        f"({len(cases)} calls, L2-cold): {tl:.4f} ms device, {tlw:.3f} ms wall; max |SDPA - "
+        f"kernel| = {worst:.3e}")
     return tl
 
 
@@ -1250,8 +1293,8 @@ def kernel_row(r, launches, report) -> dict:
 
 #: device kernels the step breakdown names (everything else is PyTorch's)
 KERNEL_NAMES = ("mpmm_kernel", "wdqmm_kernel", "paged_mla_attn_kernel", "paged_attn_kernel",
-                "flash_mha_kernel", "paged_scatter_kernel", "paged_gather_kernel",
-                "qkv_decode_kernel")
+                "paged_attn_merge_kernel", "flash_mha_kernel", "paged_scatter_kernel",
+                "paged_gather_kernel", "qkv_decode_kernel")
 
 
 def step_breakdown(torch, dev, cfg, policy, params):

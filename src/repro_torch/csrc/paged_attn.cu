@@ -1,32 +1,80 @@
 // Fused GQA decode attention over a quantized KV page pool, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel src/repro/kernels/paged_attn.py::paged_attn_pallas.
-// One block per (slot b, kv head h) reads its own block-table row and walks
-// the slot's pages in order (the TPU grid's sequential page axis becomes a
-// loop in the block). The G = Hq / Hkv query heads of the kv head share every
-// page read; query head h * G + g maps to kv head h.
+// Replaces the TPU kernel src/repro/kernels/paged_attn.py::paged_attn_pallas
+// (:142). One query token per slot attends over the slot's pages, read
+// through its block-table row; the G = Hq / Hkv query heads of a kv head
+// share every page read (query head h * G + g reads kv head h).
 //
 // Numerics follow the reference twin step for step:
 //   * dequantization is (int * scale) -> __float2bfloat16_rn -> f32, the
 //     rounding of models/attention.py::kv_dequantize; kv4 unpacks the signed
 //     little-endian nibbles; the bf16 cell reads the stored bf16 directly;
-//   * scores are dot(q, k) * (1 / sqrt(D)), masked to kpos <= pos[b] and the
-//     sliding window (window > 0), masked scores are BIG_NEG and their
-//     probabilities are exactly 0.0;
+//   * scores are dot(q, k), then __fmul_rn(., 1 / sqrt(D)), masked to
+//     kpos <= pos[b] and the sliding window (window > 0); masked scores are
+//     BIG_NEG and their probabilities exactly 0.0;
 //   * running softmax per page: m' = max(m, max s), p = exp(s - m'),
 //     alpha = exp(m - m'), l = l * alpha + sum p, acc = acc * alpha + p . v;
 //     expf (not __expf), no fast math; the output is acc / max(l, 1e-30).
-//   * pages past the last valid position and pages the window has slid past
-//     are skipped: a fully masked page leaves m, l and acc exactly unchanged.
 //
-// Bound on this card: decode attention reads each valid K/V page once
-// (int8 rows plus one f32 scale per token and head) and does ~4 * G * D
-// flops per token, far below the card's rate: it is bound by bytes, and at
-// serving batch sizes by launch and per-page synchronisation latency. Design:
-// a page is staged dequantized in shared memory once for all G heads; the
-// work per page is split over the block's threads (scores by (g, token),
-// the accumulator by (g, d)). Simple first version: one block per
-// (slot, kv head), no split over pages, no asynchronous copies.
+// Bound on this card: bytes. A decode step reads each visible K/V row once
+// (D * bits / 8 bytes plus an f32 scale per token and head) and does
+// ~4 * G * D flops a row, far below the card's ratio of flops to bytes. At
+// serving batch sizes the bytes take ~1 us a call; what costs is the launch,
+// the dependent trips to device memory, and the instructions of the busiest
+// SM (timed phase by phase on the card, L2-warm pages ran no faster than
+// cold ones; PERF.md, paged_attn's findings).
+//
+// Design (the first design, one block per (slot, kv head) walking its pages
+// one at a time with four barriers and one-byte loads per page, took
+// 7.469 ms per internlm2 decode step at kv8 and 6.152 ms on the bf16 cell on
+// an H100 80GB HBM3 at 700 W; PERF.md row 2):
+//   1. The page walk is split over blocks: the grid is B * Hkv * n_split,
+//      n_split = ceil(NB / PPS), PPS pages a split. PPS is a compile-time
+//      constant (4, the fastest of 1, 2, 4, 8 and 16 at internlm2's kv8
+//      decode shapes; PERF.md row 2; kernels/paged_attn.py PAGES_PER_SPLIT
+//      mirrors it for the scratch): it never depends on B, the SM count or
+//      pos, so a slot's output is a function of its own logical rows, the
+//      same bits for the slot view and the pool at the same page size, in any
+//      batch, on every call. Visibility is decided on the device: a split with no visible
+//      key (past pos[b], or slid past by the window) exits at once, and the
+//      host never reads pos. Blocks are numbered split-major, so the low
+//      splits, which hold visible keys, spread over the SMs.
+//   2. A split's visible pages are staged whole, K and V codes and scales,
+//      with cp.async, every copy of the split in flight together (16-byte
+//      copies; 8, 4 or 1 where a row or the pool is not a whole number of
+//      16-byte vectors: the wrapper picks VB, and every path leaves the same
+//      bytes in shared memory, so all give the same bits). Rows sit in
+//      shared memory at a stride rounded up to 16 bytes: lanes read whole
+//      16-byte vectors along a row, 8 lanes a row, so the 8 lanes of a
+//      shared-memory phase read 8 consecutive vectors (no bank conflict), and
+//      cp.async's 16-byte destinations stay aligned (an odd word stride, as
+//      in qkv_decode.cu, would break both).
+//   3. kv8 / kv4: every staged code is dequantized once a block, (code *
+//      scale) -> bf16, into bf16 rows in shared memory (the int -> float step
+//      by the 2^23 trick, the rounding two values at a time), so the G heads
+//      share it and the score and P . V loops are a shift and an FMA an
+//      element. (The first version dequantized in those loops, once a head:
+//      quarter-rate conversions took most of its time, and a block's time did
+//      not move with L2-warm pages.) The bf16 cell reads its staged rows.
+//   4. 256 threads a block. pos, the split's table entries and the query
+//      load together (one trip, not three). Scores: 8 lanes split each row's
+//      dot (two bf16 a 32-bit word, 8 a 16-byte vector), each lane a chain of
+//      FMAs over its elements, joined by a fixed xor butterfly of shuffles;
+//      the query sits in shared memory padded by four floats a vector of 8,
+//      read as float4 from distinct banks. Softmax: the running max at page
+//      jj is the max of the page maxima up to jj, so one warp a (head, page)
+//      takes the page's max and then its probabilities and sum (butterflies,
+//      one lane a row), all pages at once; l = l * alpha + sum then runs over
+//      the pages in order. P . V: one thread a (head, d), an FMA chain over
+//      the page's rows. Six barriers a split (four a page before).
+//   5. Each split writes its partial (m, l, acc[G, D]) to scratch the wrapper
+//      allocates; a second kernel, one block per (slot, kv head), merges the
+//      splits that hold a visible key (decided again from pos and window) in
+//      split order: M = max m_i, l = sum l_i * exp(m_i - M), acc = sum acc_i
+//      * exp(m_i - M), out = acc / max(l, 1e-30). No atomics: the same bits
+//      on every call. A slot with no visible key gives 0, as the plain
+//      version does. A second kernel rather than a cluster: n_split varies
+//      with NB (16 at 1024 rows) and can pass a cluster's 8 or 16 blocks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,152 +82,443 @@
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int PPS = 4;  // pages a split (kernels/paged_attn.py PAGES_PER_SPLIT)
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int LPR = 8;             // lanes a row in the score dots
+constexpr int RPW = 32 / LPR;      // rows a warp scores at once
 constexpr float BIG_NEG = -2.0e9f;
+constexpr unsigned FULL = 0xffffffffu;
 
-// BITS: 16 = bf16 storage, 8 = int8, 4 = packed int4.
+__host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
+
+// Pages [lo, hi] of a slot that hold a visible key: keys 0..pos, and with a
+// window only keys past pos - window. Empty (lo > hi) when pos < 0 or the
+// window has slid past the table.
+struct Span {
+  int lo, hi;
+};
+__device__ __forceinline__ Span visible_pages(int pos, int window, int ps, int nb) {
+  Span s{0, -1};
+  if (pos < 0) return s;
+  s.hi = min(nb - 1, pos / ps);
+  if (window > 0 && pos - window + 1 > 0) s.lo = (pos - window + 1) / ps;
+  return s;
+}
+
+__device__ __forceinline__ bool visible(int kpos, int pos, int window) {
+  return kpos <= pos && (window <= 0 || pos - kpos < window);
+}
+
+// the 32-bit word w's low and high bf16 as f32
+__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
+
+// code e of a 16-byte vector as an exact f32, without the quarter-rate I2F:
+// the biased code (code + 128, or + 8 for a nibble) in the low mantissa bits
+// of 2^23, minus 2^23 + bias
 template <int BITS>
-__device__ __forceinline__ float dequant(const void* base, const float* scales,
-                                         long long row, int D, int d) {
-  if constexpr (BITS == 16) {
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(base)[row * D + d]);
-  } else if constexpr (BITS == 8) {
-    const float q = (float)static_cast<const int8_t*>(base)[row * D + d];
-    return __bfloat162float(__float2bfloat16_rn(__fmul_rn(q, scales[row])));
+__device__ __forceinline__ float code_f32(const uint32_t (&w)[4], int e) {
+  if constexpr (BITS == 8) {
+    const uint32_t biased = ((w[e >> 2] >> ((e & 3) * 8)) & 0xFFu) ^ 0x80u;
+    return __fsub_rn(__uint_as_float(0x4B000000u | biased), 8388736.0f);
   } else {
-    const uint8_t byte = static_cast<const uint8_t*>(base)[row * (D / 2) + d / 2];
-    const int u = (byte >> ((d & 1) * 4)) & 0xF;
-    const float q = (float)((u ^ 8) - 8);
-    return __bfloat162float(__float2bfloat16_rn(__fmul_rn(q, scales[row])));
+    const uint32_t biased = ((w[e >> 3] >> ((e & 7) * 4)) & 0xFu) ^ 0x8u;
+    return __fsub_rn(__uint_as_float(0x4B000000u | biased), 8388616.0f);
   }
 }
 
+// Dequantize one staged 16-byte vector of codes of a row with scale s,
+// (code * s) -> bf16 (round to nearest even), into 16 * 8 / BITS bf16 at dst
+// (16-byte aligned).
 template <int BITS>
+__device__ __forceinline__ void dequant_vec(const uint4& raw, float s, unsigned char* dst) {
+  constexpr int EPV = 128 / BITS;
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t o[EPV / 2];
+#pragma unroll
+  for (int e = 0; e < EPV; e += 2) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(__fmul_rn(code_f32<BITS>(w, e), s),
+                                                   __fmul_rn(code_f32<BITS>(w, e + 1), s));
+    o[e / 2] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+#pragma unroll
+  for (int u = 0; u < EPV / 8; ++u)
+    reinterpret_cast<uint4*>(dst)[u] = make_uint4(o[4 * u], o[4 * u + 1], o[4 * u + 2],
+                                                  o[4 * u + 3]);
+}
+
+// copy VB bytes global -> shared: cp.async for 16 / 8 / 4, a plain byte
+// copy for 1
+template <int VB>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  if constexpr (VB == 1) {
+    *static_cast<unsigned char*>(dst) = *static_cast<const unsigned char*>(src);
+  } else {
+    const uint32_t sa = (uint32_t)__cvta_generic_to_shared(dst);
+    if constexpr (VB == 16)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(src));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(sa), "l"(src), "n"(VB));
+  }
+}
+
+// Shared-memory layout of a split block (host and device agree). Staged
+// rows of codes (LDB bytes) and, for kv8 / kv4, their dequantized bf16 rows
+// (LDH bytes); the bf16 cell's staged rows are already bf16.
+struct Smem {
+  int RS, LDB, LDH, QLD;
+  size_t k, v, ks, vs, kd, vd, q, sc, pmx, psum, al, pg, bytes;
+  __host__ __device__ Smem(int bits, int D, int G, int ps) {
+    RS = PPS * ps;                          // rows a split
+    LDB = round16(D * bits / 8);            // bytes a staged row
+    LDH = LDB * 16 / bits;                  // bytes a bf16 row
+    QLD = (LDH / 16) * 12;                  // floats a head's query, 8 + 4 a vector
+    const size_t deq = bits == 16 ? 0 : (size_t)RS * LDH;
+    const size_t scl = bits == 16 ? 0 : sizeof(float) * RS;
+    k = 0;
+    v = k + (size_t)RS * LDB;
+    kd = v + (size_t)RS * LDB;
+    vd = kd + deq;
+    ks = vd + deq;
+    vs = ks + scl;
+    q = round16((int)(vs + scl));
+    sc = q + sizeof(float) * G * QLD;
+    pmx = sc + sizeof(float) * G * RS;
+    psum = pmx + sizeof(float) * G * PPS;
+    al = psum + sizeof(float) * G * PPS;
+    pg = al + sizeof(float) * G * PPS;
+    bytes = pg + sizeof(int) * PPS;
+  }
+};
+
+template <int BITS, int VB>
 __global__ void __launch_bounds__(THREADS)
-paged_attn_kernel(const float* __restrict__ q, const void* __restrict__ k,
-                  const float* __restrict__ ks, const void* __restrict__ v,
+paged_attn_kernel(const float* __restrict__ q, const unsigned char* __restrict__ k,
+                  const float* __restrict__ ks, const unsigned char* __restrict__ v,
                   const float* __restrict__ vs, const int* __restrict__ pos,
-                  const int* __restrict__ bt, float* __restrict__ out, int Hq, int Hkv,
-                  int D, int ps, int nb, int window, float scale) {
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x % Hkv;
+                  const int* __restrict__ bt, float* __restrict__ part, int Hq, int Hkv, int D,
+                  int ps, int nb, int nsplit, int window, float scale) {
+  // split-major: the blocks that hold visible keys (low splits) come first
+  // and spread over the SMs
+  const int nbh = gridDim.x / nsplit;
+  const int split = blockIdx.x / nbh;
+  const int bh = blockIdx.x - split * nbh;
+  const int b = bh / Hkv;
+  const int h = bh - b * Hkv;
   const int G = Hq / Hkv;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
 
-  extern __shared__ float smem[];
-  float* qs = smem;           // (G, D)
-  float* acc = qs + G * D;    // (G, D)
-  float* kf = acc + G * D;    // (ps, D) dequantized K page
-  float* vf = kf + ps * D;    // (ps, D) dequantized V page
-  float* sc = vf + ps * D;    // (G, ps) scores, then probabilities
-  float* m = sc + G * ps;     // (G,)
-  float* l = m + G;           // (G,)
-  float* al = l + G;          // (G,) this page's alpha
+  const Smem L(BITS, D, G, ps);
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* kt = smem + L.k;
+  unsigned char* vt = smem + L.v;
+  float* ksc = reinterpret_cast<float*>(smem + L.ks);
+  float* vsc = reinterpret_cast<float*>(smem + L.vs);
+  float* qs = reinterpret_cast<float*>(smem + L.q);
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  float* pmx = reinterpret_cast<float*>(smem + L.pmx);
+  float* psum = reinterpret_cast<float*>(smem + L.psum);
+  float* al = reinterpret_cast<float*>(smem + L.al);
+  int* pg = reinterpret_cast<int*>(smem + L.pg);
+  // the rows the scores and P . V read: dequantized bf16, or the bf16 cell's
+  const unsigned char* kh = BITS == 16 ? kt : smem + L.kd;
+  const unsigned char* vh = BITS == 16 ? vt : smem + L.vd;
 
+  // pos, the split's table entries and the query in one trip; the query
+  // padded by four floats a vector of 8, so the 8 lanes of a row read it as
+  // float4 from distinct banks
+  const int s0 = split * PPS;
+  const int p_last = pos[b];
+  for (int i = tid; i < PPS; i += THREADS)
+    pg[i] = s0 + i < nb ? bt[(long long)b * nb + s0 + i] : 0;
   const float* qb = q + ((long long)b * Hq + (long long)h * G) * D;
   for (int i = tid; i < G * D; i += THREADS) {
-    qs[i] = qb[i];
-    acc[i] = 0.0f;
+    const int g = i / D;
+    const int d = i - g * D;
+    qs[g * L.QLD + (d >> 3) * 12 + (d & 7)] = qb[i];
   }
-  for (int g = tid; g < G; g += THREADS) {
-    m[g] = BIG_NEG;
-    l[g] = 0.0f;
-  }
-  const int p_last = pos[b];
+  const Span vis = visible_pages(p_last, window, ps, nb);
+  const int j0 = max(vis.lo, s0);
+  const int j1 = min(vis.hi, s0 + PPS - 1);
+  if (j0 > j1) return;  // no visible key in this split: the merge skips it
+  const int npg = j1 - j0 + 1;
+  const int R = npg * ps;  // staged rows; row r holds key j0 * ps + r
+  __syncthreads();
 
-  for (int j = 0; j < nb; ++j) {
-    const int k0 = j * ps;
-    if (k0 > p_last) break;  // this and every later page is fully masked
-    if (window > 0 && p_last - (k0 + ps - 1) >= window) continue;  // slid past
-    const long long page = bt[(long long)b * nb + j];
-    __syncthreads();  // previous page's readers are done with kf/vf/sc
-    for (int i = tid; i < ps * D; i += THREADS) {
-      const int t = i / D;
-      const int d = i - t * D;
-      const long long row = (page * ps + t) * Hkv + h;
-      kf[i] = dequant<BITS>(k, ks, row, D, d);
-      vf[i] = dequant<BITS>(v, vs, row, D, d);
+  // stage: every copy of the split's visible pages in flight together
+  const int RB = D * BITS / 8;  // bytes a cache row
+  const int VPR = RB / VB;      // copies a row
+  for (int i = tid; i < R * VPR; i += THREADS) {
+    const int r = i / VPR;
+    const int c = i - r * VPR;
+    const int jj = r / ps;
+    const long long row = ((long long)pg[j0 - s0 + jj] * ps + (r - jj * ps)) * Hkv + h;
+    copy_async<VB>(kt + r * L.LDB + c * VB, k + row * RB + c * VB);
+    copy_async<VB>(vt + r * L.LDB + c * VB, v + row * RB + c * VB);
+  }
+  if constexpr (BITS != 16) {
+    for (int r = tid; r < R; r += THREADS) {
+      const int jj = r / ps;
+      const long long row = ((long long)pg[j0 - s0 + jj] * ps + (r - jj * ps)) * Hkv + h;
+      copy_async<4>(ksc + r, ks + row);
+      copy_async<4>(vsc + r, vs + row);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // kv8 / kv4: dequantize every staged code once, (code * scale) -> bf16
+  if constexpr (BITS != 16) {
+    const int VPB = L.LDB / 16;  // staged vectors a row
+    for (int i = tid; i < 2 * R * VPB; i += THREADS) {
+      const int is_v = i >= R * VPB;
+      const int j = i - is_v * R * VPB;
+      const int r = j / VPB;
+      const int c = j - r * VPB;
+      const uint4 raw = *reinterpret_cast<const uint4*>((is_v ? vt : kt) + r * L.LDB + c * 16);
+      dequant_vec<BITS>(raw, (is_v ? vsc : ksc)[r],
+                        smem + (is_v ? L.vd : L.kd) + r * L.LDH + c * (256 / BITS));
     }
     __syncthreads();
-    for (int i = tid; i < G * ps; i += THREADS) {
-      const int g = i / ps;
-      const int t = i - g * ps;
+  }
+
+  // scores: LPR lanes a row, each over whole 16-byte vectors of 8 bf16
+  const int lig = lane & (LPR - 1);
+  const int VPH = L.LDH / 16;
+  for (int r0 = warp * RPW; r0 < R; r0 += WARPS * RPW) {
+    const int r = r0 + lane / LPR;
+    const bool in = r < R;
+    const unsigned char* krow = kh + r * L.LDH;
+    for (int g = 0; g < G; ++g) {
+      const float* qg = qs + g * L.QLD;
       float s = 0.0f;
-      for (int d = 0; d < D; ++d) s = fmaf(qs[g * D + d], kf[t * D + d], s);
-      s = __fmul_rn(s, scale);
-      const int kpos = k0 + t;
-      bool valid = kpos <= p_last;
-      if (window > 0) valid = valid && (p_last - kpos) < window;
-      sc[i] = valid ? s : BIG_NEG;
-    }
-    __syncthreads();
-    for (int g = tid; g < G; g += THREADS) {
-      float mx = m[g];
-      for (int t = 0; t < ps; ++t) mx = fmaxf(mx, sc[g * ps + t]);
-      float sum = 0.0f;
-      for (int t = 0; t < ps; ++t) {
-        const int kpos = k0 + t;
-        bool valid = kpos <= p_last;
-        if (window > 0) valid = valid && (p_last - kpos) < window;
-        const float p = valid ? expf(sc[g * ps + t] - mx) : 0.0f;
-        sc[g * ps + t] = p;
-        sum = __fadd_rn(sum, p);
+      if (in) {
+        for (int c = lig; c < VPH; c += LPR) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(krow + c * 16);
+          const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+          const float* qv = qg + c * 12;
+          if ((c + 1) * 8 <= D) {
+            const float4 qa = *reinterpret_cast<const float4*>(qv);
+            const float4 qb4 = *reinterpret_cast<const float4*>(qv + 4);
+            s = fmaf(qa.x, bf16_lo(w[0]), s);
+            s = fmaf(qa.y, bf16_hi(w[0]), s);
+            s = fmaf(qa.z, bf16_lo(w[1]), s);
+            s = fmaf(qa.w, bf16_hi(w[1]), s);
+            s = fmaf(qb4.x, bf16_lo(w[2]), s);
+            s = fmaf(qb4.y, bf16_hi(w[2]), s);
+            s = fmaf(qb4.z, bf16_lo(w[3]), s);
+            s = fmaf(qb4.w, bf16_hi(w[3]), s);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              if (c * 8 + e < D)
+                s = fmaf(qv[e], (e & 1) ? bf16_hi(w[e >> 1]) : bf16_lo(w[e >> 1]), s);
+          }
+        }
       }
-      const float alpha = expf(m[g] - mx);
-      l[g] = __fadd_rn(__fmul_rn(l[g], alpha), sum);
-      al[g] = alpha;
-      m[g] = mx;
-    }
-    __syncthreads();
-    for (int i = tid; i < G * D; i += THREADS) {
-      const int g = i / D;
-      const int d = i - g * D;
-      float pv = 0.0f;
-      for (int t = 0; t < ps; ++t) pv = fmaf(sc[g * ps + t], vf[t * D + d], pv);
-      acc[i] = __fadd_rn(__fmul_rn(acc[i], al[g]), pv);
+#pragma unroll
+      for (int o = 1; o < LPR; o <<= 1) s = __fadd_rn(s, __shfl_xor_sync(FULL, s, o));
+      if (in && lig == 0)
+        sc[g * L.RS + r] = visible(j0 * ps + r, p_last, window) ? __fmul_rn(s, scale) : BIG_NEG;
     }
   }
   __syncthreads();
+
+  // running softmax, page by page, its pages in parallel: the running max at
+  // page jj is the max of the page maxima up to jj. One warp a (head, page),
+  // one lane a row.
+  for (int task = warp; task < G * npg; task += WARPS) {
+    const int g = task / npg;
+    const int jj = task - g * npg;
+    const float* sg = sc + g * L.RS + jj * ps;
+    float mx = BIG_NEG;
+    for (int t = lane; t < ps; t += 32) mx = fmaxf(mx, sg[t]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+    if (lane == 0) pmx[g * PPS + jj] = mx;
+  }
+  __syncthreads();
+  for (int task = warp; task < G * npg; task += WARPS) {
+    const int g = task / npg;
+    const int jj = task - g * npg;
+    float* sg = sc + g * L.RS + jj * ps;
+    float m = BIG_NEG;  // the running max before this page
+    for (int i = 0; i < jj; ++i) m = fmaxf(m, pmx[g * PPS + i]);
+    const float mx = fmaxf(m, pmx[g * PPS + jj]);
+    float sum = 0.0f;
+    for (int t = lane; t < ps; t += 32) {
+      const float p =
+          visible((j0 + jj) * ps + t, p_last, window) ? expf(__fsub_rn(sg[t], mx)) : 0.0f;
+      sg[t] = p;
+      sum = __fadd_rn(sum, p);
+    }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) sum = __fadd_rn(sum, __shfl_xor_sync(FULL, sum, o));
+    if (lane == 0) {
+      psum[g * PPS + jj] = sum;
+      al[g * PPS + jj] = expf(__fsub_rn(m, mx));
+    }
+  }
+  __syncthreads();
+
+  // l = l * alpha + sum p over the pages in order: the partial's (m, l)
+  float* pm = part + ((long long)bh * nsplit + split) * G * (D + 2);
+  for (int g = tid; g < G; g += THREADS) {
+    float m = BIG_NEG, l = 0.0f;
+    for (int jj = 0; jj < npg; ++jj) {
+      m = fmaxf(m, pmx[g * PPS + jj]);
+      l = __fadd_rn(__fmul_rn(l, al[g * PPS + jj]), psum[g * PPS + jj]);
+    }
+    pm[G * D + g] = m;
+    pm[G * D + G + g] = l;
+  }
+  // acc = acc * alpha + p . v, page by page; one thread a head and a pair of
+  // d (one bf16 word), each d its own FMA chain over the page's rows
+  const int DW = (D + 1) >> 1;
+  const int ldw = L.LDH / 4;
+  for (int i = tid; i < G * DW; i += THREADS) {
+    const int g = i / DW;
+    const int d = (i - g * DW) * 2;
+    const float* pr = sc + g * L.RS;
+    const uint32_t* vw = reinterpret_cast<const uint32_t*>(vh) + (d >> 1);
+    float acc0 = 0.0f, acc1 = 0.0f;
+    for (int jj = 0; jj < npg; ++jj) {
+      float pv0 = 0.0f, pv1 = 0.0f;
+#pragma unroll 4
+      for (int t = 0; t < ps; ++t) {
+        const int r = jj * ps + t;
+        const uint32_t w = vw[r * ldw];
+        const float p = pr[r];
+        pv0 = fmaf(p, bf16_lo(w), pv0);
+        pv1 = fmaf(p, bf16_hi(w), pv1);
+      }
+      const float a = al[g * PPS + jj];
+      acc0 = __fadd_rn(__fmul_rn(acc0, a), pv0);
+      acc1 = __fadd_rn(__fmul_rn(acc1, a), pv1);
+    }
+    pm[g * D + d] = acc0;
+    if (d + 1 < D) pm[g * D + d + 1] = acc1;
+  }
+}
+
+// One block per (slot, kv head): merge the partials of the splits that hold
+// a visible key, in split order.
+__global__ void __launch_bounds__(THREADS)
+paged_attn_merge_kernel(const float* __restrict__ part, const int* __restrict__ pos,
+                        float* __restrict__ out, int Hq, int Hkv, int D, int ps, int nb,
+                        int nsplit, int window) {
+  const int b = blockIdx.x / Hkv;
+  const int h = blockIdx.x - b * Hkv;
+  const int G = Hq / Hkv;
+  const Span vis = visible_pages(pos[b], window, ps, nb);
+  const int s0 = vis.lo <= vis.hi ? vis.lo / PPS : 0;
+  const int s1 = vis.lo <= vis.hi ? vis.hi / PPS : -1;
+  const long long stride = (long long)G * (D + 2);
+  const float* pb = part + (long long)blockIdx.x * nsplit * stride;
   float* ob = out + ((long long)b * Hq + (long long)h * G) * D;
-  for (int i = tid; i < G * D; i += THREADS) ob[i] = acc[i] / fmaxf(l[i / D], 1e-30f);
+  for (int i = threadIdx.x; i < G * D; i += THREADS) {
+    const int g = i / D;
+    float M = BIG_NEG;
+#pragma unroll 4
+    for (int s = s0; s <= s1; ++s) M = fmaxf(M, pb[s * stride + G * D + g]);
+    float l = 0.0f, acc = 0.0f;
+#pragma unroll 4
+    for (int s = s0; s <= s1; ++s) {
+      const float* p = pb + s * stride;
+      const float e = expf(__fsub_rn(p[G * D + g], M));
+      l = __fadd_rn(l, __fmul_rn(p[G * D + G + g], e));
+      acc = __fadd_rn(acc, __fmul_rn(p[i], e));
+    }
+    ob[i] = acc / fmaxf(l, 1e-30f);
+  }
+}
+
+template <int BITS, int VB>
+int launch(const void* q, const void* k, const void* ks, const void* v, const void* vs,
+           const void* pos, const void* bt, void* out, void* part, int B, int Hq, int Hkv,
+           int D, int ps, int nb, int window, float scale, cudaStream_t stream) {
+  const int G = Hq / Hkv;
+  const int nsplit = (nb + PPS - 1) / PPS;
+  if (nsplit > 0) {
+    const Smem L(BITS, D, G, ps);
+    static size_t opted = 48 * 1024;  // dynamic shared memory allowed so far
+    if (L.bytes > opted) {
+      cudaError_t e = cudaFuncSetAttribute(paged_attn_kernel<BITS, VB>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)L.bytes);
+      if (e != cudaSuccess) return (int)e;
+      opted = L.bytes;
+    }
+    paged_attn_kernel<BITS, VB><<<B * Hkv * nsplit, THREADS, L.bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const unsigned char*>(k),
+        static_cast<const float*>(ks), static_cast<const unsigned char*>(v),
+        static_cast<const float*>(vs), static_cast<const int*>(pos),
+        static_cast<const int*>(bt), static_cast<float*>(part), Hq, Hkv, D, ps, nb, nsplit,
+        window, scale);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  paged_attn_merge_kernel<<<B * Hkv, THREADS, 0, stream>>>(
+      static_cast<const float*>(part), static_cast<const int*>(pos), static_cast<float*>(out),
+      Hq, Hkv, D, ps, nb, nsplit, window);
+  return (int)cudaGetLastError();
 }
 
 template <int BITS>
-int launch(const void* q, const void* k, const void* ks, const void* v, const void* vs,
-           const void* pos, const void* bt, void* out, int B, int Hq, int Hkv, int D,
-           int ps, int nb, int window, float scale, cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  const size_t smem = sizeof(float) * (size_t)(2 * G * D + 2 * ps * D + G * ps + 3 * G);
-  cudaError_t e = cudaFuncSetAttribute(paged_attn_kernel<BITS>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  paged_attn_kernel<BITS><<<B * Hkv, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), k, static_cast<const float*>(ks), v,
-      static_cast<const float*>(vs), static_cast<const int*>(pos),
-      static_cast<const int*>(bt), static_cast<float*>(out), Hq, Hkv, D, ps, nb, window,
-      scale);
-  return (int)cudaGetLastError();
+int launch_vb(int vb, const void* q, const void* k, const void* ks, const void* v,
+              const void* vs, const void* pos, const void* bt, void* out, void* part, int B,
+              int Hq, int Hkv, int D, int ps, int nb, int window, float scale,
+              cudaStream_t s) {
+  switch (vb) {
+    case 16:
+      return launch<BITS, 16>(q, k, ks, v, vs, pos, bt, out, part, B, Hq, Hkv, D, ps, nb, window,
+                              scale, s);
+    case 8:
+      return launch<BITS, 8>(q, k, ks, v, vs, pos, bt, out, part, B, Hq, Hkv, D, ps, nb, window,
+                             scale, s);
+    case 4:
+      return launch<BITS, 4>(q, k, ks, v, vs, pos, bt, out, part, B, Hq, Hkv, D, ps, nb, window,
+                             scale, s);
+    case 1:
+      return launch<BITS, 1>(q, k, ks, v, vs, pos, bt, out, part, B, Hq, Hkv, D, ps, nb, window,
+                             scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // q (B, Hq, D) f32; k, v (P, ps, Hkv, D * bits / 8) int8, or bf16 when
 // bits == 16; ks, vs (P, ps, Hkv) f32 (ignored for bf16); pos (B,) int32;
-// bt (B, nb) int32; out (B, Hq, D) f32. window <= 0 means no window.
-// Returns cudaGetLastError() after the launch.
+// bt (B, nb) int32; out (B, Hq, D) f32; part f32 scratch of
+// B * Hkv * ceil(nb / PPS) * G * (D + 2) floats. window <= 0 means no
+// window. vb in {16, 8, 4, 1} is the staging copy's width: it must divide
+// the row's bytes and the alignment of k and v (the wrapper picks it).
+// Launches the split pass and the merge; returns cudaGetLastError() after
+// them, or cudaErrorInvalidValue for an argument it does not take.
 extern "C" int paged_attn_launch(const void* q, const void* k, const void* ks, const void* v,
                                  const void* vs, const void* pos, const void* bt, void* out,
-                                 int B, int Hq, int Hkv, int D, int ps, int nb, int bits,
-                                 int window, float scale, void* stream) {
+                                 void* part, int B, int Hq, int Hkv, int D, int ps, int nb,
+                                 int bits, int window, int vb, float scale, void* stream) {
+  if (B < 1 || Hkv < 1 || Hq % Hkv || D < 1 || ps < 1 || nb < 0 || vb < 1)
+    return (int)cudaErrorInvalidValue;
+  if ((D * (bits == 16 ? 16 : bits) / 8) % vb) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
     case 16:
-      return launch<16>(q, k, ks, v, vs, pos, bt, out, B, Hq, Hkv, D, ps, nb, window, scale, s);
+      return launch_vb<16>(vb, q, k, ks, v, vs, pos, bt, out, part, B, Hq, Hkv, D, ps, nb, window,
+                           scale, s);
     case 8:
-      return launch<8>(q, k, ks, v, vs, pos, bt, out, B, Hq, Hkv, D, ps, nb, window, scale, s);
+      return launch_vb<8>(vb, q, k, ks, v, vs, pos, bt, out, part, B, Hq, Hkv, D, ps, nb, window,
+                          scale, s);
     case 4:
-      return launch<4>(q, k, ks, v, vs, pos, bt, out, B, Hq, Hkv, D, ps, nb, window, scale, s);
+      return launch_vb<4>(vb, q, k, ks, v, vs, pos, bt, out, part, B, Hq, Hkv, D, ps, nb, window,
+                          scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -7,8 +7,12 @@ per-(token, head) scales, walking the slot's block-table row. Dequantization
 rounds through bf16 (``(int * scale) -> bf16 -> f32``) to match
 ``models.attention.kv_dequantize``; masked probabilities are exactly 0.0.
 The plain version mirrors the reference twin's page-blocked running softmax
-step for step; the kernel (``csrc/paged_attn.cu``) follows the same steps,
-so the two differ only in the order of the float sums inside a dot.
+step for step. The kernel (``csrc/paged_attn.cu``) splits the page walk
+into runs of ``PAGES_PER_SPLIT`` pages, each with the same page-blocked
+softmax from a fresh state, and merges the runs' partials in a fixed
+order; ``paged_attn_split_ref`` repeats that order on the CPU (only tests
+use it). Kernel and plain version differ by that merge and by the order of
+the float sums inside a dot.
 
 The MLA variant (``paged_mla_attn``, kernel ``csrc/paged_mla_attn.cu``)
 scores every head's absorbed query against the compressed latent pages
@@ -29,7 +33,13 @@ from repro_torch.kernels import build
 
 BIG_NEG = -2.0e9
 _BITS_CODE = {None: 16, 8: 8, 4: 4}
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
+#: pages a block of the kernel walks before its partial goes to the merge:
+#: the kernel's compile-time ``PPS`` (``csrc/paged_attn.cu``), mirrored here
+#: to size the scratch; fixed, never from B, the SM count or pos, so a
+#: slot's output depends on its own rows alone; 4 was fastest of 1, 2, 4, 8
+#: and 16 at internlm2's kv8 decode shapes on an H100 (PERF.md, row 2)
+PAGES_PER_SPLIT = 4
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
@@ -42,6 +52,35 @@ def _dequant(qv: torch.Tensor, sc: Optional[torch.Tensor], bits: Optional[int]) 
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def _softmax_page(state, q4, k, k_s, v, v_s, pages, kpos, pos, *, bits: Optional[int],
+                  window: Optional[int], scale: float):
+    """One page of the running softmax over rows ``kpos`` of pool pages
+    ``pages`` (one a slot): state (m, l, acc) -> the next."""
+    m, l, acc = state
+    dev = q4.device
+    kf = _dequant(k[pages], None if bits is None else k_s[pages], bits)
+    vf = _dequant(v[pages], None if bits is None else v_s[pages], bits)
+    s = torch.matmul(q4, kf.permute(0, 2, 3, 1)) * scale  # (B, Hkv, G, ps)
+    valid = kpos[None] <= pos[:, None]  # (B, ps)
+    if window is not None:
+        valid &= (pos[:, None] - kpos[None]) < window
+    vmask = valid[:, None, None, :]
+    s = torch.where(vmask, s, torch.tensor(BIG_NEG, dtype=torch.float32, device=dev))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.where(vmask, torch.exp(s - m_new[..., None]),
+                    torch.zeros((), dtype=torch.float32, device=dev))
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.matmul(p, vf.permute(0, 2, 1, 3))
+    return m_new, l, acc
+
+
+def _fresh_state(B: int, Hkv: int, G: int, D: int, dev):
+    return (torch.full((B, Hkv, G), BIG_NEG, dtype=torch.float32, device=dev),
+            torch.zeros((B, Hkv, G), dtype=torch.float32, device=dev),
+            torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=dev))
+
+
 def paged_attn_ref(q, k, k_s, v, v_s, pos, block_table, *,
                    bits: Optional[int], window: Optional[int] = None) -> torch.Tensor:
     """The same page-blocked running softmax as the kernel, vectorized over
@@ -49,42 +88,88 @@ def paged_attn_ref(q, k, k_s, v, v_s, pos, block_table, *,
     B, Hq, D = q.shape
     _, ps, Hkv, _ = k.shape
     G = Hq // Hkv
-    NB = block_table.shape[1]
-    scale = 1.0 / (D**0.5)
     q4 = q.reshape(B, Hkv, G, D).to(torch.float32)
     pos = pos.to(torch.int32).reshape(B)
     bt = block_table.long()
-    m = torch.full((B, Hkv, G), BIG_NEG, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, Hkv, G), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=q.device)
     ar = torch.arange(ps, dtype=torch.int32, device=q.device)
-    for j in range(NB):
-        pages = bt[:, j]
-        kf = _dequant(k[pages], None if bits is None else k_s[pages], bits)
-        vf = _dequant(v[pages], None if bits is None else v_s[pages], bits)
-        s = torch.matmul(q4, kf.permute(0, 2, 3, 1)) * scale  # (B, Hkv, G, ps)
-        kpos = j * ps + ar
-        valid = kpos[None] <= pos[:, None]  # (B, ps)
-        if window is not None:
-            valid &= (pos[:, None] - kpos[None]) < window
-        vmask = valid[:, None, None, :]
-        s = torch.where(vmask, s, torch.tensor(BIG_NEG, dtype=torch.float32, device=q.device))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.where(vmask, torch.exp(s - m_new[..., None]),
-                        torch.zeros((), dtype=torch.float32, device=q.device))
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.matmul(p, vf.permute(0, 2, 1, 3))
-        m = m_new
+    state = _fresh_state(B, Hkv, G, D, q.device)
+    for j in range(bt.shape[1]):
+        state = _softmax_page(state, q4, k, k_s, v, v_s, bt[:, j], j * ps + ar, pos, bits=bits,
+                              window=window, scale=1.0 / (D**0.5))
+    _, l, acc = state
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, Hq, D)
 
 
-def paged_attn_cuda(q, k, k_s, v, v_s, pos, block_table, *,
-                    bits: Optional[int], window: Optional[int] = None) -> torch.Tensor:
-    """Launch the CUDA kernel. q (B, Hq, D) f32; k/v (P, ps, Hkv, D/r) int8
-    (bf16 when ``bits`` is None); k_s/v_s (P, ps, Hkv) f32; pos (B,) int32;
-    block_table (B, NB) int32. Returns (B, Hq, D) f32."""
+def _visible_pages(pos, window, ps: int, NB: int):
+    """Per slot, the first and last page holding a visible key (the kernel's
+    test): keys 0..pos, with a window only keys past pos - window; empty
+    (lo > hi) when pos < 0."""
+    hi = torch.where(pos >= 0, torch.clamp(pos, min=0) // ps, -1).clamp(max=NB - 1)
+    lo = torch.zeros_like(pos)
+    if window is not None:
+        lo = torch.clamp(pos - window + 1, min=0) // ps
+    return lo, hi
+
+
+def paged_attn_split_ref(q, k, k_s, v, v_s, pos, block_table, *, bits: Optional[int],
+                         window: Optional[int] = None,
+                         pages_per_split: int = PAGES_PER_SPLIT,
+                         skip_empty: bool = True) -> torch.Tensor:
+    """The kernel's order of work: each run of ``pages_per_split`` pages
+    takes ``paged_attn_ref``'s page-blocked softmax from a fresh state to a
+    partial (m, l, acc); the partials of the runs holding a visible key
+    (every run when ``skip_empty`` is False) merge in run order, M = max m,
+    l = sum l * exp(m - M), acc = sum acc * exp(m - M), then acc / max(l,
+    1e-30). Returns (B, Hq, D) f32."""
+    B, Hq, D = q.shape
+    _, ps, Hkv, _ = k.shape
+    G = Hq // Hkv
+    NB = block_table.shape[1]
+    pps = pages_per_split
+    dev = q.device
+    q4 = q.reshape(B, Hkv, G, D).to(torch.float32)
+    pos = pos.to(torch.int32).reshape(B)
+    bt = block_table.long()
+    ar = torch.arange(ps, dtype=torch.int32, device=dev)
+    lo, hi = _visible_pages(pos, window, ps, NB)
+    parts = []
+    for s in range(-(-NB // pps)):
+        state = _fresh_state(B, Hkv, G, D, dev)
+        for j in range(s * pps, min(s * pps + pps, NB)):
+            state = _softmax_page(state, q4, k, k_s, v, v_s, bt[:, j], j * ps + ar, pos,
+                                  bits=bits, window=window, scale=1.0 / (D**0.5))
+        take = (torch.maximum(lo, torch.full_like(lo, s * pps))
+                <= torch.minimum(hi, torch.full_like(hi, s * pps + pps - 1)))
+        if not skip_empty:
+            take = torch.ones_like(take)
+        parts.append((take[:, None, None], *state))
+    M, l, acc = _fresh_state(B, Hkv, G, D, dev)
+    for take, m, _, _ in parts:
+        M = torch.where(take, torch.maximum(M, m), M)
+    for take, m, ls, accs in parts:
+        e = torch.exp(m - M)
+        l = torch.where(take, l + ls * e, l)
+        acc = torch.where(take[..., None], acc + accs * e[..., None], acc)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Hq, D)
+
+
+def _copy_width(row_bytes: int, *tensors) -> int:
+    """Widest staging copy (16, 8, 4 or 1 bytes) that divides a cache row and
+    the alignment of every pool: 16 on the serving path."""
+    for vb in (16, 8, 4):
+        if row_bytes % vb == 0 and all(t.data_ptr() % vb == 0 for t in tensors):
+            return vb
+    return 1
+
+
+def paged_attn_cuda(q, k, k_s, v, v_s, pos, block_table, *, bits: Optional[int],
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Launch the CUDA kernel (the split pass and the merge). q (B, Hq, D)
+    f32; k/v (P, ps, Hkv, D/r) int8 (bf16 when ``bits`` is None); k_s/v_s
+    (P, ps, Hkv) f32; pos (B,) int32; block_table (B, NB) int32. Returns
+    (B, Hq, D) f32."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_attn_cuda needs CUDA tensors, got {dev}")
@@ -110,13 +195,17 @@ def paged_attn_cuda(q, k, k_s, v, v_s, pos, block_table, *,
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
     if B == 0:
         return out
+    nsplit = -(-NB // PAGES_PER_SPLIT)
+    part = torch.empty(B * Hkv * nsplit * (Hq // Hkv) * (D + 2), dtype=torch.float32,
+                       device=dev)
+    vb = _copy_width(Dr * k.element_size(), k, v)
     fn = build.lib("paged_attn").paged_attn_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(),
              k_s.data_ptr() if bits is not None else None, v.data_ptr(),
              v_s.data_ptr() if bits is not None else None, pos.data_ptr(),
-             block_table.data_ptr(), out.data_ptr(), B, Hq, Hkv, D, ps, NB,
-             _BITS_CODE[bits], 0 if window is None else int(window),
+             block_table.data_ptr(), out.data_ptr(), part.data_ptr(), B, Hq, Hkv, D, ps, NB,
+             _BITS_CODE[bits], 0 if window is None else int(window), vb,
              1.0 / (D**0.5), build.stream_ptr(dev))
     build.check(err, "paged_attn_launch")
     build.LAUNCHES["paged_attn"] += 1

@@ -47,8 +47,10 @@ from repro_torch.core.policy import (  # noqa: E402
     get_policy,
 )
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.kernels import paged_attn as PA  # noqa: E402
 from repro_torch.kernels import qkv_decode as QD  # noqa: E402
 from repro_torch.kernels.flash import TOL as FLASH_TOL  # noqa: E402
+from repro_torch.kernels.paged_attn import PAGES_PER_SPLIT  # noqa: E402
 from repro_torch.kernels.ref import conv2d_ref, im2col  # noqa: E402
 from repro_torch.kernels.wdqmm import TOL as WDQMM_TOL  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
@@ -95,18 +97,129 @@ def test_mpmm_kernel_bit_exact_all_cells(dev, shape):
     assert build.LAUNCHES["mpmm"] > 0
 
 
-@pytest.mark.parametrize("bits", [None, 8, 4])
-@pytest.mark.parametrize("window", [None, 8])
-def test_paged_attn_kernel_vs_plain(dev, bits, window):
+#: paged_attn's card shapes (D, page size, G, pages a slot): every head dim,
+#: page size and group the kernel must take; the 40-page table gives the
+#: merge ten splits
+PAGED_SHAPES = [(16, 16, 2, 14), (64, 8, 1, 14), (80, 5, 8, 14), (128, 16, 2, 14),
+                (128, 4, 8, 14), (128, 16, 2, 40)]
+#: the dense slot layout (B 3, S 48, D 64, G 4) through its identity-table
+#: view at bs == ps == 16
+DENSE = "dense"
+WINDOWS = ["nowin", "split", "subpage"]
+
+
+def _paged_case(g, dev, bits, D, ps, G, Hkv=2, pos=None, nb=3 * PAGES_PER_SPLIT + 2):
+    """A shuffled pool of nb pages a slot (more than three splits, the last
+    partial); slots at 0, at each side of the first split boundary and at
+    the last row."""
+    if pos is None:
+        pos = [0, PAGES_PER_SPLIT * ps - 1, PAGES_PER_SPLIT * ps, nb * ps - 1]
+    B = len(pos)
+    P_ = B * nb + 1
+    q = torch.randn((B, G * Hkv, D), generator=g).to(dev)
+    kq, ks = A.kv_quantize(torch.randn((P_, ps, Hkv, D), generator=g).to(dev), bits)
+    vq, vs = A.kv_quantize(torch.randn((P_, ps, Hkv, D), generator=g).to(dev), bits)
+    bt = (torch.randperm(P_ - 1, generator=g)[: B * nb] + 1).reshape(B, nb).to(torch.int32)
+    return q, kq, ks, vq, vs, torch.tensor(pos, dtype=torch.int32, device=dev), bt.to(dev)
+
+
+def _dense_case(dev, bits):
+    """Dense (B, S, Hkv, D/r) stripes, slots at 0, 21 and S - 1."""
     g = torch.Generator().manual_seed(3)
-    B, S, HQ, HKV, D, ps = 3, 48, 8, 2, 64, 16
+    B, S, HQ, HKV, D = 3, 48, 8, 2, 64
     q = torch.randn((B, HQ, D), generator=g).to(dev)
     kq, ks = A.kv_quantize(torch.randn((B, S, HKV, D), generator=g).to(dev), bits)
     vq, vs = A.kv_quantize(torch.randn((B, S, HKV, D), generator=g).to(dev), bits)
     pos = torch.tensor([0, 21, S - 1], dtype=torch.int32, device=dev)
-    a = ops.paged_attn(q, kq, ks, vq, vs, pos, bits=bits, window=window, impl="cuda", bs=ps)
-    b = ops.paged_attn(q, kq, ks, vq, vs, pos, bits=bits, window=window, impl="torch", bs=ps)
+    return q, kq, ks, vq, vs, pos
+
+
+def _window(kind, ps):
+    """None; a window that crosses a split boundary for the slots at
+    PAGES_PER_SPLIT * ps and at the last row; or one shorter than a page,
+    so that it starts inside one."""
+    return {"nowin": None, "split": PAGES_PER_SPLIT * ps + 3, "subpage": ps // 2}[kind]
+
+
+@pytest.mark.parametrize("shape", PAGED_SHAPES + [DENSE],
+                         ids=lambda s: s if s == DENSE else "D{}_ps{}_G{}_nb{}".format(*s))
+@pytest.mark.parametrize("window_kind", WINDOWS)
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "kv8", "kv4"])
+def test_paged_attn_kernel_vs_plain(dev, bits, window_kind, shape):
+    """The split kernel against the plain version's page-blocked softmax
+    (and, on a pool, its split order ``paged_attn_split_ref``), atol = rtol
+    = 1e-5; D 80 at kv4 (40-byte rows) stages through the narrow path."""
+    if shape == DENSE:
+        ps = 16
+        args, kw = _dense_case(dev, bits), dict(bs=ps)
+    else:
+        D, ps, G, nb = shape
+        g = torch.Generator().manual_seed(D * 100 + ps * 10 + G + (bits or 0))
+        *args, bt = _paged_case(g, dev, bits, D, ps, G, nb=nb)
+        kw = dict(block_table=bt)
+        if (D, bits) == (80, 4):
+            assert PA._copy_width(args[1].shape[-1], args[1], args[3]) == 8
+    window = _window(window_kind, ps)
+    a = ops.paged_attn(*args, bits=bits, window=window, impl="cuda", **kw)
+    b = ops.paged_attn(*args, bits=bits, window=window, impl="torch", **kw)
+    assert torch.isfinite(a).all()
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    if shape != DENSE:
+        c = PA.paged_attn_split_ref(*args, bt, bits=bits, window=window)
+        torch.testing.assert_close(a, c, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "kv8", "kv4"])
+def test_paged_attn_calls_bit_identical(dev, bits):
+    """Two calls give the same bits (fixed splits, a fixed merge order, no
+    atomics); so do the narrow staging paths over a pool off 16-byte
+    alignment (8, 4 and 1 bytes)."""
+    g = torch.Generator().manual_seed(41)
+    q, kq, ks, vq, vs, pos, bt = _paged_case(g, dev, bits, 128, 16, 2)
+    call = lambda k, v: ops.paged_attn(q, k, ks, v, vs, pos, bits=bits,  # noqa: E731
+                                       block_table=bt, window=_window("split", 16), impl="cuda")
+    a = call(kq, vq)
+    assert torch.equal(a, call(kq, vq))
+    for off, vb in ((8, 8), (4, 4), (2, 1)):
+        shifted = [_offset(t, off) for t in (kq, vq)]
+        assert PA._copy_width(kq.shape[-1] * kq.element_size(), *shifted) == vb
+        assert torch.equal(a, call(*shifted)), (off, vb)
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "kv8", "kv4"])
+def test_paged_attn_slot_independent_of_batch(dev, bits):
+    """A slot's output is a function of its own rows: the same bits when the
+    other slots' pos change and when it is served alone or in a larger
+    batch."""
+    g = torch.Generator().manual_seed(43)
+    q, kq, ks, vq, vs, pos, bt = _paged_case(g, dev, bits, 128, 16, 2)
+    call = lambda q_, p_, b_: ops.paged_attn(q_, kq, ks, vq, vs, p_, bits=bits,  # noqa: E731
+                                             block_table=b_, impl="cuda")
+    a = call(q, pos, bt)
+    other = pos.clone()
+    other[0], other[2] = int(pos[3]) - 1, 5
+    assert torch.equal(a[[1, 3]], call(q, other, bt)[[1, 3]])
+    for b in range(len(pos)):
+        assert torch.equal(a[b:b + 1], call(q[b:b + 1], pos[b:b + 1], bt[b:b + 1])), b
+    big = call(q.repeat(3, 1, 1), pos.repeat(3), bt.repeat(3, 1))
+    assert torch.equal(big, a.repeat(3, 1, 1))
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "kv8", "kv4"])
+def test_paged_attn_slot_view_equals_pool(dev, bits):
+    """The dense slot layout through the identity-table view and the same
+    rows in a shuffled pool give the same bits at bs == ps."""
+    g = torch.Generator().manual_seed(47)
+    ps, nb = 16, 3 * PAGES_PER_SPLIT + 2
+    q, kq, ks, vq, vs, pos, bt = _paged_case(g, dev, bits, 128, ps, 2, nb=nb)
+    dense = lambda x: None if x is None else x[bt.long()].reshape(  # noqa: E731
+        len(pos), nb * ps, *x.shape[2:])
+    for window in (_window(kind, ps) for kind in WINDOWS):
+        a = ops.paged_attn(q, kq, ks, vq, vs, pos, bits=bits, block_table=bt, window=window,
+                           impl="cuda")
+        d = ops.paged_attn(q, dense(kq), dense(ks), dense(vq), dense(vs), pos, bits=bits,
+                           window=window, bs=ps, impl="cuda")
+        assert torch.equal(a, d)
 
 
 def _mla_inputs(g, dev, bits, C, dr, B=3, H=18, ps=16, nb=4):
@@ -118,6 +231,14 @@ def _mla_inputs(g, dev, bits, C, dr, B=3, H=18, ps=16, nb=4):
     bt = (torch.randperm(P_ - 1, generator=g)[: B * nb] + 1).reshape(B, nb).to(torch.int32)
     pos = torch.tensor([5, 37, nb * ps - 1], dtype=torch.int32, device=dev)
     return q_lat, q_rope, cq, cs, r, pos, bt.to(dev), dict(bits=bits, scale=1.0 / (C + dr) ** 0.5)
+
+
+def _offset(t, nbytes):
+    """The same values in a buffer ``nbytes`` past 16-byte alignment."""
+    flat = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8, device=t.device)
+    out = flat[nbytes: nbytes + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
 
 
 def _misaligned(t):
