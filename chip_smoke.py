@@ -100,13 +100,16 @@ Phases, in order (any failure ends the run with a nonzero exit):
      the greedy streams after the two prefills agree, and prefill_step's
      device time by kernel. Then flash_mha's time
      per prefill_step (24 calls at B 4, S 512, 16 / 8 heads, D 128) beside
-     its bound (q . k at the bf16 rate, P . V at the f32 rate), its plain
-     version and ``F.scaled_dot_product_attention``. Phase 2 holds flash_mha
-     against its plain version (ATTN_TOL, each call twice bit-identical) on
-     the reference test's shapes, internlm2's full shape in bf16 and f32,
-     ragged Sq != Sk both ways, strided operands and a window whose last
-     row sees one key; a window that leaves rows with no key is refused by
-     both;
+     its bound (q . k at the bf16 rate, P . V as three bf16 products at the
+     bf16 rate), its plain version and ``F.scaled_dot_product_attention``.
+     Phase 2 holds flash_mha against its plain version (ATTN_TOL, each call
+     twice bit-identical) on the reference test's shapes in f32 and bf16,
+     internlm2's full shape in bf16 and f32 and in bf16 at the model's
+     sizes, ragged Sq != Sk both ways, strided operands, a window whose last
+     row sees one key and operands off 16-byte boundaries (the 4-byte
+     staging path, bit-identical to the 16-byte one); a window that leaves
+     rows with no key is refused by both; the bf16 kernel's SASS holds
+     tensor-core instructions;
  12. decode attention over a dense quantized cache (run right after phase
      11): ``prefill_step`` writes phase 11's four prompts into a fresh kv8
      dense cache, one fused greedy decode step records each layer's query,
@@ -646,44 +649,87 @@ def check_paged_copy(torch, dev, cfg, mcfg, report):
         f"{PAGE_SIZE}; disjoint, overlapping and self-copies; host and device ids)")
 
 
-def flash_case(torch, g, dev, B, Sq, Sk, Hq, Hkv, D, dtype, layout="bshd"):
-    """Random q, k, v in the model's (B, S, H, D) layout; ``layout="bhsd"``
-    gives the same shapes as transposed views of (B, H, S, D) storage (the
-    Pallas kernel's layout), which the kernel reads through its strides."""
-    def one(S, H):
+def flash_case(torch, g, dev, B, Sq, Sk, Hq, Hkv, D, dtype, layout="bshd", scales=(1, 1, 1),
+               offset=0):
+    """Random q, k, v in the model's (B, S, H, D) layout, each drawn from
+    N(0, 1) times its entry of ``scales``; ``layout="bhsd"`` gives the same
+    shapes as transposed views of (B, H, S, D) storage (the Pallas kernel's
+    layout), which the kernel reads through its strides; ``offset`` bytes
+    past a 16-byte boundary puts every operand's rows there (the kernel's
+    4-byte staging path)."""
+    def one(S, H, x):
         if layout == "bhsd":
-            return torch.randn((B, H, S, D), generator=g, device=dev).to(dtype).transpose(1, 2)
-        return torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+            t = torch.randn((B, H, S, D), generator=g, device=dev).mul(x).to(dtype)
+            return t.transpose(1, 2)
+        t = torch.randn((B, S, H, D), generator=g, device=dev).mul(x).to(dtype)
+        if offset:
+            flat = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8, device=dev)
+            nb = t.numel() * t.element_size()
+            t = flat[offset:offset + nb].view(dtype).view(t.shape).copy_(t)
+        return t
 
-    return one(Sq, Hq), one(Sk, Hkv), one(Sk, Hkv)
+    return one(Sq, Hq, scales[0]), one(Sk, Hkv, scales[1]), one(Sk, Hkv, scales[2])
+
+
+def sass_counts(lib, marker):
+    """Per kernel function of a built library whose name holds ``marker``,
+    the count of tensor-core (HMMA) and f32 FMA (FFMA) instructions in its
+    SASS (``cuobjdump -sass``)."""
+    from repro_torch.kernels import build
+
+    tool = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, fn = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            fn = name if marker in name else None
+            if fn:
+                counts[fn] = {"HMMA": 0, "FFMA": 0}
+        elif fn:
+            for op in ("HMMA", "FFMA"):
+                counts[fn][op] += f" {op}." in line or f" {op} " in line
+    return counts
 
 
 def check_flash_mha(torch, dev, cfg, report):
     """flash_mha against its plain version on the card within ATTN_TOL
     (atol = rtol), each call twice bit-identical: the reference test's
     shapes (tests/test_ssm_attn.py: B 2, S 35, D 16; GQA 1 and 2; causal,
-    full, window 10; f32), internlm2's full shape (B 4, S 512, 16 / 8 heads,
-    D 128, causal; bf16 as the model passes it, and f32), a ragged Sq != Sk,
-    operands read through (B, H, S, D) strides and a window whose last row
-    sees one key (Sq = Sk + window - 1). Both refuse a window that leaves a
-    row with no key (Sq 300, Sk 100, window 50)."""
-    from repro_torch.kernels import ops
+    full, window 10; f32, and bf16 causal and windowed), internlm2's full
+    shape (B 4, S 512, 16 / 8 heads, D 128, causal; bf16 as the model passes
+    it, and f32; bf16 also at the model's sizes: scores up to ~20, |v| up to
+    ~14), a ragged Sq != Sk, operands read through (B, H, S, D) strides, a
+    window whose last row sees one key (Sq = Sk + window - 1), and bf16
+    operands 4 bytes past a 16-byte boundary (the 4-byte staging path; also
+    bit-identical to the 16-byte path on the same values). Both refuse a
+    window that leaves a row with no key (Sq 300, Sk 100, window 50). The
+    bf16 kernel's SASS must hold tensor-core (HMMA) instructions, the f32
+    kernel's none."""
+    from repro_torch.kernels import build, ops
 
     g = torch.Generator(device=dev).manual_seed(SEED + 12)
     Hq, Hkv, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [((2, 35, 35, 2 * gqa, 2, 16, f32, "bshd"), causal, window)
+    model = dict(scales=(2.0, 2.0, 2.8))  # scores up to ~20, |v| up to ~14
+    cases = [((2, 35, 35, 2 * gqa, 2, 16, f32, "bshd"), causal, window, {})
              for gqa, causal, window in ((1, True, None), (2, True, None), (1, False, None),
                                          (1, True, 10))]
-    cases += [((N_SLOTS, 512, 512, Hq, Hkv, D, bf16, "bshd"), True, None),
-              ((N_SLOTS, 512, 512, Hq, Hkv, D, f32, "bshd"), True, None),
-              ((2, 100, 300, Hq, Hkv, D, bf16, "bshd"), True, None),
-              ((2, 300, 100, Hq, Hkv, D, bf16, "bshd"), True, None),
-              ((2, 200, 200, Hq, Hkv, D, bf16, "bhsd"), True, 70),
-              ((2, 300, 100, Hq, Hkv, D, bf16, "bshd"), True, 201)]
+    cases += [((N_SLOTS, 512, 512, Hq, Hkv, D, bf16, "bshd"), True, None, {}),
+              ((N_SLOTS, 512, 512, Hq, Hkv, D, f32, "bshd"), True, None, {}),
+              ((2, 100, 300, Hq, Hkv, D, bf16, "bshd"), True, None, {}),
+              ((2, 300, 100, Hq, Hkv, D, bf16, "bshd"), True, None, {}),
+              ((2, 200, 200, Hq, Hkv, D, bf16, "bhsd"), True, 70, {}),
+              ((2, 300, 100, Hq, Hkv, D, bf16, "bshd"), True, 201, {}),
+              ((2, 35, 35, 4, 2, 16, bf16, "bshd"), True, None, {}),
+              ((2, 130, 130, 4, 2, 16, bf16, "bhsd"), True, 10, {}),
+              ((N_SLOTS, 512, 512, Hq, Hkv, D, bf16, "bshd"), True, None, model),
+              ((2, 150, 150, Hq, Hkv, D, bf16, "bshd"), True, 70, dict(offset=4)),
+              ((2, 130, 130, 4, 2, 16, bf16, "bshd"), True, 10, dict(offset=4))]
     worst = 0.0
-    for (B, Sq, Sk, hq, hkv, d, dtype, layout), causal, window in cases:
-        q, k, v = flash_case(torch, g, dev, B, Sq, Sk, hq, hkv, d, dtype, layout)
+    for (B, Sq, Sk, hq, hkv, d, dtype, layout), causal, window, extra in cases:
+        q, k, v = flash_case(torch, g, dev, B, Sq, Sk, hq, hkv, d, dtype, layout, **extra)
         kw = dict(causal=causal, window=window)
         a = ops.flash_mha(q, k, v, impl="cuda", **kw)
         again = ops.flash_mha(q, k, v, impl="cuda", **kw)
@@ -691,13 +737,22 @@ def check_flash_mha(torch, dev, cfg, report):
         torch.cuda.synchronize()
         err = (a - b).abs()
         name = (f"flash_mha B={B} Sq={Sq} Sk={Sk} {hq}/{hkv} heads D={d} {str(dtype)[6:]} "
-                f"{layout} causal={causal} window={window}")
+                f"{layout} causal={causal} window={window}"
+                + "".join(f" {key}={val}" for key, val in extra.items()))
         if not torch.equal(a, again):
             raise AssertionError(f"{name}: two calls differ")
+        if extra.get("offset"):
+            if q.data_ptr() % 16 == 0:
+                raise AssertionError(f"{name}: operands on a 16-byte boundary")
+            wide = ops.flash_mha(*(t.clone() for t in (q, k, v)), impl="cuda", **kw)
+            if not torch.equal(a, wide):
+                raise AssertionError(f"{name}: the 4-byte and 16-byte staging paths differ")
         if not torch.isfinite(a).all() or bool((err > ATTN_TOL * (1 + b.abs())).any()):
             raise AssertionError(f"{name}: max |kernel - plain| {float(err.max())} above "
                                  f"{ATTN_TOL} (atol = rtol)")
-        log(f"{name}: max |kernel - plain| = {float(err.max()):.3e}, twice bit-identical")
+        share = float((err / (ATTN_TOL * (1 + b.abs()))).max())
+        log(f"{name}: max |kernel - plain| = {float(err.max()):.3e} ({share:.4f} of the "
+            f"tolerance), twice bit-identical")
         worst = max(worst, float(err.max()))
     q, k, v = flash_case(torch, g, dev, 2, 300, 100, Hq, Hkv, D, bf16)
     for impl in ("cuda", "torch"):
@@ -708,6 +763,12 @@ def check_flash_mha(torch, dev, cfg, report):
         else:
             raise AssertionError(f"flash_mha impl={impl} took rows that see no key")
     report["flash_mha"] = {"max_abs_err": worst, "tol": ATTN_TOL, "checks": len(cases) + 2}
+    lib = build.library_path("flash_mha")
+    for fn, c in sass_counts(lib, "flash_mha").items():
+        log(f"  sass[{fn}]: {c['HMMA']} HMMA, {c['FFMA']} FFMA")
+        if ("f32_kernel" in fn) == (c["HMMA"] > 0):
+            raise AssertionError(f"{fn}: {c['HMMA']} tensor-core instructions; the bf16 "
+                                 f"kernel must have some, the f32 kernel none")
 
 
 def qkv_case(torch, g, dev, B, S, Hq, Hkv, D, bits):
@@ -1470,16 +1531,18 @@ def flash_step_row(torch, dev, cfg) -> dict:
     del lib_in
     nbytes = L * (B * S * Hq * D * 2 + 2 * B * S * Hkv * D * 2 + B * S * Hq * D * 4)
     # q . k multiplies bf16 by bf16 and sums in f32, which a bf16 tensor-core
-    # product does; P . V multiplies f32 probabilities, which only f32 does
+    # product does; P . V multiplies f32 probabilities by bf16 values, which
+    # three bf16 tensor-core products do at f32 precision (each p split
+    # exactly into bf16 hi + mid + lo, every product exact, the sums in f32)
     half = L * 2 * B * Hq * D * (S * (S + 1) // 2)
-    work = [(half, BF16_FLOPS_PER_S), (half, F32_FLOPS_PER_S)]
+    work = [(half, BF16_FLOPS_PER_S), (3 * half, BF16_FLOPS_PER_S)]
     log(f"  flash_mha, one prefill_step ({L} calls, causal, B={B}, S={S}, {Hq}/{Hkv} heads, "
         f"D={D}, bf16 in, f32 out; operands L2-cold): {t:.4f} ms device ({how}), {tw:.3f} ms "
         f"wall; plain {tp:.3f} ms device, {tpw:.3f} ms wall; F.scaled_dot_product_attention "
         f"(f32, is_causal, kv heads repeated) {tl:.4f} ms device, {tlw:.3f} ms wall; max |SDPA "
         f"- kernel| = {worst:.3e}; {half / 1e9:.1f} GFLOP q . k at bf16 "
-        f"({half / BF16_FLOPS_PER_S * 1e3:.4f} ms) + {half / 1e9:.1f} GFLOP P . V at f32 "
-        f"({half / F32_FLOPS_PER_S * 1e3:.4f} ms), {nbytes / 1e6:.0f} MB "
+        f"({half / BF16_FLOPS_PER_S * 1e3:.4f} ms) + 3 x {half / 1e9:.1f} GFLOP P . V at bf16 "
+        f"({3 * half / BF16_FLOPS_PER_S * 1e3:.4f} ms), {nbytes / 1e6:.0f} MB "
         f"({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     return dict(name="flash_mha", route="cuda", source="src/repro_torch/csrc/flash_mha.cu",
                 replaces="src/repro/kernels/flash.py:79", ms=t, plain_ms=tp, bytes=nbytes,

@@ -125,6 +125,11 @@ def lib(name: str) -> ctypes.CDLL:
     return ensure_built()[name]
 
 
+def library_path(name: str) -> pathlib.Path:
+    """Where source ``name``'s shared library is built (for inspection)."""
+    return build_root() / _digest() / f"lib{name}.so"
+
+
 def check_tensor(t, name: str, dtype, device, shape=None) -> None:
     """Validate a tensor before its pointer goes to a kernel."""
     if t.device != device:

@@ -7,9 +7,11 @@ replaces ``flash_mha_pallas``; its plain PyTorch version is
 :func:`repro_torch.kernels.ref.flash_mha_ref`. Both take the model's
 ``(B, S, H, D)`` layout (the Pallas kernel's ``(B, H, S, D)`` transposed)
 and return ``(B, Sq, Hq, D)`` f32. Both follow the same running softmax
-over kv tiles; only the order of the f32 sums differs (tiles of 64 keys in
-the kernel, chunks of 512 in the plain version), so they agree within
-:data:`TOL`. The kernel gives the same bits on every call.
+over kv tiles and round the scores alike (one f32 FMA chain over d); only
+the order of the other f32 sums differs (tiles of 64 keys in the kernel,
+chunks of 512 in the plain version; on bf16 operands the kernel's P . V
+sums each p, split exactly into three bf16 parts, on the tensor cores), so
+they agree within :data:`TOL`. The kernel gives the same bits on every call.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ TOL = 1e-5
 HEAD_DIMS = (16, 128)
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-             + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def flash_mha_cuda(
@@ -71,13 +73,17 @@ def flash_mha_cuda(
     out = torch.empty((B, Sq, Hq, D), dtype=torch.float32, device=dev)
     if B == 0 or Sq == 0 or Hq == 0:
         return out
+    # bf16 tiles stage with 16-byte copies where every row starts on a
+    # 16-byte boundary (the model's rows do), else with 4-byte ones
+    vec = all(t.data_ptr() % 16 == 0 and all(t.stride(i) * t.element_size() % 16 == 0
+                                             for i in range(3)) for t in (q, k, v))
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v) for i in (0, 1, 2)))
     fn = build.lib("flash_mha").flash_mha_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
              ctypes.cast(strides, ctypes.c_void_p), int(causal),
              0 if window is None else int(window), 1.0 / (D**0.5),
-             int(q.dtype == torch.float32), build.stream_ptr(dev))
+             int(q.dtype == torch.float32), int(vec), build.stream_ptr(dev))
     build.check(err, "flash_mha_launch")
     build.LAUNCHES["flash_mha"] += 1
     return out

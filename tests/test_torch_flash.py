@@ -38,7 +38,7 @@ from repro_torch import configs as tconfigs  # noqa: E402
 from repro_torch.core.policy import get_policy as tget_policy  # noqa: E402
 from repro_torch.kernels import dispatch, ops  # noqa: E402
 from repro_torch.kernels.flash import TOL  # noqa: E402
-from repro_torch.kernels.ref import flash_mha_ref  # noqa: E402
+from repro_torch.kernels.ref import BIG_NEG, flash_mha_ref  # noqa: E402
 from repro_torch.models import attention as TA  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 
@@ -123,6 +123,140 @@ def test_flash_mha_refuses_rows_that_see_no_key(Sq, Sk, causal, window):
         flash_mha_ref(q, k, v, causal=causal, window=window)
     with pytest.raises(ValueError, match="see no key"):
         ops.flash_mha(q, k, v, causal=causal, window=window)
+
+
+# ------------------------------------------- (a2) the bf16 kernel's arithmetic
+
+
+def _kernel_emulation(q, k, v, *, causal=True, window=None, parts=3):
+    """The CUDA kernel's arithmetic on bf16 operands, in torch on the CPU:
+    the scores as the plain version rounds them (one f32 FMA chain over d,
+    then * scale), a running softmax over tiles of 64 keys, and P . V per
+    tile as the kernel's tensor-core products take it: each f32 p split
+    into bf16 hi = bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid)
+    (``parts=2`` keeps mid and hi), every product with the bf16 v formed in
+    f32 (exact), summed per 16 keys and added to the tile's f32 accumulator
+    in the fixed order lo, mid, hi; then acc = acc * alpha + pv. Returns
+    the output (B, Sq, Hq, D) and the largest |pv - exact| / (2^-20 * sum p
+    |v|) over every tile's accumulator (exact: the same p and v in f64)."""
+    B, Sq, Hq, D = q.shape
+    Sk, G = k.shape[1], Hq // k.shape[2]
+    kr, vr = (t.float().repeat_interleave(G, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * (1.0 / D**0.5)
+    qpos, kpos = torch.arange(Sq)[:, None], torch.arange(Sk)[None]
+    valid = torch.ones(Sq, Sk, dtype=torch.bool)
+    if causal:
+        valid &= kpos <= qpos
+    if window is not None:
+        valid &= qpos - kpos < window
+    s = torch.where(valid, s, torch.tensor(BIG_NEG))
+    vt = vr.transpose(1, 2)
+    m = torch.full((B, Hq, Sq), BIG_NEG)
+    l = torch.zeros(B, Hq, Sq)
+    acc = torch.zeros(B, Hq, Sq, D)
+    worst = 0.0
+    for k0 in range(0, Sk, 64):
+        st, vj = s[..., k0:k0 + 64], vt[:, :, k0:k0 + 64]
+        mx = torch.maximum(m, st.amax(-1))
+        p = torch.exp(st - mx[..., None])
+        alpha = torch.exp(m - mx)
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        mid = (p - hi).bfloat16().float()
+        lo = (p - hi - mid).bfloat16().float()
+        pv = torch.zeros_like(acc)
+        for c0 in range(0, st.shape[-1], 16):
+            for x in ((lo, mid, hi) if parts == 3 else (mid, hi)):
+                pv = pv + x[..., c0:c0 + 16] @ vj[..., c0:c0 + 16, :]
+        exact = p.double() @ vj.double()
+        bound = 2.0**-20 * (p.double() @ vj.double().abs())
+        seen = bound > 0
+        worst = max(worst, float(((pv.double() - exact).abs()[seen] / bound[seen]).max()))
+        acc = acc * alpha[..., None] + pv
+        m = mx
+    return (acc / l.clamp(min=1e-30)[..., None]).transpose(1, 2), worst
+
+
+def _model_scale(seed, B, S, Hq, Hkv, D=128):
+    """bf16 q, k and v at the sizes internlm2's own layers give flash_mha
+    at full width: scores up to about +-20, |v| up to about 14."""
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(B, S, h, D).astype(np.float32) * x).to(torch.bfloat16)
+            for h, x in ((Hq, 2.0), (Hkv, 2.0), (Hkv, 2.8))]
+
+
+def _over_tol(a, b):
+    """The largest |a - b| / (TOL * (1 + |b|)): at most 1 within atol = rtol = TOL."""
+    return float(((a.double() - b.double()).abs() / (TOL * (1 + b.double().abs()))).max())
+
+
+@pytest.mark.parametrize("causal,window,gqa,Sq,Sk", [
+    (True, None, 1, 35, 35), (True, None, 2, 35, 35), (False, None, 1, 35, 35),
+    (True, 10, 1, 35, 35), (True, None, 2, 20, 47), (True, 11, 1, 40, 30),
+    (False, 11, 1, 40, 30),
+], ids=["causal", "gqa2", "full", "window10", "ragged", "window_edge", "full_window_edge"])
+def test_kernel_pv_split_matches_plain_reduced(causal, window, gqa, Sq, Sk):
+    """The kernel's P . V arithmetic (three bf16 parts a probability) on
+    bf16 operands at the reference test's widths: within TOL of
+    ``flash_mha_ref``, and every tile's accumulator within 2^-20 * sum p|v|
+    of the exact sum."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(7, 2, Sq, Sk, 2, gqa, 16))
+    want = flash_mha_ref(q, k, v, causal=causal, window=window)
+    got, worst = _kernel_emulation(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    assert worst <= 1.0
+
+
+def test_kernel_pv_split_at_model_scale():
+    """At the model's scale (B 2, S 512, 8 / 4 heads, D 128, scores up to
+    ~20, |v| up to ~14) three parts keep the output within TOL of the plain
+    version and each tile's accumulator within 2^-20 * sum p|v| of the
+    exact sum. Two parts (hi and mid) drop up to 2^-16 of each term: the
+    accumulators pass that bound and the output parts from the plain
+    version by more than TOL. Hence three."""
+    q, k, v = _model_scale(0, 2, 512, 8, 4)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float().repeat_interleave(2, dim=2))
+    assert 18 < float(s.abs().max()) / 128**0.5 < 24 and 12 < float(v.float().abs().max()) < 16
+    want = flash_mha_ref(q, k, v, causal=True)
+    got, worst = _kernel_emulation(q, k, v)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=TOL)
+    assert worst <= 1.0
+    got2, worst2 = _kernel_emulation(q, k, v, parts=2)
+    assert worst2 > 1.0 and _over_tol(got2, want) > 1.0
+
+
+def test_scores_must_round_as_the_plain_version_does():
+    """Why the kernel's q . k is an f32 FMA chain over d and not a bf16
+    tensor-core product. The plain version's einsum is that chain, bit for
+    bit. At the model's scale (internlm2's full shape, 4 x 512, 16 / 8
+    heads), with the softmax and P . V exact (f64) on top: the chain's
+    scores stay within a third of TOL of the plain version; scores summed
+    16 products at a time and rounded to f32 once a step (what an m16n8k16
+    product at best does, its sums rounded to nearest) part from it by more
+    than TOL: an ulp of a score at |s| ~ 20 moves an output by about TOL."""
+    q, k, v = _model_scale(1, 4, 512, 16, 8)
+    B, S, Hq, D = q.shape
+    kr = k.double().repeat_interleave(2, dim=2)
+    chain = torch.zeros(1, 2, S, S)
+    for d in range(D):  # f32 FMA chain: the f64 product is exact, one rounding a step
+        chain = (chain.double() + q[:1, :, :2, d].double().transpose(1, 2)[..., None]
+                 * kr[:1, :, :2, d].transpose(1, 2)[..., None, :]).float()
+    plain_s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float())
+    assert torch.equal(plain_s[:1, :2], chain)
+    tiled = torch.zeros(B, Hq, S, S)
+    for d0 in range(0, D, 16):
+        tiled = (tiled.double() + torch.einsum("bqhd,bkhd->bhqk", q[..., d0:d0 + 16].double(),
+                                               kr[..., d0:d0 + 16])).float()
+    causal = torch.arange(S)[None] <= torch.arange(S)[:, None]
+
+    def attend(scores):  # exact softmax and P . V over f32 scores
+        s = torch.where(causal, (scores * (1.0 / D**0.5)).double(), float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1),
+                            v.double().repeat_interleave(2, dim=2))
+
+    want = flash_mha_ref(q, k, v, causal=True)
+    assert _over_tol(attend(plain_s), want) < 1 / 3
+    assert _over_tol(attend(tiled), want) > 1.0
 
 
 # ------------------------------------------------ (b) the attention function

@@ -749,7 +749,9 @@ def test_weight_only_engine_on_cuda_matches_cpu(dev, policy_name):
 #: (B, Sq, Sk, Hq, Hkv, D, dtype, layout, causal, window): the reference
 #: test's shapes, internlm2's full shape, ragged Sq != Sk both ways, operands
 #: read through (B, H, S, D) strides, a window without causality, GQA 2
-#: over two q tiles, windows whose last row sees one key (Sq = Sk + window - 1)
+#: over two q tiles, windows whose last row sees one key (Sq = Sk + window - 1);
+#: then bf16 at D 16 (the tensor-core P . V of the reduced configs), causal,
+#: windowed over three q tiles, and windowed without causality
 FLASH_CASES = [
     (2, 35, 35, 2, 2, 16, torch.float32, "bshd", True, None),
     (2, 35, 35, 4, 2, 16, torch.float32, "bshd", True, None),
@@ -763,6 +765,9 @@ FLASH_CASES = [
     (3, 65, 65, 6, 3, 128, torch.bfloat16, "bshd", True, None),
     (2, 300, 100, 16, 8, 128, torch.bfloat16, "bshd", True, 201),
     (1, 60, 30, 4, 1, 16, torch.float32, "bshd", False, 31),
+    (2, 35, 35, 4, 2, 16, torch.bfloat16, "bshd", True, None),
+    (2, 130, 130, 2, 1, 16, torch.bfloat16, "bhsd", True, 10),
+    (1, 60, 30, 4, 1, 16, torch.bfloat16, "bshd", False, 31),
 ]
 
 
@@ -790,6 +795,50 @@ def test_flash_mha_kernel_vs_plain(dev, case):
     assert build.LAUNCHES["flash_mha"] - n0 == 2
     assert a.dtype == torch.float32 and a.shape == q.shape and a.is_contiguous()
     assert torch.equal(a, again)
+    torch.testing.assert_close(a, b, atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+def test_flash_mha_bf16_at_model_scale(dev):
+    """internlm2's full shape at the model's sizes (q and k scaled so that
+    scores reach about +-20, v to about 14, as its own layers give them):
+    within FLASH_TOL of the plain version, twice bit-identical. The kernel
+    rounds the scores as the plain version does (one f32 FMA chain over d)
+    and splits each probability exactly into three bf16 parts for P . V."""
+    g = torch.Generator().manual_seed(22)
+    B, S, Hq, Hkv, D = 4, 512, 16, 8, 128
+    q, k, v = (torch.randn(shape, generator=g).mul(x).to(torch.bfloat16).to(dev)
+               for shape, x in (((B, S, Hq, D), 2.0), ((B, S, Hkv, D), 2.0),
+                                ((B, S, Hkv, D), 2.8)))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float().repeat_interleave(2, dim=2))
+    assert float(s.abs().max()) / D**0.5 > 15 and float(v.float().abs().max()) > 12
+    # the plain version's scores on the card are the CPU's (one FMA chain over
+    # d, tests/test_torch_flash.py), which the kernel's score loop repeats
+    qc, kc = q[:1].cpu().float(), k[:1].cpu().float().repeat_interleave(2, dim=2)
+    assert torch.equal(s[:1].cpu(), torch.einsum("bqhd,bkhd->bhqk", qc, kc))
+    a = ops.flash_mha(q, k, v, causal=True, impl="cuda")
+    again = ops.flash_mha(q, k, v, causal=True, impl="cuda")
+    b = ops.flash_mha(q, k, v, causal=True, impl="torch")
+    assert torch.equal(a, again)
+    torch.testing.assert_close(a, b, atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v", "qkv"])
+@pytest.mark.parametrize("D", [16, 128])
+def test_flash_mha_bf16_narrow_rows(dev, which, D):
+    """Operands whose rows start 4 bytes past a 16-byte boundary take the
+    kernel's 4-byte staging path: within FLASH_TOL of the plain version,
+    twice bit-identical, and bit-identical to the 16-byte path on the same
+    values (both stage the same bytes)."""
+    g = torch.Generator().manual_seed(D)
+    Hq, Hkv = (16, 8) if D == 128 else (4, 2)
+    q, k, v = _flash_operands(g, dev, 2, 150, 150, Hq, Hkv, D, torch.bfloat16, "bshd")
+    wide = ops.flash_mha(q, k, v, causal=True, window=70, impl="cuda")
+    q2, k2, v2 = (_offset(t, 4) if name in which else t for name, t in zip("qkv", (q, k, v)))
+    assert any(t.data_ptr() % 16 == 4 for t in (q2, k2, v2))
+    a = ops.flash_mha(q2, k2, v2, causal=True, window=70, impl="cuda")
+    again = ops.flash_mha(q2, k2, v2, causal=True, window=70, impl="cuda")
+    b = ops.flash_mha(q2, k2, v2, causal=True, window=70, impl="torch")
+    assert torch.equal(a, again) and torch.equal(a, wide)
     torch.testing.assert_close(a, b, atol=FLASH_TOL, rtol=FLASH_TOL)
 
 
