@@ -33,8 +33,9 @@ Phases, in order (any failure ends the run with a nonzero exit):
      path from the same cache (largest logit difference, argmax agreement);
   7. each kernel's time beside its bound and its plain version's time (per
      decode step for the serving kernels; per call at the paper's shape for
-     conv2d, also at 224 x 224, and qntpack; wdqmm's and flash_mha's rows
-     are timed at the end of phases 10 and 11, after their paths ran);
+     conv2d, also at 224 x 224, and qntpack; wdqmm's row, and flash_mha's
+     and mpmm's prefill_step rows, are timed at the end of phases 10 and
+     11, after their paths ran);
      paged_attn per step at kv8 (the row), kv4 and on the bf16 cell; kv8
      and the bf16 cell each beside ``F.scaled_dot_product_attention`` in
      f32 over their K/V dequantized ahead of time (kv8 the row's library
@@ -101,8 +102,11 @@ Phases, in order (any failure ends the run with a nonzero exit):
      device time by kernel. Then flash_mha's time
      per prefill_step (24 calls at B 4, S 512, 16 / 8 heads, D 128) beside
      its bound (q . k at the bf16 rate, P . V as three bf16 products at the
-     bf16 rate), its plain version and ``F.scaled_dot_product_attention``.
-     Phase 2 holds flash_mha against its plain version (ATTN_TOL, each call
+     bf16 rate), its plain version and ``F.scaled_dot_product_attention``;
+     and mpmm's time per prefill_step (169 calls at M = 2048; prefill_step
+     must launch it once a projection) beside its bound (int8 operations),
+     its plain version and ``torch._int_mm`` over the weights unpacked to
+     int8 ahead of time. Phase 2 holds flash_mha against its plain version (ATTN_TOL, each call
      twice bit-identical) on the reference test's shapes in f32 and bf16,
      internlm2's full shape in bf16 and f32 and in bf16 at the model's
      sizes, ragged Sq != Sk both ways, strided operands, a window whose last
@@ -150,7 +154,9 @@ and its decode steps and once for forward; phase 13 once for its slot and
 paged runs and once for its prefix run) and read the counts at their end;
 the kernels line gives each kernel the count of its own path (paged_copy:
 phase 9's prefix run; wdqmm: phase 10's slot and paged runs; flash_mha:
-phase 11's prefill_step; qkv_decode: phase 12).
+phase 11's prefill_step; qkv_decode: phase 12). mpmm has two rows, told
+apart by their "at": per decode step (phase 3's launches) and per
+prefill_step (phase 11's prefill_step launches).
 
 The line before the last is the kernels JSON, the last line the result
 JSON.
@@ -262,10 +268,15 @@ def mla_mm_shapes(mcfg):
 
 
 def check_mpmm(torch, dev, cfg, report):
+    """mpmm against its plain version, bit-exact: all 27 cells x 3 output
+    kinds x signedness at three ragged shapes (the decode tiles, K % 16 != 0,
+    the prefill tiles), the main path's cell at its shapes at M = 4, 16 and
+    2048; every built mpmm kernel's SASS holds tensor-core (IMMA)
+    instructions."""
     from repro_torch.core import pack as P
     from repro_torch.core import quant as Q
     from repro_torch.core.policy import PERMUTATIONS
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
 
     g = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -277,8 +288,10 @@ def check_mpmm(torch, dev, cfg, report):
 
     worst = 0
     n = 0
-    # all cells x kinds x signedness at a small ragged shape, and at K % 16 != 0
-    for (M, N, K) in ((37, 40, 96), (3, 24, 44)):
+    # all cells x kinds x signedness at a small ragged shape, at K % 16 != 0,
+    # and at a ragged shape of the prefill tiles (M > 16; a partial second
+    # row tile, a partial column tile, a partial K stage staged by bytes)
+    for (M, N, K) in ((37, 40, 96), (3, 24, 44), (150, 72, 200)):
         for xb, wb, yb in PERMUTATIONS:
             if K % (8 // xb) or K % (8 // wb):
                 continue
@@ -297,8 +310,9 @@ def check_mpmm(torch, dev, cfg, report):
                         raise AssertionError(f"mpmm mismatch cell {(xb, wb, yb)} {kind} "
                                              f"signed={signed} shape {(M, N, K)}")
                     n += 1
-    # the main path's cell (8, 4, 8), signed, f32 out, at its shapes
-    for M in (4, 16):
+    # the main path's cell (8, 4, 8), signed, f32 out, at its shapes: a
+    # decode step, a prefill chunk and a whole-prompt prefill_step
+    for M in (4, 16, N_SLOTS * PREFILL_LEN):
         for N, K, _ in main_path_mm_shapes(cfg):
             x_p, w_p = operands(M, N, K, 8, 4)
             kw = dict(x_bits=8, w_bits=4, y_bits=8, x_signed=True, out_kind="f32",
@@ -310,26 +324,40 @@ def check_mpmm(torch, dev, cfg, report):
             if not torch.equal(a, b):
                 raise AssertionError(f"mpmm mismatch at main-path shape M={M} N={N} K={K}")
             n += 1
+            del a, b
     report["mpmm"] = {"max_abs_err": worst, "checks": n}
-    log(f"mpmm: {n} comparisons bit-exact (27 cells x 3 kinds x signedness; main-path shapes)")
+    log(f"mpmm: {n} comparisons bit-exact (27 cells x 3 kinds x signedness at (37, 40, 96), "
+        f"(3, 24, 44) and (150, 72, 200); main-path shapes at M = 4, 16 and "
+        f"{N_SLOTS * PREFILL_LEN})")
+    imma = {fn: c["IMMA"] for fn, c in sass_counts(build.library_path("mpmm"),
+                                                    "mpmm_kernel").items()}
+    log(f"  sass: {len(imma)} mpmm kernels, {min(imma.values())}-{max(imma.values())} IMMA each")
+    if not imma or min(imma.values()) == 0:
+        raise AssertionError(f"mpmm kernels without tensor-core (IMMA) instructions: {imma}")
 
 
 def check_wdqmm(torch, dev, cfg, mcfg, report):
     """wdqmm against its plain version (bf16 activations) at w 8, 4 and 2:
     the main-path (N, K) of internlm2 and of DeepSeek-V3's MLA-dense layers,
-    heads included, at M = 4 and 16, and a ragged shape on the scalar path;
-    within WDQMM_TOL * sum_k |x w| of the plain version, and the same call
-    twice bit-identical."""
+    heads included, at M = 4 and 16, internlm2's five projections at M =
+    2048 (the prefill tiles), and a ragged shape (one partial chunk, byte
+    staging); within WDQMM_TOL * sum_k |x w| of the plain version, the same
+    call twice bit-identical, and each M = 2048 call's first four rows
+    bit-identical to an M = 4 call on them. The largest error over sum |x w|
+    is printed per K (up to DeepSeek-V3's 18432). The bf16 kernels' SASS
+    holds tensor-core (HMMA) instructions, the f32 kernels' none."""
     from repro_torch.core import pack as P
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels.wdqmm import TOL
 
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     eps = torch.tensor(3.7e-3, device=dev)
     shapes = [(N, K) for N, K, _ in main_path_mm_shapes(cfg)]
-    shapes += mla_mm_shapes(mcfg)  # wq_b's K 1536 ends in a partial staging chunk
+    shapes += mla_mm_shapes(mcfg)  # wq_b's K 1536 ends in a partial stage
     cases = [(M, N, K) for M in (N_SLOTS, 16) for N, K in shapes] + [(5, 37, 44)]
+    cases += [(N_SLOTS * PREFILL_LEN, N, K) for N, K in shapes[:5]]
     worst = ratio = 0.0
+    by_k: dict = {}
     n = 0
     for wb in (8, 4, 2):
         for M, N, K in cases:
@@ -344,18 +372,36 @@ def check_wdqmm(torch, dev, cfg, mcfg, report):
             err = (a - b).abs()
             if not torch.equal(a, again):
                 raise AssertionError(f"wdqmm w={wb} {(M, N, K)}: two calls differ")
+            if M > 16 and not torch.equal(
+                    a[:N_SLOTS], ops.wdqmm(x[:N_SLOTS], w_p, eps, w_bits=wb, impl="cuda")):
+                raise AssertionError(f"wdqmm w={wb} {(M, N, K)}: rows differ from an M = "
+                                     f"{N_SLOTS} call on them")
             if not torch.isfinite(a).all() or bool((err > TOL * scale).any()):
                 raise AssertionError(f"wdqmm w={wb} {(M, N, K)}: |kernel - plain| "
                                      f"{float(err.max())} above {TOL} * sum |x w|")
-            worst = max(worst, float(err.max()))
-            ratio = max(ratio, float((err / scale.clamp_min(1e-30)).max()))
+            r = float((err / scale.clamp_min(1e-30)).max())
+            worst, ratio = max(worst, float(err.max())), max(ratio, r)
+            by_k[K] = max(by_k.get(K, 0.0), r)
             n += 1
-            del scale
+            del a, again, b, scale, err
     report["wdqmm"] = {"max_abs_err": worst, "tol": TOL, "max_err_ratio": ratio, "checks": n}
     log(f"wdqmm: {n} comparisons within {TOL:.3g} * sum |x w| of the plain version (largest "
         f"|kernel - plain| {worst:.3e}, at most {ratio:.3e} * sum |x w|), each call twice "
-        f"bit-identical (w 8/4/2; internlm2 and DeepSeek-V3 main-path shapes and heads, "
-        f"M = 4 and 16; ragged (5, 37, 44))")
+        f"bit-identical, rows at M = {N_SLOTS * PREFILL_LEN} identical to M = {N_SLOTS} (w "
+        f"8/4/2; internlm2 and DeepSeek-V3 main-path shapes and heads, M = 4 and 16; "
+        f"internlm2's five at M = {N_SLOTS * PREFILL_LEN}; ragged (5, 37, 44))")
+    log("  max_err_ratio by K (|kernel - plain| / sum |x w|, in units of TOL): " + ", ".join(
+        f"K {k}: {v / TOL:.4f}" for k, v in sorted(by_k.items())))
+    sass = sass_counts(build.library_path("wdqmm"), "wdqmm")
+    for kind, mark in (("bf16 (tensor-core)", True), ("f32 (CUDA-core)", False)):
+        got = {fn: c for fn, c in sass.items() if ("mma_kernel" in fn) == mark}
+        hmma = [c["HMMA"] for c in got.values()]
+        log(f"  sass: {len(got)} {kind} wdqmm kernels, {min(hmma)}-{max(hmma)} HMMA, "
+            f"{min(c['FFMA'] for c in got.values())}-{max(c['FFMA'] for c in got.values())} "
+            f"FFMA each")
+        if not got or (min(hmma) > 0) != mark or (max(hmma) > 0) != mark:
+            raise AssertionError(f"wdqmm {kind} kernels: HMMA counts {hmma}; the bf16 kernels "
+                                 f"must have some, the f32 kernels none")
 
 
 def make_pool(torch, g, dev, P_, ps, hkv, d, bits):
@@ -673,8 +719,8 @@ def flash_case(torch, g, dev, B, Sq, Sk, Hq, Hkv, D, dtype, layout="bshd", scale
 
 def sass_counts(lib, marker):
     """Per kernel function of a built library whose name holds ``marker``,
-    the count of tensor-core (HMMA) and f32 FMA (FFMA) instructions in its
-    SASS (``cuobjdump -sass``)."""
+    the count of tensor-core (HMMA: bf16 / f16, IMMA: int8) and f32 FMA
+    (FFMA) instructions in its SASS (``cuobjdump -sass``)."""
     from repro_torch.kernels import build
 
     tool = pathlib.Path(build.nvcc_path()).with_name("cuobjdump")
@@ -686,9 +732,9 @@ def sass_counts(lib, marker):
             name = line.split("Function :", 1)[1].strip()
             fn = name if marker in name else None
             if fn:
-                counts[fn] = {"HMMA": 0, "FFMA": 0}
+                counts[fn] = {"HMMA": 0, "IMMA": 0, "FFMA": 0}
         elif fn:
-            for op in ("HMMA", "FFMA"):
+            for op in ("HMMA", "IMMA", "FFMA"):
                 counts[fn][op] += f" {op}." in line or f" {op} " in line
     return counts
 
@@ -1132,7 +1178,13 @@ def kernel_table(torch, dev, cfg, params, launches, report):
     nbytes = sum(B * p["w_packed"].shape[1] * 2 + p["w_packed"].numel()
                  + B * p["w_packed"].shape[0] * 4 + 4 for p in lin)
     nops = sum(2 * B * p["w_packed"].shape[0] * p["w_packed"].shape[1] * 2 for p in lin)
-    rows.append(dict(name="mpmm", route="cuda", source="src/repro_torch/csrc/mpmm.cu",
+    try:
+        torch._int_mm(torch.zeros((B, 64), dtype=torch.int8, device=dev),
+                      torch.zeros((8, 64), dtype=torch.int8, device=dev).t())
+    except RuntimeError as e:
+        log(f"  mpmm decode library yardstick: torch._int_mm refuses M = {B} ({e}); none")
+    rows.append(dict(name="mpmm", at=f"decode step, M = {B}", route="cuda",
+                     source="src/repro_torch/csrc/mpmm.cu",
                      replaces="src/repro/kernels/mpmm.py:122", ms=t, plain_ms=tp,
                      bytes=nbytes, work=[(nops, INT8_OPS_PER_S)], library_ms=None))
 
@@ -1349,13 +1401,14 @@ def kernel_row(r, launches, report) -> dict:
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": r["library_ms"],
+        **({"at": r["at"]} if "at" in r else {}),
     }
 
 
 #: device kernels the step breakdown names (everything else is PyTorch's)
-KERNEL_NAMES = ("mpmm_kernel", "wdqmm_kernel", "paged_mla_attn_kernel", "paged_attn_kernel",
-                "paged_attn_merge_kernel", "flash_mha_kernel", "paged_scatter_kernel",
-                "paged_gather_kernel", "qkv_decode_kernel")
+KERNEL_NAMES = ("mpmm_kernel", "wdqmm_mma_kernel", "wdqmm_kernel", "paged_mla_attn_kernel",
+                "paged_attn_kernel", "paged_attn_merge_kernel", "flash_mha_kernel",
+                "paged_scatter_kernel", "paged_gather_kernel", "qkv_decode_kernel")
 
 
 def step_breakdown(torch, dev, cfg, policy, params):
@@ -1440,7 +1493,7 @@ def wdqmm_step_row(torch, dev, cfg, params) -> dict:
             x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
             one, _, _ = device_ms(lambda: [ops.wdqmm(x, p["w_packed"], p["eps_w"], w_bits=4,
                                                      impl="cuda") for _ in range(CALLS)],
-                                  names=("wdqmm_kernel",))
+                                  names=("wdqmm_mma_kernel",))
             log(f"  wdqmm w4 M={M} N={N} K={K}: {one / CALLS * 1e3:.1f} us device per call "
                 f"({CALLS} back to back, weights L2-warm; bound "
                 f"{(N * K / 2) / HBM_BYTES_PER_S * 1e6:.2f} us), x{calls} per decode step")
@@ -1549,6 +1602,49 @@ def flash_step_row(torch, dev, cfg) -> dict:
                 work=work, library_ms=tl)
 
 
+def mpmm_prefill_row(torch, dev, cfg, params) -> dict:
+    """mpmm per prefill_step of N_SLOTS x PREFILL_LEN tokens: the 169
+    projections at M = 2048 (cell (8, 4, 8), signed 8-bit activations, f32
+    out) over every layer's own packed weights, beside its bound (the int8
+    operations at 1979 TOP/s against the bytes: weights, activations and the
+    f32 outputs), its plain version and one ``torch._int_mm`` a projection
+    (int8 x int8 -> int32) over the weights unpacked to int8 ahead of time."""
+    from repro_torch.core import pack as P
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    M, lin = N_SLOTS * PREFILL_LEN, linears(params)
+
+    def K_of(p):
+        return p["w_packed"].shape[1] * 2
+
+    xs = {K: torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.int8) for K in {K_of(p) for p in lin}}
+    kw = dict(x_bits=8, w_bits=4, y_bits=8, x_signed=True, out_kind="f32")
+
+    def step(impl):
+        return lambda: [ops.mpmm(xs[K_of(p)], p["w_packed"], None, out_scale=p["eps_w"],
+                                 impl=impl, **kw) for p in lin]
+
+    t, tw, how = device_ms(step("cuda"), reps=3, names=("mpmm_kernel",))
+    tp, tpw, _ = device_ms(step("torch"), reps=2, warmup=1)
+    ints = [P.unpack(p["w_packed"], 4, signed=True).to(torch.int8).t() for p in lin]
+    tl, tlw, _ = device_ms(lambda: [torch._int_mm(xs[w.shape[0]], w) for w in ints], reps=3)
+    del ints
+    nops = sum(2 * M * p["w_packed"].shape[0] * K_of(p) for p in lin)
+    nbytes = sum(p["w_packed"].numel() + M * K_of(p) + 4 * M * p["w_packed"].shape[0] + 4
+                 for p in lin)
+    log(f"  mpmm, one prefill_step ({len(lin)} calls, M={M}, cell (8, 4, 8), f32 out): "
+        f"{t:.3f} ms device ({how}), {tw:.3f} ms wall; plain {tp:.3f} ms device, {tpw:.3f} ms "
+        f"wall; torch._int_mm over the weights unpacked to int8 ahead of time {tl:.3f} ms "
+        f"device, {tlw:.3f} ms wall; {nops / 1e12:.3f} T int8 operations "
+        f"({nops / INT8_OPS_PER_S * 1e3:.4f} ms), {nbytes / 1e9:.3f} GB "
+        f"({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); {nops / (t * 1e-3) / 1e12:.1f} TOP/s")
+    return dict(name="mpmm", at=f"prefill_step, M = {M}", route="cuda",
+                source="src/repro_torch/csrc/mpmm.cu", replaces="src/repro/kernels/mpmm.py:122",
+                ms=t, plain_ms=tp, bytes=nbytes, work=[(nops, INT8_OPS_PER_S)], library_ms=tl)
+
+
 def whole_prompts(torch, dev, cfg):
     """Phase 11's four prompts of PREFILL_LEN tokens, drawn from SEED."""
     import numpy as np
@@ -1586,7 +1682,8 @@ def whole_prompt_path(torch, dev, cfg, policy, params, report) -> tuple[dict, di
     wall time of both prefills beside chunked prefill of the same prompts
     (ChunkedPrefill, chunks of 16), how far the greedy streams agree, and
     prefill_step's breakdown (device busy, time by kernel).
-    Returns (flash_mha's raw kernel row, its launches on the prefill path)."""
+    Returns (the raw kernel rows of flash_mha and of mpmm per prefill_step,
+    their launches in prefill_step)."""
     from repro_torch.kernels import build
     from repro_torch.models import model as M
     from repro_torch.serve.cache import SlotCache
@@ -1607,6 +1704,7 @@ def whole_prompt_path(torch, dev, cfg, policy, params, report) -> tuple[dict, di
     logits, caches = prefill()
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
+    step_launches = dict(build.LAUNCHES)  # prefill_step's own launches
     streams = greedy_decode(torch, dev, cfg, policy, params, caches, logits)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)  # the whole-prompt prefill path ends here
@@ -1675,7 +1773,11 @@ def whole_prompt_path(torch, dev, cfg, policy, params, report) -> tuple[dict, di
     del cache, pre, lasts, caches
     profile_breakdown(torch, lambda: prefill()[0], f"prefill_step breakdown ({cfg.name}, "
                       f"{policy.name}, {L} layers, {N_SLOTS} x {PREFILL_LEN} tokens)", reps=2)
-    return flash_step_row(torch, dev, cfg), {"flash_mha": launches["flash_mha"]}
+    if step_launches.get("mpmm", 0) != len(linears(params)):
+        raise AssertionError(f"prefill_step launched mpmm {step_launches.get('mpmm', 0)} times, "
+                             f"want {len(linears(params))} (one a projection)")
+    return ([flash_step_row(torch, dev, cfg), mpmm_prefill_row(torch, dev, cfg, params)],
+            {"flash_mha": launches["flash_mha"], "mpmm": step_launches["mpmm"]})
 
 
 def dense_cache_path(torch, dev, cfg, policy, params, report) -> tuple[dict, dict]:
@@ -2104,7 +2206,10 @@ def main() -> int:
     log(f"gpu: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build.ensure_built()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.BUILD_SECONDS:.1f} s)")
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.BUILD_SECONDS:.1f} s, in "
+        f"parallel; each source: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in sorted(build.SOURCE_SECONDS.items(),
+                                                key=lambda kv: -kv[1])) + ")")
     for name, text in build.build_logs().items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line.lower():
@@ -2170,8 +2275,10 @@ def main() -> int:
     rows = kernel_table(torch, dev, cfg, params, launches, report)
     wo_row, wo_launches = weight_only_path(torch, dev, cfg, params, report)
     rows.insert(1, kernel_row(wo_row, wo_launches, report))
-    flash_row, flash_launches = whole_prompt_path(torch, dev, cfg, policy, params, report)
-    rows.insert(3, kernel_row(flash_row, flash_launches, report))
+    (flash_row, mm_row), prefill_launches = whole_prompt_path(torch, dev, cfg, policy, params,
+                                                               report)
+    rows.insert(1, kernel_row(mm_row, prefill_launches, report))
+    rows.insert(4, kernel_row(flash_row, prefill_launches, report))
     qkv_row, qkv_launches = dense_cache_path(torch, dev, cfg, policy, params, report)
     sampled_path(torch, dev, cfg, policy, params, out_slot)
     del params

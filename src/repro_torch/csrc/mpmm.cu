@@ -5,225 +5,331 @@
 // bit-width cells: x_bits and w_bits are template parameters, y_bits and the
 // output kind (f32 = acc * scale, int32, or packed with the fused requant) are
 // runtime arguments. The kernel masks its own ragged M/N/K edges, so callers
-// pass unpadded operands.
+// pass unpadded operands, and takes every shape and alignment.
 //
 // Arithmetic (bit-exact with kernels/ref.py::mpmm_ref):
-//   * operands are unpacked to s8 (little-endian in-byte fields, weights
-//     sign-extended), 8-bit unsigned ifmaps are offset-folded (x - 128, then
-//     +128 * sum_k w[n, k]) and signed ifmaps are stored offset-binary, so the
-//     stored field minus 2^(b-1) is already the value;
-//   * products accumulate in int32 with __dp4a (4-way s8 dot, the counterpart
-//     of PULP-NN's sumdotp). Integer sums are exact in any order;
+//   * products of the integer operands accumulate in int32 on the tensor
+//     cores, mma.sync m16n8k32 (s8 x s8, or u8 x s8 for unsigned 8-bit
+//     ifmaps, which therefore need no offset fold); integer sums are exact
+//     in any order, so tiles, splits and paths are free to follow the shape;
+//   * fields are unpacked on chip from the little-endian in-byte layout of
+//     core/pack.py: weights sign-extended as quant.cuh's field_s does,
+//     unsigned ifmaps zero-extended, signed ifmaps (offset-binary) minus
+//     2^(b-1), all as s8 bytes in the order of k;
 //   * f32 output is __fmul_rn((float)acc, scale): no FMA contraction;
 //   * packed output is shift-and-clamp (8-bit) or the threshold ladder (4/2-bit)
 //     on the int32 accumulator, then the little-endian in-byte pack, with
-//     the device code of quant.cuh that conv2d.cu and qntpack.cu share.
+//     the device code of quant.cuh that conv2d.cu and qntpack.cu share, from
+//     the block's int32 tile in shared memory, one output byte a thread.
 //
-// Bound on this card: at decode (M = 4..16) the kernel is bound by the bytes
-// of packed weights it reads once (K * N * w_bits / 8); the int8 work is tiny
-// against the H100's int8 rate. Design for that: every weight byte is read
-// once, as 16 values per lane per step (16/8/4 bytes), while the small
-// activation tile is unpacked once per block into shared memory and reused by
-// all columns of the block. Each warp owns 4 adjacent output columns (so a
-// packed output byte is formed inside one warp) and a 16-row M tile. This is
-// the simple first version: no tensor cores (mma/wgmma), no TMA, no split-K.
+// Bound on this card: at decode (M = 4..16) the bytes of packed weights, read
+// once (K * N * w_bits / 8); at prefill (M = 2048) the int8 operations
+// (2 M N K at 1979 TOP/s). Design (the shared skeleton of mma_pipe.cuh): a
+// block stages its tile of both operands, SK values of K at a time, through a
+// ring of cp.async stages in shared memory, the next stages in flight while
+// the current one is multiplied. A lane takes 32 consecutive k of a row (4
+// k32 steps; the MMA's k slots follow k within them), reads them as one or
+// two 16-byte loads and unpacks them in registers. Two regimes, picked by the
+// launcher from M:
+//   * M <= 16: one m16 row tile (rows past M are zeros; at M <= 4
+//     only 4 activation rows are staged), a narrow column tile (16 columns
+//     below N = 8192, so that even the 1 MB projections make 64 blocks; 32
+//     above), and the block's 8 or 4 warps split each stage's K, their int32
+//     partials added in shared memory at the end; every weight byte is read
+//     once per call;
+//   * M > 16: 128 x 128 block tiles, 8 warps of 64 x 32, one 128-value K group
+//     a stage: each weight tile in shared memory serves 128 rows.
+// No TMA and no wgmma: the ring is filled by each thread's cp.async.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_pipe.cuh"
 #include "quant.cuh"
 
 namespace {
 
-constexpr int WARPS = 4;                 // warps per block
-constexpr int CPW = 4;                   // output columns per warp
-constexpr int MT = 16;                   // M rows per block
-constexpr int KC = 2048;                 // K values staged per shared-memory chunk
-constexpr int THREADS = WARPS * 32;
-constexpr int COLS = WARPS * CPW;        // output columns per block
+using mma_pipe::stride;
 
-// Four BITS-wide fields in the low bits of f -> four sign-extended s8 bytes.
+constexpr int GROUP = 128;  // K values a warp takes from a stage (4 k32 steps)
+
+template <int XB, int WB, class T>
+struct Cfg {
+  static_assert(T::CPW == 1, "a warp takes one K group a stage");
+  static constexpr int SK = GROUP * T::WK;  // K values a stage
+  static constexpr int XROW = SK * XB / 8;
+  static constexpr int WROW = SK * WB / 8;
+  static constexpr int XS = stride(XROW, 4 * XB);  // a lane reads 32 values: 4 * bits bytes
+  static constexpr int WS = stride(WROW, 4 * WB);
+  static constexpr int STAGE = T::AR * XS + T::BN * WS;
+  static constexpr int CT = T::BN + 8;  // the output tile's row stride (ints)
+  static constexpr int SMEM = T::STAGES * STAGE > T::BM * CT * 4 ? T::STAGES * STAGE
+                                                                  : T::BM * CT * 4;
+  static_assert(SMEM <= mma_pipe::MAX_SMEM, "the tile does not fit in shared memory");
+};
+
+__device__ __forceinline__ uint32_t rep(uint32_t b) { return b * 0x01010101u; }
+
+// A lane's 32 values of a row: BITS 32-bit words of packed fields -> 8 words
+// of 4 bytes, values 4q..4q+3 in word q, fields zero-extended.
 template <int BITS>
-__device__ __forceinline__ uint32_t expand4(uint32_t f) {
+__device__ __forceinline__ void load32(const uint8_t* p, uint32_t (&o)[8]) {
   if constexpr (BITS == 8) {
-    return f;
-  } else {
-    uint32_t r = 0;
+    const uint4 a = *reinterpret_cast<const uint4*>(p);
+    const uint4 b = *reinterpret_cast<const uint4*>(p + 16);
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+  } else if constexpr (BITS == 4) {
+    const uint4 a = *reinterpret_cast<const uint4*>(p);
+    const uint32_t v[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      int v = (int)((f >> (i * BITS)) & ((1u << BITS) - 1u));
-      v = (v ^ (1 << (BITS - 1))) - (1 << (BITS - 1));
-      r |= ((uint32_t)v & 0xFFu) << (8 * i);
-    }
-    return r;
-  }
-}
-
-// 16 consecutive packed signed values at p (aligned to 2 * BITS bytes) ->
-// four words of four s8 each, value order preserved.
-template <int BITS>
-__device__ __forceinline__ void load16(const int8_t* p, uint32_t w[4]) {
-  if constexpr (BITS == 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  } else if constexpr (BITS == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    w[0] = expand4<4>(v.x & 0xFFFFu);
-    w[1] = expand4<4>(v.x >> 16);
-    w[2] = expand4<4>(v.y & 0xFFFFu);
-    w[3] = expand4<4>(v.y >> 16);
-  } else {
-    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) w[j] = expand4<2>((v >> (8 * j)) & 0xFFu);
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t w = __byte_perm(v[i], 0u, h ? 0x3322 : 0x1100);
+        o[2 * i + h] = (w & 0x000F000Fu) | ((w >> 4) & 0x0F000F00u);
+      }
+    }
+  } else {
+    const uint2 a = *reinterpret_cast<const uint2*>(p);
+    const uint32_t v[2] = {a.x, a.y};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const uint32_t w = __byte_perm(v[i], 0u, 0x1111 * b);
+        o[4 * i + b] = (w & 0x3u) | ((w >> 2) & 0x300u) | ((w >> 4) & 0x30000u) |
+                       ((w >> 6) & 0x3000000u);
+      }
+    }
   }
 }
 
-template <int XB, int WB>
-__global__ void __launch_bounds__(THREADS)
-mpmm_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+// Offset-binary fields (stored v + 2^(BITS-1)) -> s8 bytes of v: per byte,
+// u + (128 - 2^(BITS-1)) stays below 256, and flipping bit 7 subtracts 128.
+template <int BITS>
+__device__ __forceinline__ uint32_t offset_s8(uint32_t u) {
+  return (u + rep(0x80u - (1u << (BITS - 1)))) ^ 0x80808080u;
+}
+
+// Two's-complement fields -> s8 bytes (quant.cuh field_s): flipping a
+// field's top bit makes it offset-binary.
+template <int BITS>
+__device__ __forceinline__ uint32_t twos_s8(uint32_t u) {
+  if constexpr (BITS == 8) {
+    return u;
+  } else {
+    return offset_s8<BITS>(u ^ rep(1u << (BITS - 1)));
+  }
+}
+
+template <int XB, int WB, bool XU8, class T>
+__global__ void __launch_bounds__(T::THREADS)
+mpmm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
             const int* __restrict__ rqv, const float* __restrict__ scale,
-            void* __restrict__ out, int M, int N, int K, int y_bits,
-            int x_signed, int out_kind, int vec) {
-  __shared__ __align__(16) int8_t xs[MT * KC];
+            void* __restrict__ out, int M, int N, int K, int y_bits, int x_signed,
+            int out_kind, int vec_x, int vec_w) {
+  using C = Cfg<XB, WB, T>;
+  constexpr int MT = T::MT, NT = T::NT, WK = T::WK, STAGES = T::STAGES;
+  extern __shared__ __align__(16) uint8_t smem[];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * COLS + warp * CPW;
-  const int m0 = blockIdx.y * MT;
-  const int mt = min(MT, M - m0);
-  const long long Kx = K / (8 / XB);  // packed bytes per x row
-  const long long Kw = K / (8 / WB);  // packed bytes per w row
-  const int off = (x_signed || XB == 8) ? (1 << (XB - 1)) : 0;
-  const bool comp = (XB == 8) && !x_signed;  // u8 offset fold
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wk = warp % WK;
+  const int wn = (warp / WK) % T::WN;
+  const int wm = warp / (WK * T::WN);
+  const int m0 = blockIdx.y * T::BM;
+  const int n0 = blockIdx.x * T::BN;
+  const long long xpitch = (long long)K * XB / 8;
+  const long long wpitch = (long long)K * WB / 8;
+  const int nst = (K + C::SK - 1) / C::SK;
 
-  int acc[CPW][MT];
-  int wsum[CPW];
+  auto load = [&](int st) {
+    uint8_t* s = smem + (st % STAGES) * C::STAGE;
+    mma_pipe::stage_rows<T::AR, C::XROW, T::THREADS>(s, C::XS, x, xpitch, M, m0,
+                                                     (long long)st * C::XROW, vec_x);
+    mma_pipe::stage_rows<T::BN, C::WROW, T::THREADS>(s + T::AR * C::XS, C::WS, w, wpitch, N,
+                                                     n0, (long long)st * C::WROW, vec_w);
+  };
 #pragma unroll
-  for (int c = 0; c < CPW; ++c) {
-    wsum[c] = 0;
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[c][m] = 0;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nst) load(s);
+    mma_pipe::cp_commit();
   }
 
-  for (int kc0 = 0; kc0 < K; kc0 += KC) {
-    const int kc = min(KC, K - kc0);
-    const int kcp = (kc + 15) & ~15;  // staged width, zero-padded to 16
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = threadIdx.x; i < mt * kcp; i += THREADS) {
-      const int m = i / kcp;
-      const int k = i - m * kcp;
-      int v = 0;
-      if (k < kc) v = field_u<XB>(x + (long long)(m0 + m) * Kx, kc0 + k) - off;
-      xs[m * KC + k] = (int8_t)v;
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+  }
+
+  for (int st = 0; st < nst; ++st) {
+    mma_pipe::cp_wait<STAGES - 2>();
+    __syncthreads();  // stage st has landed, and every warp is done with st - 1
+    if (st + STAGES - 1 < nst) load(st + STAGES - 1);
+    mma_pipe::cp_commit();
+
+    // this warp's K group of the stage
+    const uint8_t* xs = smem + (st % STAGES) * C::STAGE + wk * (GROUP * XB / 8) + t * (4 * XB);
+    const uint8_t* ws = smem + (st % STAGES) * C::STAGE + T::AR * C::XS +
+                        wk * (GROUP * WB / 8) + t * (4 * WB);
+    uint32_t bw[NT][8];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      load32<WB>(ws + (wn * 8 * NT + 8 * j + g) * C::WS, bw[j]);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) bw[j][q] = twos_s8<WB>(bw[j][q]);
     }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int r = wm * 16 * MT + 16 * i + g;
+      uint32_t a0[8] = {}, a1[8] = {};  // rows past the staged ones are zeros
+      if (T::AR == T::BM || r < T::AR) load32<XB>(xs + r * C::XS, a0);
+      if (T::AR == T::BM || r + 8 < T::AR) load32<XB>(xs + (r + 8) * C::XS, a1);
+      if (!XU8 && (XB == 8 || x_signed)) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          a0[q] = offset_s8<XB>(a0[q]);
+          a1[q] = offset_s8<XB>(a1[q]);
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const uint32_t a[4] = {a0[2 * s], a1[2 * s], a0[2 * s + 1], a1[2 * s + 1]};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          mma_pipe::mma_i8<XU8>(acc[i][j], a, bw[j][2 * s], bw[j][2 * s + 1]);
+        }
+      }
+    }
+  }
+  mma_pipe::cp_wait<0>();
+
+  // The block's int32 tile goes to shared memory (the K split's partials
+  // added there; integer sums, exact in any order), then each thread
+  // requantizes, packs and stores ry adjacent columns: one byte, or
+  // consecutive words, across the threads.
+  constexpr int CT = C::CT;
+  constexpr int BM = T::BM, BN = T::BN, THREADS = T::THREADS;
+  int* tile = reinterpret_cast<int*>(smem);
+  __syncthreads();  // every warp is done with the ring
+  if constexpr (WK > 1) {
+    for (int i = threadIdx.x; i < BM * CT; i += THREADS) tile[i] = 0;
     __syncthreads();
-
-    if (vec) {  // K % 16 == 0 and w 16-byte aligned: 16 values per lane step
-      for (int g = lane; g < kc / 16; g += 32) {
-        const int k = g * 16;
-        uint32_t wv[CPW][4];
+  }
 #pragma unroll
-        for (int c = 0; c < CPW; ++c) {
-          if (n0 + c < N) {
-            load16<WB>(w + (long long)(n0 + c) * Kw + (long long)(kc0 + k) * WB / 8, wv[c]);
-          } else {
-            wv[c][0] = wv[c][1] = wv[c][2] = wv[c][3] = 0u;
-          }
-          if (comp) {
+  for (int i = 0; i < MT; ++i) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j) wsum[c] = __dp4a((int)wv[c][j], 0x01010101, wsum[c]);
-          }
-        }
+    for (int j = 0; j < NT; ++j) {
 #pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (m < mt) {
-            const uint4 xv = *reinterpret_cast<const uint4*>(&xs[m * KC + k]);
-#pragma unroll
-            for (int c = 0; c < CPW; ++c) {
-              int a = acc[c][m];
-              a = __dp4a((int)xv.x, (int)wv[c][0], a);
-              a = __dp4a((int)xv.y, (int)wv[c][1], a);
-              a = __dp4a((int)xv.z, (int)wv[c][2], a);
-              a = __dp4a((int)xv.w, (int)wv[c][3], a);
-              acc[c][m] = a;
-            }
-          }
-        }
-      }
-    } else {  // any K: one value per lane step
-      for (int k = lane; k < kc; k += 32) {
-        int wv[CPW];
-#pragma unroll
-        for (int c = 0; c < CPW; ++c) {
-          wv[c] = (n0 + c < N) ? field_s<WB>(w + (long long)(n0 + c) * Kw, kc0 + k) : 0;
-          if (comp) wsum[c] += wv[c];
-        }
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          if (m < mt) {
-            const int xv = (int)xs[m * KC + k];
-#pragma unroll
-            for (int c = 0; c < CPW; ++c) acc[c][m] += xv * wv[c];
-          }
+      for (int e = 0; e < 4; ++e) {
+        int* at = tile + (wm * 16 * MT + 16 * i + g + 8 * (e >> 1)) * CT + wn * 8 * NT + 8 * j +
+                  2 * t + (e & 1);
+        if constexpr (WK > 1) {
+          atomicAdd(at, acc[i][j][e]);
+        } else {
+          *at = acc[i][j][e];
         }
       }
     }
   }
+  __syncthreads();
 
-  // warp-wide sums (every lane ends with the totals)
-#pragma unroll
-  for (int c = 0; c < CPW; ++c) {
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) wsum[c] += __shfl_xor_sync(0xffffffffu, wsum[c], s);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < mt) {
-#pragma unroll
-        for (int s = 16; s > 0; s >>= 1) acc[c][m] += __shfl_xor_sync(0xffffffffu, acc[c][m], s);
-      }
+  if (out_kind == 2) {  // N is a multiple of ry: a byte's columns are all in or all out
+    const int ry = 8 / y_bits;
+    const int nb = BN / ry;  // bytes a tile row
+    for (int idx = threadIdx.x; idx < BM * nb; idx += THREADS) {
+      const int r = idx / nb;
+      const int b = idx - r * nb;
+      const int row = m0 + r;
+      const int col = n0 + b * ry;
+      if (row >= M || col >= N) continue;
+      int q[4];
+      for (int j = 0; j < ry; ++j) q[j] = requant_one(tile[r * CT + b * ry + j], rqv, y_bits);
+      static_cast<int8_t*>(out)[(long long)row * (N / ry) + col / ry] = pack_byte(q, y_bits);
     }
+    return;
   }
-  if (lane != 0 || n0 >= N) return;
-
-  const int ry = 8 / y_bits;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m >= mt) continue;
-    const long long row = m0 + m;
-    int y[CPW];
-#pragma unroll
-    for (int c = 0; c < CPW; ++c) {
-      int a = acc[c][m];
-      if (comp) a = add_wrap(a, 128 * wsum[c]);
-      y[c] = a;
-      if (n0 + c >= N) continue;
-      if (out_kind == 0) {
-        static_cast<float*>(out)[row * N + n0 + c] = __fmul_rn(__int2float_rn(a), scale[0]);
-      } else if (out_kind == 1) {
-        static_cast<int*>(out)[row * N + n0 + c] = a;
-      }
-    }
-    if (out_kind != 2) continue;
-#pragma unroll
-    for (int c = 0; c < CPW; ++c) y[c] = requant_one(y[c], rqv, y_bits);
-    for (int b = 0; b < CPW / ry; ++b) {
-      const int nb = n0 + b * ry;
-      if (nb >= N) break;
-      static_cast<int8_t*>(out)[row * (N / ry) + nb / ry] = pack_byte(&y[b * ry], y_bits);
+  for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
+    const int r = idx / BN;
+    const int c = idx - r * BN;
+    const int row = m0 + r;
+    const int col = n0 + c;
+    if (row >= M || col >= N) continue;
+    const int v = tile[r * CT + c];
+    if (out_kind == 0) {
+      static_cast<float*>(out)[(long long)row * N + col] = __fmul_rn(__int2float_rn(v), scale[0]);
+    } else {
+      static_cast<int*>(out)[(long long)row * N + col] = v;
     }
   }
 }
 
+template <int XB, int WB, bool XU8, class T>
+int launch(const void* x, const void* w, const void* rqv, const void* scale, void* out, int M,
+           int N, int K, int y_bits, int x_signed, int out_kind, int vec_x, int vec_w,
+           cudaStream_t stream) {
+  using C = Cfg<XB, WB, T>;
+  auto kernel = mpmm_kernel<XB, WB, XU8, T>;
+  static const cudaError_t attr = mma_pipe::allow_smem(kernel, C::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+  kernel<<<grid, T::THREADS, C::SMEM, stream>>>(
+      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
+      static_cast<const int*>(rqv), static_cast<const float*>(scale), out, M, N, K, y_bits,
+      x_signed, out_kind, vec_x, vec_w);
+  return (int)cudaGetLastError();
+}
+
+// Decode tiles (M <= 16), picked by N: one m16 row tile, the K of each
+// stage split over the block's warps; 16 columns a block below N = 8192 (so
+// that 1 MB projections still make 64-128 blocks), 32 above (each staged
+// activation row serves more columns). AR: activation rows staged, 4 when M
+// <= 4. Chosen from a sweep of NT, WK, CPW and STAGES on the card.
+//                                   MT NT WM WN WK CPW AR STAGES
+template <int AR>
+using DecodeNarrow = mma_pipe::Tile<1, 2, 1, 1, 8, 1, AR, 6>;
+template <int AR>
+using DecodeWide = mma_pipe::Tile<1, 4, 1, 1, 4, 1, AR, 6>;
+using Prefill = mma_pipe::Tile<4, 4, 2, 4, 1, 1, 128, 3>;  // 128 x 128 block tiles
+
+template <int XB, int WB, bool XU8>
+int launch_shape(const void* x, const void* w, const void* rqv, const void* scale, void* out,
+                 int M, int N, int K, int y_bits, int x_signed, int out_kind,
+                 cudaStream_t stream) {
+  // 16-byte copies where every row of an operand starts on a 16-byte
+  // boundary; byte loads into the same shared-memory image otherwise
+  const int vec_x = (long long)K * XB / 8 % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec_w = (long long)K * WB / 8 % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+#define MPMM_ARGS x, w, rqv, scale, out, M, N, K, y_bits, x_signed, out_kind, vec_x, vec_w, stream
+  if (M <= 4) {
+    if (N < 8192) return launch<XB, WB, XU8, DecodeNarrow<4>>(MPMM_ARGS);
+    return launch<XB, WB, XU8, DecodeWide<4>>(MPMM_ARGS);
+  }
+  if (M <= 16) {
+    if (N < 8192) return launch<XB, WB, XU8, DecodeNarrow<16>>(MPMM_ARGS);
+    return launch<XB, WB, XU8, DecodeWide<16>>(MPMM_ARGS);
+  }
+  return launch<XB, WB, XU8, Prefill>(MPMM_ARGS);
+#undef MPMM_ARGS
+}
+
+// Unsigned 8-bit ifmaps go to the tensor cores as u8; every other ifmap as s8.
 template <int XB, int WB>
-void launch(const void* x, const void* w, const void* rqv, const void* scale, void* out,
-            int M, int N, int K, int y_bits, int x_signed, int out_kind, int vec,
-            cudaStream_t stream) {
-  const dim3 grid((N + COLS - 1) / COLS, (M + MT - 1) / MT);
-  mpmm_kernel<XB, WB><<<grid, THREADS, 0, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const int*>(rqv), static_cast<const float*>(scale), out, M, N, K,
-      y_bits, x_signed, out_kind, vec);
+int launch_cell(const void* x, const void* w, const void* rqv, const void* scale, void* out,
+                int M, int N, int K, int y_bits, int x_signed, int out_kind,
+                cudaStream_t stream) {
+  if constexpr (XB == 8) {
+    if (!x_signed) {
+      return launch_shape<XB, WB, true>(x, w, rqv, scale, out, M, N, K, y_bits, x_signed,
+                                        out_kind, stream);
+    }
+  }
+  return launch_shape<XB, WB, false>(x, w, rqv, scale, out, M, N, K, y_bits, x_signed,
+                                     out_kind, stream);
 }
 
 }  // namespace
@@ -231,15 +337,14 @@ void launch(const void* x, const void* w, const void* rqv, const void* scale, vo
 // x (M, K*x_bits/8) and w (N, K*w_bits/8) packed int8; rqv int32
 // [shift, bias, thresholds...] (read only for out_kind 2); scale f32[1] (read
 // only for out_kind 0). out: f32 (M, N) | int32 (M, N) | int8 (M, N*y_bits/8).
-// Returns cudaGetLastError() after the launch.
+// Any M, N, K and alignment. Returns cudaGetLastError() after the launch.
 extern "C" int mpmm_launch(const void* x, const void* w, const void* rqv, const void* scale,
                            void* out, int M, int N, int K, int x_bits, int w_bits,
-                           int y_bits, int x_signed, int out_kind, int vec, void* stream) {
+                           int y_bits, int x_signed, int out_kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define MPMM_CASE(XB, WB)                                                              \
-  case XB * 16 + WB:                                                                   \
-    launch<XB, WB>(x, w, rqv, scale, out, M, N, K, y_bits, x_signed, out_kind, vec, s); \
-    break;
+#define MPMM_CASE(XB, WB)                                                                  \
+  case XB * 16 + WB:                                                                       \
+    return launch_cell<XB, WB>(x, w, rqv, scale, out, M, N, K, y_bits, x_signed, out_kind, s);
   switch (x_bits * 16 + w_bits) {
     MPMM_CASE(8, 8) MPMM_CASE(8, 4) MPMM_CASE(8, 2)
     MPMM_CASE(4, 8) MPMM_CASE(4, 4) MPMM_CASE(4, 2)
@@ -248,5 +353,4 @@ extern "C" int mpmm_launch(const void* x, const void* w, const void* rqv, const 
       return (int)cudaErrorInvalidValue;
   }
 #undef MPMM_CASE
-  return (int)cudaGetLastError();
 }

@@ -39,6 +39,8 @@ _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: seconds the last :func:`ensure_built` spent compiling (0.0 on a cache hit)
 BUILD_SECONDS = 0.0
+#: seconds from the start of that build until each source's nvcc ended
+SOURCE_SECONDS: dict[str, float] = {}
 #: kernel launches per kernel name, counted by each wrapper right after its
 #: launch succeeds (never by the plain versions): the proof that a run went
 #: through the kernels
@@ -92,16 +94,23 @@ def ensure_built() -> dict[str, ctypes.CDLL]:
             procs = []
             for s in todo:
                 tmp = out / f"lib{s}.{os.getpid()}.tmp.so"
+                log = out / f"{s}.{os.getpid()}.log"
                 cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{s}.cu")]
-                procs.append((s, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)))
+                with open(log, "w") as f:
+                    procs.append((s, tmp, log, subprocess.Popen(cmd, stdout=f,
+                                                                stderr=subprocess.STDOUT)))
+            SOURCE_SECONDS.clear()
+            while len(SOURCE_SECONDS) < len(procs):
+                for s, _, _, proc in procs:
+                    if s not in SOURCE_SECONDS and proc.poll() is not None:
+                        SOURCE_SECONDS[s] = time.perf_counter() - t0
+                time.sleep(0.05)
             errors = []
-            for s, tmp, proc in procs:
-                log, _ = proc.communicate()
-                (out / f"{s}.log").write_text(log)
+            for s, tmp, log, proc in procs:
+                os.replace(log, out / f"{s}.log")
                 if proc.returncode != 0:
-                    errors.append(f"{s}.cu (exit {proc.returncode}):\n{log}")
+                    errors.append(f"{s}.cu (exit {proc.returncode}):\n"
+                                  f"{(out / f'{s}.log').read_text()}")
                     tmp.unlink(missing_ok=True)
                 else:
                     os.replace(tmp, out / f"lib{s}.so")  # atomic publish

@@ -1,8 +1,9 @@
 """Mixed-precision packed matmul: the CUDA kernel's wrapper and the requant
 vector (counterpart of ``repro.kernels.mpmm``).
 
-The kernel (``csrc/mpmm.cu``) replaces ``mpmm_pallas`` and covers all 27
-(x, w, y) cells and the three output kinds; its plain PyTorch version is
+The kernel (``csrc/mpmm.cu``, int8 ``mma.sync`` on the tensor cores)
+replaces ``mpmm_pallas`` and covers all 27 (x, w, y) cells and the three
+output kinds at any shape; its plain PyTorch version is
 :func:`repro_torch.kernels.ref.mpmm_ref`, which it matches bit for bit.
 """
 
@@ -20,7 +21,7 @@ from repro_torch.kernels.ref import mpmm_ref  # noqa: F401  (the plain version)
 
 OUT_KINDS = {"f32": 0, "int32": 1, "packed": 2}
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def requant_vector(rq: Q.RequantParams) -> torch.Tensor:
@@ -72,11 +73,12 @@ def mpmm_cuda(
         return out
     fn = build.lib("mpmm").mpmm_launch
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    vec = int(K % 16 == 0 and w_p.data_ptr() % 16 == 0)
+    # the launcher picks the tile regime from M and 16-byte or byte staging
+    # from the row pitches and the pointers
     err = fn(x_p.data_ptr(), w_p.data_ptr(),
              rqv.data_ptr() if rqv is not None else None,
              scale.data_ptr() if scale is not None else None,
-             out.data_ptr(), M, N, K, x_bits, w_bits, y_bits, int(x_signed), kind, vec,
+             out.data_ptr(), M, N, K, x_bits, w_bits, y_bits, int(x_signed), kind,
              build.stream_ptr(dev))
     build.check(err, "mpmm_launch")
     build.LAUNCHES["mpmm"] += 1

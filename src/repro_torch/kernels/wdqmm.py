@@ -5,9 +5,12 @@ y[m, n] = sum_k x[m, k] * (eps_w * unpack(w_p)[n, k]), the layers of a
 weight-only policy: activations stay bf16, weights are packed at 8, 4 or 2
 bits. The kernel (``csrc/wdqmm.cu``) replaces ``wdqmm_pallas``; its plain
 PyTorch version is :func:`repro_torch.kernels.ref.wdqmm_ref`, the reference's
-f32 twin. Both dequantize each weight to f32 and sum the f32 products; only
-the order of the sum differs, so the kernel stays within
-``TOL * sum_k |x[m, k] * w[n, k]|`` of the plain version.
+f32 twin, which sums the f32 products x * (eps_w * w). On bf16 activations
+the kernel multiplies on the tensor cores, x by the exact integer weights
+(every product exact in f32), and scales the sum once by eps_w; on f32
+activations it sums the twin's products with FMAs. Either way it stays
+within ``TOL * sum_k |x[m, k] * w[n, k]|`` of the plain version, and a row
+gives the same bits at every M.
 """
 
 from __future__ import annotations
@@ -21,10 +24,19 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import wdqmm_ref  # noqa: F401  (the plain version)
 
 #: kernel vs plain version: |difference| <= TOL * sum_k |x[m, k] w[n, k]|.
-#: Two f32 sums of the same products in different orders differ by about
-#: 2^-24 times that sum, far below 2^-20; one wrong product among K = 16384
-#: is above it.
+#: Two f32 sums of the same products in different orders, or eps_w applied
+#: to each product against once to the sum, differ by about 2^-24 to 2^-23
+#: times that sum, far below 2^-20; one wrong product among K = 16384 is
+#: above it.
 TOL = 2.0**-20
+
+#: bf16 activations: the kernel's K chunk (``KP`` in ``csrc/wdqmm.cu``). Each
+#: chunk's 64 products are summed by four bf16 tensor-core steps from a zero
+#: accumulator, and the chunks' partials are added in increasing k in f32
+#: (round to nearest), then scaled once by ``eps_w``. The tensor cores'
+#: f32 sums are not round-to-nearest; restarting every chunk keeps their
+#: error far below TOL at K = 18432 (``tests/test_torch_wdqmm_mma.py``).
+MMA_CHUNK = 64
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 

@@ -8,9 +8,11 @@ Tolerances: mpmm, conv2d and qntpack are integer kernels and paged_gather,
 paged_scatter and paged_copy copy kernels, all bit-exact;
 paged_attn and paged_mla_attn follow the plain version's page-blocked
 softmax but sum inside their dots in another order, so atol = rtol = 1e-5
-(the reference's own fused-vs-twin bound); wdqmm sums the plain version's
-f32 products in another order, so |kernel - plain| <= TOL * sum_k |x w|
-(TOL = 2^-20, ``kernels/wdqmm.py``). A weight-only engine on the card may
+(the reference's own fused-vs-twin bound); wdqmm multiplies bf16
+activations by the exact integer weights on the tensor cores and scales the
+sum once (f32 activations: the plain version's f32 products summed in
+another order), so |kernel - plain| <= TOL * sum_k |x w| (TOL = 2^-20,
+``kernels/wdqmm.py``), and a row has the same bits at every M. A weight-only engine on the card may
 then pick the other token where two bf16 logits tie; its streams must equal
 the CPU run's, or differ first at such a tie. flash_mha follows the plain
 version's running softmax over other tiles (64 keys against chunks of 512)
@@ -74,10 +76,14 @@ def _operands(g, dev, M_, N, K, xb, wb):
     return P.pack(x, xb).to(dev), P.pack(w, wb).to(dev)
 
 
-@pytest.mark.parametrize("shape", [(19, 40, 96), (3, 24, 44), (33, 8, 4112)])
+@pytest.mark.parametrize("shape", [(19, 40, 96), (3, 24, 44), (33, 8, 4112), (150, 72, 200),
+                                   (130, 136, 512)])
 def test_mpmm_kernel_bit_exact_all_cells(dev, shape):
-    """Every (x, w, y) cell and output kind; K % 16 != 0 takes the scalar
-    path, K > 2048 crosses shared-memory chunks, M > 16 several row tiles."""
+    """Every (x, w, y) cell and output kind. M <= 16 takes the decode tiles,
+    M > 16 the 128 x 128 prefill tiles (150 and 130 rows: a partial second
+    row tile; 72 and 136 columns: a partial column tile); K % 16 != 0 and
+    rows off 16-byte boundaries are staged with byte loads, K 4112 crosses
+    many stages and ends in a partial one."""
     M_, N, K = shape
     g = torch.Generator().manual_seed(K)
     for xb, wb, yb in PERMUTATIONS:
@@ -95,6 +101,28 @@ def test_mpmm_kernel_bit_exact_all_cells(dev, shape):
                 b = ops.mpmm(x_p, w_p, rq, impl="torch", **kw)
                 assert torch.equal(a, b), (xb, wb, yb, kind, signed)
     assert build.LAUNCHES["mpmm"] > 0
+
+
+@pytest.mark.parametrize("NK", [(2048, 2048), (2048, 8192), (1024, 2048)])
+def test_mpmm_kernel_bit_exact_at_prefill_size(dev, NK):
+    """The main path's cell (8, 4, 8), signed 8-bit activations, f32 out, at
+    a whole prompt's M = 2048 and internlm2's projection shapes; its first
+    16 rows alone (the decode tiles), also from operands off 16-byte
+    boundaries (byte staging)."""
+    N, K = NK
+    g = torch.Generator(device=dev).manual_seed(N + K)
+    x_p = torch.randint(-128, 128, (2048, K), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.int8)
+    w_p = torch.randint(-128, 128, (N, K // 2), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.int8)
+    kw = dict(x_bits=8, w_bits=4, y_bits=8, x_signed=True, out_kind="f32",
+              out_scale=torch.tensor(3.1e-4, device=dev))
+    a = ops.mpmm(x_p, w_p, None, impl="cuda", **kw)
+    b = ops.mpmm(x_p, w_p, None, impl="torch", **kw)
+    assert torch.equal(a, b)
+    assert torch.equal(a[:16], ops.mpmm(x_p[:16], w_p, None, impl="cuda", **kw))
+    assert torch.equal(a[:16], ops.mpmm(_misaligned(x_p[:16]), w_p, None, impl="cuda", **kw))
+    assert torch.equal(a[:4], ops.mpmm(x_p[:4], _misaligned(w_p), None, impl="cuda", **kw))
 
 
 #: paged_attn's card shapes (D, page size, G, pages a slot): every head dim,
@@ -608,15 +636,17 @@ def _wdqmm_bound(x, w, eps):
 
 @pytest.mark.parametrize("w_bits", [8, 4, 2])
 def test_wdqmm_kernel_vs_plain(dev, w_bits):
-    """M = 1, 4, 16 and 17 (two row tiles), a ragged N, K = 2048 and 4160
-    (vector path, several staged chunks), K = 44 (scalar path), N past
-    4096 and 16384 (the launcher's wider warps), bf16 and f32 activations;
-    then a misaligned weight view (scalar path) and a misaligned activation
-    view (vector path, staged one value at a time): every output within
-    WDQMM_TOL * sum_k |x w| of the plain version."""
+    """M = 1, 4, 16 and 17 (decode and prefill tiles), a ragged N, K = 2048,
+    4160, 8192 and 18432 (many chunks; internlm2's and DeepSeek-V3's down
+    projections), K = 44 (one partial chunk, byte staging), N past 4096,
+    8192 and 16384 (the launchers' wider tiles), bf16 and f32 activations;
+    then a misaligned weight view and a misaligned activation view (byte
+    staging): every output within WDQMM_TOL * sum_k |x w| of the plain
+    version."""
     g = torch.Generator().manual_seed(w_bits)
     for M_ in (1, 4, 16, 17):
-        for N, K in ((37, 2048), (40, 4160), (21, 44), (4100, 256), (16390, 64)):
+        for N, K in ((37, 2048), (40, 4160), (21, 44), (4100, 256), (16390, 64), (37, 8192),
+                     (24, 18432)):
             for dtype in (torch.bfloat16, torch.float32):
                 x, w_p, eps, w = _wdqmm_operands(g, dev, M_, N, K, w_bits, dtype)
                 a = ops.wdqmm(x, w_p, eps, w_bits=w_bits, impl="cuda")
@@ -633,23 +663,25 @@ def test_wdqmm_kernel_vs_plain(dev, w_bits):
 
 @pytest.mark.parametrize("w_bits", [8, 4, 2])
 def test_wdqmm_kernel_deterministic_and_row_independent(dev, w_bits):
-    """On the vector path (aligned weights) and on the scalar path (a
-    misaligned weight view), each with its own fixed order: the same call
-    twice gives the same bits, and a row gives the same bits alone, in a
-    decode-sized call (M = 4), in a prefill chunk (M = 16) and from a
-    misaligned copy of the activations."""
+    """With aligned weights and with a misaligned weight view (16-byte and
+    byte staging): the same call twice gives the same bits, and a row gives
+    the same bits alone (M = 1), in a decode-sized call (M = 4), in a
+    prefill chunk (M = 16), at M = 64 and in a whole prompt (M = 2048, the
+    prefill tiles), and from a misaligned copy of the activations; at K 2048
+    and 18432 (288 chunks)."""
     g = torch.Generator().manual_seed(10 + w_bits)
-    for N in (200, 5000, 17000):  # the launcher's 1, 2 and 4 columns a warp
-        x, w_p, eps, _ = _wdqmm_operands(g, dev, 16, N, 2048, w_bits, torch.bfloat16)
+    for N, K in ((200, 2048), (5000, 2048), (17000, 2048), (200, 18432)):
+        x, w_p, eps, _ = _wdqmm_operands(g, dev, 2048, N, K, w_bits, torch.bfloat16)
         for w_view in (w_p, _misaligned(w_p)):
             def run(xx):
                 return ops.wdqmm(xx, w_view, eps, w_bits=w_bits, impl="cuda")
 
-            y16 = run(x)
-            assert torch.equal(y16, run(x))
-            assert torch.equal(y16[:4], run(x[:4]))
-            assert torch.equal(y16[9:10], run(x[9:10]))
-            assert torch.equal(y16, run(_misaligned(x)))
+            y = run(x)
+            assert torch.equal(y, run(x))
+            for rows in (slice(0, 64), slice(0, 16), slice(0, 4), slice(9, 10)):
+                assert torch.equal(y[rows], run(x[rows])), (N, K, rows)
+            assert torch.equal(y[:16], run(_misaligned(x[:16])))
+            assert torch.equal(y, run(_misaligned(x)))
 
 
 def _wo_policy(name):
