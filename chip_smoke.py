@@ -49,10 +49,15 @@ Phases, in order (any failure ends the run with a nonzero exit):
      requests on a cold paged engine and on a prefix engine (streams
      identical, paged_copy launched); then a teacher-forced MLA
      decode step (kernel vs plain), the MLA step's breakdown, and
-     paged_mla_attn's time per decode step beside its bound, its plain
-     version and ``F.scaled_dot_product_attention`` on the bf16 cell.
+     paged_mla_attn's time per decode step (its split pass and its merge
+     apart) beside its bound, its plain version and
+     ``F.scaled_dot_product_attention`` over the latent dequantized ahead of
+     time, at kv8 (the row's library time) and on the bf16 cell.
      Phase 2 holds paged_mla_attn against its plain version on bf16 / kv8 /
-     kv4 at H 128, C 512, dr 64, pages of 16 (tolerance ATTN_TOL). Then
+     kv4 at H 128, C 512, dr 64, pages of 16 (tolerance ATTN_TOL), each
+     call twice bit-identical and each slot's output the same alone, in the
+     batch and beside other positions; at the model's scale (scores up to
+     ~20) also within ATTN_TOL of the exact (f64) attention. Then
      one more run: the same three layers weight-only w4 (WO_POLICY, the
      w4a8 weights with each ``beta`` dropped) with the 8-bit latent cache,
      slot then paged, fused: streams identical, wdqmm launched, mpmm not;
@@ -530,6 +535,51 @@ def check_paged_mla_attn(torch, dev, mcfg, report):
                 raise AssertionError(f"paged_mla_attn bits={bits} pos={p.tolist()}: "
                                      f"err {err} > {tol}")
             worst = max(worst, err)
+    # the same call again, and each slot served alone or beside other
+    # positions: the same bits (fixed splits and head groups, a fixed merge
+    # order)
+    for bits in (None, 8, 4):
+        q_lat, q_rope, c, cs, r, p, bt = mla_case(torch, dev, mcfg, bits, g)
+        call = lambda ql, qr, p_, b_: ops.paged_mla_attn(  # noqa: E731
+            ql, qr, c, cs, r, p_, block_table=b_, bits=bits, scale=scale, impl="cuda")
+        a = call(q_lat, q_rope, p, bt)
+        if not torch.equal(a, call(q_lat, q_rope, p, bt)):
+            raise AssertionError(f"paged_mla_attn bits={bits}: two calls differ")
+        other = p.clone()
+        other[0], other[2] = int(p[3]), 5
+        moved = call(q_lat, q_rope, other, bt)
+        alone = [call(q_lat[i:i + 1], q_rope[i:i + 1], p[i:i + 1], bt[i:i + 1])
+                 for i in range(N_SLOTS)]
+        if not (all(torch.equal(a[i:i + 1], x) for i, x in enumerate(alone))
+                and torch.equal(a[1::2], moved[1::2])):
+            raise AssertionError(f"paged_mla_attn bits={bits}: a slot's output depends on the "
+                                 f"other slots")
+    log("paged_mla_attn: each call twice bit-identical; each slot's output the same alone, in "
+        "the batch and beside other positions")
+    # the model's scale: the queries scaled by 2.7, so that the scores reach
+    # ~20, where two f32 orders of sums part by about ATTN_TOL elementwise;
+    # the kernel must stay within it of the exact attention (f64)
+    from repro_torch.kernels.paged_attn import paged_mla_attn_f64
+
+    def over(x, y):  # the largest |x - y| / (ATTN_TOL * (1 + |y|))
+        return float(((x.double() - y).abs() / (ATTN_TOL * (1 + y.abs()))).max())
+
+    for bits in (None, 8, 4):
+        q_lat, q_rope, c, cs, r, p, bt = mla_case(torch, dev, mcfg, bits, g)
+        args = (q_lat * 2.7, q_rope * 2.7, c, cs, r, p)
+        kw = dict(bits=bits, scale=scale)
+        a = ops.paged_mla_attn(*args, block_table=bt, impl="cuda", **kw)
+        b = ops.paged_mla_attn(*args, block_table=bt, impl="torch", **kw)
+        ex = paged_mla_attn_f64(*args, bt, **kw)
+        err = float((a - b).abs().max())
+        tol = ATTN_TOL * (1 + float(b.abs().max()))
+        log(f"paged_mla_attn bits={bits} at the model's scale: kernel {over(a, ex):.3f}, plain "
+            f"{over(b, ex):.3f} of ATTN_TOL from the exact attention (elementwise); max |kernel "
+            f"- plain| = {err:.3e}")
+        if not torch.isfinite(a).all() or err > tol or over(a, ex) > 1:
+            raise AssertionError(f"paged_mla_attn bits={bits} at the model's scale: err {err} "
+                                 f"> {tol}, or {over(a, ex)} x ATTN_TOL from the exact value")
+        worst = max(worst, err)
     report["paged_mla_attn"] = {"max_abs_err": worst, "tol": ATTN_TOL}
 
 
@@ -1406,7 +1456,7 @@ def kernel_row(r, launches, report) -> dict:
 
 
 #: device kernels the step breakdown names (everything else is PyTorch's)
-KERNEL_NAMES = ("mpmm_kernel", "wdqmm_mma_kernel", "wdqmm_kernel", "paged_mla_attn_kernel",
+KERNEL_NAMES = ("mpmm_kernel", "wdqmm_mma_kernel", "wdqmm_kernel", "paged_mla_split_kernel",
                 "paged_attn_kernel", "paged_attn_merge_kernel", "flash_mha_kernel",
                 "paged_scatter_kernel", "paged_gather_kernel", "qkv_decode_kernel")
 
@@ -2128,47 +2178,65 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
         return t_dev / COLD_STEPS, t_wall / COLD_STEPS, how
 
     t, tw, how = per_step(step("cuda"))
+    t_split = per_step(step("cuda"), names=("paged_mla_split_kernel",))[0]
+    t_merge = per_step(step("cuda"), names=("paged_attn_merge_kernel",))[0]
     tp, tpw, _ = per_step(step("torch"), reps=3, warmup=1)
     pos = cases[0][5]
     valid = sum(int(p) + 1 for p in pos.tolist())
     row_bytes = C + 4 + 2 * dr  # int8 latent row, its f32 scale, the bf16 rope row
     nbytes = L * (valid * row_bytes + B * H * (C + dr) * 4 + B * H * C * 4
                   + cases[0][6].numel() * 4 + B * 4)
+    # multiply-adds of the scores and the context; the kernel takes each as
+    # three bf16 tensor-core products (the f32 operand split exactly)
     nops = L * H * valid * (2 * (C + dr) + 2 * C)
     log(f"  paged_mla_attn kv8, one decode step ({L} calls, B={B}, H={H}, {valid} cached rows "
-        f"per layer; L2-cold): {t:.4f} ms device ({how}), {tw:.3f} ms wall; plain {tp:.3f} ms "
-        f"device, {tpw:.3f} ms wall")
+        f"per layer; L2-cold): {t:.4f} ms device ({how}): split pass {t_split:.4f} ms, merge "
+        f"{t_merge:.4f} ms; {tw:.3f} ms wall; plain {tp:.3f} ms device, {tpw:.3f} ms wall; "
+        f"bound {max(nbytes / HBM_BYTES_PER_S, 3 * nops / BF16_FLOPS_PER_S) * 1e3:.5f} ms (the "
+        f"products as three bf16 ones; {nops / F32_FLOPS_PER_S * 1e3:.5f} ms priced as f32 work "
+        f"on the CUDA cores, the first design's)")
     warm = [cases[0]] * L  # the same pool three times: L2-warm
     tww, _, _ = device_ms(step("cuda", warm))
     log(f"  paged_mla_attn kv8, the same step L2-warm (one pool, {L} calls): {tww:.4f} ms device")
 
-    # the library yardstick: SDPA on the bf16 cell over the dense slot view,
-    # q = [q_lat | q_rope], k = [c | r] (one key row shared by all heads),
-    # v = c, the same scale, a boolean mask from pos; f32 throughout
+    # the library yardstick: SDPA in f32 over the dense slot view, the latent
+    # dequantized ahead of time with the kernel's rounding, q = [q_lat |
+    # q_rope], k = [c | r] (one key row shared by all heads), v = c, the same
+    # scale, a boolean mask from pos; at kv8 (the row's) and on the bf16 cell
+    from repro_torch.kernels.paged_attn import _dequant
+
     bcases = [mla_case(torch, dev, cfg, None, g) for _ in range(L * COLD_STEPS)]
     tb = per_step(step("cuda", bcases, None))[0]
-    sdpa_in, worst = [], 0.0
-    for ql, qr, c, _s, r, p, bt in bcases:
-        dense = lambda x: x[bt.long()].reshape(B, S_MAX, *x.shape[2:])  # noqa: E731
-        cd, rd = dense(c)[:, :, 0].float(), dense(r)[:, :, 0].float()
-        q = torch.cat([ql, qr], dim=-1)[:, :, None]  # (B, H, 1, C + dr)
-        k = torch.cat([cd, rd], dim=-1)[:, None].expand(B, H, S_MAX, C + dr)
-        v = cd[:, None].expand(B, H, S_MAX, C)
-        mask = (torch.arange(S_MAX, device=dev)[None] <= p[:, None].long())[:, None, None]
-        sdpa_in.append((q, k, v, mask))
-    sdpa = lambda: [F.scaled_dot_product_attention(q, k, v, attn_mask=m, scale=scale)  # noqa: E731
-                    for q, k, v, m in sdpa_in]
-    for lib, kern in zip(sdpa(), step("cuda", bcases, None)()):
-        worst = max(worst, float((lib[:, :, 0] - kern).abs().max()))
-    tl, tlw, _ = per_step(sdpa)
-    log(f"  paged_mla_attn bf16 cell, one decode step (L2-cold): {tb:.4f} ms device; "
-        f"F.scaled_dot_product_attention (f32, dense view, boolean mask) {tl:.4f} ms device, "
-        f"{tlw:.3f} ms wall; max |SDPA - kernel| = {worst:.3e}")
-    del params, cases, bcases, sdpa_in
+    lib_ms = {}
+    for bits, cs_ in ((8, cases), (None, bcases)):
+        sdpa_in, worst = [], 0.0
+        for ql, qr, c, s_, r, p, bt in cs_:
+            pages = bt.long().flatten()
+            cd = _dequant(c[pages], None if bits is None else s_[pages], bits)
+            cd = cd.reshape(B, S_MAX, C)
+            rd = r[pages].float().reshape(B, S_MAX, dr)
+            q = torch.cat([ql, qr], dim=-1)[:, :, None]  # (B, H, 1, C + dr)
+            k = torch.cat([cd, rd], dim=-1)[:, None].expand(B, H, S_MAX, C + dr)
+            v = cd[:, None].expand(B, H, S_MAX, C)
+            mask = (torch.arange(S_MAX, device=dev)[None] <= p[:, None].long())[:, None, None]
+            sdpa_in.append((q, k, v, mask))
+        sdpa = lambda: [F.scaled_dot_product_attention(q, k, v, attn_mask=m,  # noqa: E731
+                                                       scale=scale) for q, k, v, m in sdpa_in]
+        for lib, kern in zip(sdpa(), step("cuda", cs_, bits)()):
+            worst = max(worst, float((lib[:, :, 0] - kern).abs().max()))
+        tl, tlw, _ = per_step(sdpa)
+        lib_ms[bits] = tl
+        tag = "kv8" if bits else "bf16 cell"
+        log(f"  paged_mla_attn {tag}: F.scaled_dot_product_attention (f32 over the latent "
+            f"dequantized ahead of time, dense view, boolean mask), one decode step (L2-cold): "
+            f"{tl:.4f} ms device, {tlw:.3f} ms wall; max |SDPA - kernel| = {worst:.3e}")
+        del sdpa_in
+    log(f"  paged_mla_attn bf16 cell, one decode step (L2-cold): {tb:.4f} ms device")
+    del params, cases, bcases
     row = dict(name="paged_mla_attn", route="cuda",
                source="src/repro_torch/csrc/paged_mla_attn.cu",
                replaces="src/repro/kernels/paged_attn.py:299", ms=t, plain_ms=tp,
-               bytes=nbytes, work=[(nops, F32_FLOPS_PER_S)], library_ms=tl)
+               bytes=nbytes, work=[(3 * nops, BF16_FLOPS_PER_S)], library_ms=lib_ms[8])
     return row, {"paged_mla_attn": fused_launches["paged_mla_attn"]}
 
 

@@ -94,7 +94,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_pipe.cuh"
+
 namespace {
+
+using mma_pipe::split3;
 
 constexpr int BQ = 64;        // query rows a block
 constexpr int BK = 64;        // keys a kv tile
@@ -320,10 +324,6 @@ struct Tiles {
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
 
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
 // Start copying rows [s0, s0 + 64) of one head into a (64, D + 8) bf16 tile
 // in shared memory (rows at or past S are filled with zeros): 16-byte
 // cp.async copies when vec (every row starts on a 16-byte boundary), 4-byte
@@ -367,21 +367,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Split two f32 probabilities (adjacent columns) into the bf16 pairs hi,
-// mid and lo with hi + mid + lo == p exactly, each pair one A register.
-__device__ __forceinline__ void split3(float2 p, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p.x, p.y);
-  const float2 hf = __bfloat1622float2(h);
-  const float2 r1 = make_float2(__fsub_rn(p.x, hf.x), __fsub_rn(p.y, hf.y));
-  const __nv_bfloat162 m = __floats2bfloat162_rn(r1.x, r1.y);
-  const float2 mf = __bfloat1622float2(m);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(__fsub_rn(r1.x, mf.x), __fsub_rn(r1.y, mf.y));
-  hi = bits(h);
-  mid = bits(m);
-  lo = bits(l);
 }
 
 template <int D>

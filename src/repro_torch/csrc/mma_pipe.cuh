@@ -1,7 +1,8 @@
 // The shared skeleton of the packed-weight tensor-core matmuls (mpmm.cu,
 // wdqmm.cu): the cp.async ring that stages operand tiles in shared memory,
 // the padding that keeps the fragment reads free of bank conflicts, and the
-// mma.sync instructions.
+// mma.sync instructions; the last two, and the exact three-part bf16 split
+// of an f32 operand, serve flash_mha.cu and paged_mla_attn.cu too.
 //
 // Staging. A stage is a K range of SK values of every row of a block's tile,
 // taken from a row-major matrix of packed rows (pitch = K * bits / 8 bytes)
@@ -18,6 +19,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -117,6 +119,24 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
         "f"(c[2]), "f"(c[3]));
+}
+
+// Split two f32 values (adjacent k) into the bf16 pairs hi, mid and lo with
+// hi + mid + lo == x exactly, each pair one fragment register: hi holds x's
+// top 8 significant bits, mid the next 8, lo the last 8 (only a value below
+// ~2^-110 can lose bits to underflow), so each part's product with a bf16
+// operand is exact in f32 and three bf16 products take x at f32 precision.
+__device__ __forceinline__ void split3(float2 x, uint32_t& hi, uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+  const float2 hf = __bfloat1622float2(h);
+  const float2 r1 = make_float2(__fsub_rn(x.x, hf.x), __fsub_rn(x.y, hf.y));
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r1.x, r1.y);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(r1.x, mf.x), __fsub_rn(r1.y, mf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // Set the dynamic shared memory a kernel may take above 48 KB, once.

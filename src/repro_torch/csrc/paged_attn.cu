@@ -68,9 +68,10 @@
 //      the pages in order. P . V: one thread a (head, d), an FMA chain over
 //      the page's rows. Six barriers a split (four a page before).
 //   5. Each split writes its partial (m, l, acc[G, D]) to scratch the wrapper
-//      allocates; a second kernel, one block per (slot, kv head), merges the
-//      splits that hold a visible key (decided again from pos and window) in
-//      split order: M = max m_i, l = sum l_i * exp(m_i - M), acc = sum acc_i
+//      allocates; a second kernel (csrc/paged_split.cuh, shared with the
+//      MLA kernel; one thread an output value) merges the splits that hold a
+//      visible key (decided again from pos and window) in split order:
+//      M = max m_i, l = sum l_i * exp(m_i - M), acc = sum acc_i
 //      * exp(m_i - M), out = acc / max(l, 1e-30). No atomics: the same bits
 //      on every call. A slot with no visible key gives 0, as the plain
 //      version does. A second kernel rather than a cluster: n_split varies
@@ -80,88 +81,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "paged_split.cuh"
+
 namespace {
+
+using namespace paged_split;
 
 constexpr int PPS = 4;  // pages a split (kernels/paged_attn.py PAGES_PER_SPLIT)
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int LPR = 8;             // lanes a row in the score dots
 constexpr int RPW = 32 / LPR;      // rows a warp scores at once
-constexpr float BIG_NEG = -2.0e9f;
-constexpr unsigned FULL = 0xffffffffu;
-
-__host__ __device__ constexpr int round16(int x) { return (x + 15) & ~15; }
-
-// Pages [lo, hi] of a slot that hold a visible key: keys 0..pos, and with a
-// window only keys past pos - window. Empty (lo > hi) when pos < 0 or the
-// window has slid past the table.
-struct Span {
-  int lo, hi;
-};
-__device__ __forceinline__ Span visible_pages(int pos, int window, int ps, int nb) {
-  Span s{0, -1};
-  if (pos < 0) return s;
-  s.hi = min(nb - 1, pos / ps);
-  if (window > 0 && pos - window + 1 > 0) s.lo = (pos - window + 1) / ps;
-  return s;
-}
-
-__device__ __forceinline__ bool visible(int kpos, int pos, int window) {
-  return kpos <= pos && (window <= 0 || pos - kpos < window);
-}
-
-// the 32-bit word w's low and high bf16 as f32
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xFFFF0000u); }
-
-// code e of a 16-byte vector as an exact f32, without the quarter-rate I2F:
-// the biased code (code + 128, or + 8 for a nibble) in the low mantissa bits
-// of 2^23, minus 2^23 + bias
-template <int BITS>
-__device__ __forceinline__ float code_f32(const uint32_t (&w)[4], int e) {
-  if constexpr (BITS == 8) {
-    const uint32_t biased = ((w[e >> 2] >> ((e & 3) * 8)) & 0xFFu) ^ 0x80u;
-    return __fsub_rn(__uint_as_float(0x4B000000u | biased), 8388736.0f);
-  } else {
-    const uint32_t biased = ((w[e >> 3] >> ((e & 7) * 4)) & 0xFu) ^ 0x8u;
-    return __fsub_rn(__uint_as_float(0x4B000000u | biased), 8388616.0f);
-  }
-}
-
-// Dequantize one staged 16-byte vector of codes of a row with scale s,
-// (code * s) -> bf16 (round to nearest even), into 16 * 8 / BITS bf16 at dst
-// (16-byte aligned).
-template <int BITS>
-__device__ __forceinline__ void dequant_vec(const uint4& raw, float s, unsigned char* dst) {
-  constexpr int EPV = 128 / BITS;
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-  uint32_t o[EPV / 2];
-#pragma unroll
-  for (int e = 0; e < EPV; e += 2) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(__fmul_rn(code_f32<BITS>(w, e), s),
-                                                   __fmul_rn(code_f32<BITS>(w, e + 1), s));
-    o[e / 2] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-#pragma unroll
-  for (int u = 0; u < EPV / 8; ++u)
-    reinterpret_cast<uint4*>(dst)[u] = make_uint4(o[4 * u], o[4 * u + 1], o[4 * u + 2],
-                                                  o[4 * u + 3]);
-}
-
-// copy VB bytes global -> shared: cp.async for 16 / 8 / 4, a plain byte
-// copy for 1
-template <int VB>
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  if constexpr (VB == 1) {
-    *static_cast<unsigned char*>(dst) = *static_cast<const unsigned char*>(src);
-  } else {
-    const uint32_t sa = (uint32_t)__cvta_generic_to_shared(dst);
-    if constexpr (VB == 16)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa), "l"(src));
-    else
-      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(sa), "l"(src), "n"(VB));
-  }
-}
 
 // Shared-memory layout of a split block (host and device agree). Staged
 // rows of codes (LDB bytes) and, for kv8 / kv4, their dequantized bf16 rows
@@ -405,38 +335,6 @@ paged_attn_kernel(const float* __restrict__ q, const unsigned char* __restrict__
   }
 }
 
-// One block per (slot, kv head): merge the partials of the splits that hold
-// a visible key, in split order.
-__global__ void __launch_bounds__(THREADS)
-paged_attn_merge_kernel(const float* __restrict__ part, const int* __restrict__ pos,
-                        float* __restrict__ out, int Hq, int Hkv, int D, int ps, int nb,
-                        int nsplit, int window) {
-  const int b = blockIdx.x / Hkv;
-  const int h = blockIdx.x - b * Hkv;
-  const int G = Hq / Hkv;
-  const Span vis = visible_pages(pos[b], window, ps, nb);
-  const int s0 = vis.lo <= vis.hi ? vis.lo / PPS : 0;
-  const int s1 = vis.lo <= vis.hi ? vis.hi / PPS : -1;
-  const long long stride = (long long)G * (D + 2);
-  const float* pb = part + (long long)blockIdx.x * nsplit * stride;
-  float* ob = out + ((long long)b * Hq + (long long)h * G) * D;
-  for (int i = threadIdx.x; i < G * D; i += THREADS) {
-    const int g = i / D;
-    float M = BIG_NEG;
-#pragma unroll 4
-    for (int s = s0; s <= s1; ++s) M = fmaxf(M, pb[s * stride + G * D + g]);
-    float l = 0.0f, acc = 0.0f;
-#pragma unroll 4
-    for (int s = s0; s <= s1; ++s) {
-      const float* p = pb + s * stride;
-      const float e = expf(__fsub_rn(p[G * D + g], M));
-      l = __fadd_rn(l, __fmul_rn(p[G * D + G + g], e));
-      acc = __fadd_rn(acc, __fmul_rn(p[i], e));
-    }
-    ob[i] = acc / fmaxf(l, 1e-30f);
-  }
-}
-
 template <int BITS, int VB>
 int launch(const void* q, const void* k, const void* ks, const void* v, const void* vs,
            const void* pos, const void* bt, void* out, void* part, int B, int Hq, int Hkv,
@@ -462,10 +360,9 @@ int launch(const void* q, const void* k, const void* ks, const void* v, const vo
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  paged_attn_merge_kernel<<<B * Hkv, THREADS, 0, stream>>>(
-      static_cast<const float*>(part), static_cast<const int*>(pos), static_cast<float*>(out),
-      Hq, Hkv, D, ps, nb, nsplit, window);
-  return (int)cudaGetLastError();
+  return (int)launch_merge<PPS>(static_cast<const float*>(part), static_cast<const int*>(pos),
+                                static_cast<float*>(out), B, Hq, Hkv, Hq / Hkv, D, ps, nb, nsplit,
+                                window, stream);
 }
 
 template <int BITS>

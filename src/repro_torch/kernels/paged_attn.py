@@ -18,12 +18,17 @@ The MLA variant (``paged_mla_attn``, kernel ``csrc/paged_mla_attn.cu``)
 scores every head's absorbed query against the compressed latent pages
 ``c`` (one shared latent row per token) plus the shared rope key ``r``,
 ``s = (q_lat . c + q_rope . r) * scale``, and accumulates the context in
-latent space: ``(B, H, kv_lora)``, to which the caller applies W_uv.
+latent space: ``(B, H, kv_lora)``, to which the caller applies W_uv. Its
+kernel splits the page walk the same way (runs of ``MLA_PAGES_PER_SPLIT``
+pages, ``MLA_HEADS_PER_BLOCK`` heads a block) and runs both products on the
+tensor cores at f32 precision; ``paged_mla_attn_split_ref`` repeats that
+order and arithmetic on the CPU (only tests use it).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -214,8 +219,100 @@ def paged_attn_cuda(q, k, k_s, v, v_s, pos, block_table, *, bits: Optional[int],
 
 # ---------------------------------------------------- MLA absorbed decode
 
-_MLA_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int]
+#: the MLA kernel's compile-time ``PPS`` and ``HB`` (``csrc/paged_mla_attn.cu``):
+#: pages a block walks before its partial goes to the merge, and heads a
+#: block takes; mirrored here to size the scratch. Fixed, never from B, the
+#: SM count or pos. Chosen by ``scripts/sweep_mla_split.py`` at DeepSeek-V3's
+#: kv8 decode shapes on an H100 (PERF.md, row 9)
+MLA_PAGES_PER_SPLIT = 4
+MLA_HEADS_PER_BLOCK = 32
+_MLA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float]
                  + [ctypes.c_void_p])
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _split3(x: torch.Tensor):
+    """f32 -> bf16 hi, mid, lo (as f32 values) with hi + mid + lo == x."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    mid = (x - hi).to(torch.bfloat16).to(torch.float32)
+    return hi, mid, (x - hi - mid).to(torch.bfloat16).to(torch.float32)
+
+
+def _rz32(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32 rounded toward zero."""
+    r = x.to(torch.float32)
+    return torch.where(r.double().abs() > x.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _mma3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One k16 step of the kernel's tensor-core products: a (..., M, 16) f32
+    split into bf16 hi + mid + lo, b (..., 16, N) exact bf16 values; lo, mid
+    and hi each multiplied exactly and added to an accumulator that starts
+    from zero and is rounded toward zero (the worst the tensor cores do)."""
+    hi, mid, lo = _split3(a)
+    z = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64, device=a.device)
+    for part in (lo, mid, hi):
+        z = _rz32(z + part.double() @ b.double()).double()
+    return z.to(torch.float32)
+
+
+def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+
+
+def _mla_scores(ql, qr, cf, rf, scale: float, mma: bool) -> torch.Tensor:
+    """(B, H, T) scores of one page, (q_lat . c + q_rope . r) * scale. The
+    plain version's two matmuls, or (``mma``) the kernel's: one dot over
+    [q_lat | 0 | q_rope | 0] . [c | 0 | r | 0] (each part zero-padded to a
+    multiple of 16), each k16 step a :func:`_mma3`, the steps added in k
+    order with round-to-nearest."""
+    if not mma:
+        return (torch.matmul(ql, cf.transpose(1, 2)) + torch.matmul(qr, rf.transpose(1, 2))) * scale
+    C, dr = ql.shape[-1], qr.shape[-1]
+    q = torch.cat([_pad_last(ql, _round16(C)), _pad_last(qr, _round16(dr))], -1)
+    k = torch.cat([_pad_last(cf, _round16(C)), _pad_last(rf, _round16(dr))], -1).transpose(1, 2)
+    run = torch.zeros(q.shape[:-1] + k.shape[-1:], dtype=torch.float32, device=q.device)
+    for k0 in range(0, q.shape[-1], 16):
+        run = run + _mma3(q[..., k0:k0 + 16], k[..., k0:k0 + 16, :])
+    return run * scale
+
+
+def _mla_page(state, ql, qr, c, c_s, r, pages, kpos, pos, *, bits: Optional[int], scale: float,
+              mma: bool = False):
+    """One page of the running softmax over rows ``kpos`` of pool pages
+    ``pages`` (one a slot): state (m, l, acc) -> the next. With ``mma`` the
+    scores and p . c take the kernel's tensor-core arithmetic: p . c per 16
+    rows of the page (zero-padded) a :func:`_mma3`, the first added to
+    acc * alpha, each later one to the sum, with round-to-nearest."""
+    m, l, acc = state
+    dev = ql.device
+    cf = _dequant(c[pages][:, :, 0], None if bits is None else c_s[pages][:, :, 0], bits)
+    rf = r[pages][:, :, 0].to(torch.float32)  # (B, ps, dr)
+    s = _mla_scores(ql, qr, cf, rf, scale, mma)
+    vmask = (kpos[None] <= pos[:, None])[:, None, :]  # (B, 1, ps)
+    s = torch.where(vmask, s, torch.tensor(BIG_NEG, dtype=torch.float32, device=dev))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.where(vmask, torch.exp(s - m_new[..., None]),
+                    torch.zeros((), dtype=torch.float32, device=dev))
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(dim=-1)
+    if not mma:
+        return m_new, l, acc * alpha[..., None] + torch.matmul(p, cf)
+    ps = cf.shape[1]
+    pp = _pad_last(p, _round16(ps))
+    cp = _pad_last(cf.transpose(1, 2), _round16(ps)).transpose(1, 2)
+    acc = acc * alpha[..., None]
+    for t0 in range(0, pp.shape[-1], 16):
+        acc = acc + _mma3(pp[..., t0:t0 + 16], cp[:, t0:t0 + 16])
+    return m_new, l, acc
+
+
+def _mla_fresh_state(B: int, H: int, C: int, dev):
+    m, l, acc = _fresh_state(B, 1, H, C, dev)
+    return m[:, 0], l[:, 0], acc[:, 0]
 
 
 def paged_mla_attn_ref(q_lat, q_rope, c, c_s, r, pos, block_table, *,
@@ -224,39 +321,88 @@ def paged_mla_attn_ref(q_lat, q_rope, c, c_s, r, pos, block_table, *,
     vectorized over (slot, head). Returns the latent context (B, H, C) f32."""
     B, H, C = q_lat.shape
     ps = c.shape[1]
-    NB = block_table.shape[1]
     ql = q_lat.to(torch.float32)
     qr = q_rope.to(torch.float32)
     pos = pos.to(torch.int32).reshape(B)
     bt = block_table.long()
-    m = torch.full((B, H), BIG_NEG, dtype=torch.float32, device=ql.device)
-    l = torch.zeros((B, H), dtype=torch.float32, device=ql.device)
-    acc = torch.zeros((B, H, C), dtype=torch.float32, device=ql.device)
     ar = torch.arange(ps, dtype=torch.int32, device=ql.device)
-    for j in range(NB):
-        pages = bt[:, j]
-        cf = _dequant(c[pages][:, :, 0], None if bits is None else c_s[pages][:, :, 0], bits)
-        rf = r[pages][:, :, 0].to(torch.float32)  # (B, ps, dr)
-        s = (torch.matmul(ql, cf.transpose(1, 2)) + torch.matmul(qr, rf.transpose(1, 2))) * scale
-        kpos = j * ps + ar
-        vmask = (kpos[None] <= pos[:, None])[:, None, :]  # (B, 1, ps)
-        s = torch.where(vmask, s, torch.tensor(BIG_NEG, dtype=torch.float32, device=ql.device))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.where(vmask, torch.exp(s - m_new[..., None]),
-                        torch.zeros((), dtype=torch.float32, device=ql.device))
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.matmul(p, cf)
-        m = m_new
+    state = _mla_fresh_state(B, H, C, ql.device)
+    for j in range(bt.shape[1]):
+        state = _mla_page(state, ql, qr, c, c_s, r, bt[:, j], j * ps + ar, pos, bits=bits,
+                          scale=scale)
+    _, l, acc = state
     return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def paged_mla_attn_split_ref(q_lat, q_rope, c, c_s, r, pos, block_table, *,
+                             bits: Optional[int], scale: float,
+                             pages_per_split: int = MLA_PAGES_PER_SPLIT,
+                             skip_empty: bool = True, mma: bool = True) -> torch.Tensor:
+    """The MLA kernel's order of work: each run of ``pages_per_split`` pages
+    takes the page-blocked softmax from a fresh state to a partial (m, l,
+    acc), with the kernel's tensor-core arithmetic (``mma``; off, the plain
+    version's); the partials of the runs holding a visible key (every run
+    when ``skip_empty`` is False) merge in run order as
+    :func:`paged_attn_split_ref`'s do. Returns (B, H, C) f32."""
+    B, H, C = q_lat.shape
+    ps = c.shape[1]
+    NB = block_table.shape[1]
+    pps = pages_per_split
+    dev = q_lat.device
+    ql = q_lat.to(torch.float32)
+    qr = q_rope.to(torch.float32)
+    pos = pos.to(torch.int32).reshape(B)
+    bt = block_table.long()
+    ar = torch.arange(ps, dtype=torch.int32, device=dev)
+    lo, hi = _visible_pages(pos, None, ps, NB)
+    parts = []
+    for s in range(-(-NB // pps)):
+        state = _mla_fresh_state(B, H, C, dev)
+        for j in range(s * pps, min(s * pps + pps, NB)):
+            state = _mla_page(state, ql, qr, c, c_s, r, bt[:, j], j * ps + ar, pos, bits=bits,
+                              scale=scale, mma=mma)
+        take = (torch.maximum(lo, torch.full_like(lo, s * pps))
+                <= torch.minimum(hi, torch.full_like(hi, s * pps + pps - 1)))
+        if not skip_empty:
+            take = torch.ones_like(take)
+        parts.append((take[:, None], *state))
+    M, l, acc = _mla_fresh_state(B, H, C, dev)
+    for take, m, _, _ in parts:
+        M = torch.where(take, torch.maximum(M, m), M)
+    for take, m, ls, accs in parts:
+        e = torch.exp(m - M)
+        l = torch.where(take, l + ls * e, l)
+        acc = torch.where(take[..., None], acc + accs * e[..., None], acc)
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def paged_mla_attn_f64(q_lat, q_rope, c, c_s, r, pos, block_table, *,
+                       bits: Optional[int], scale: float) -> torch.Tensor:
+    """The same attention in f64 over the dequantized rows, one softmax over
+    each slot's keys 0..pos: the exact value that the kernel and the plain
+    version, whose f32 sums part by up to about 1e-5 at the model's scores,
+    are both held to (only tests and ``chip_smoke.py`` use it). Returns
+    (B, H, C) f64; a slot with no visible key gives zeros."""
+    B, H, C = q_lat.shape
+    ps, NB = c.shape[1], block_table.shape[1]
+    pages = block_table.long().flatten()
+    cf = _dequant(c[pages][:, :, 0], None if bits is None else c_s[pages][:, :, 0], bits)
+    cf = cf.reshape(B, NB * ps, C).double()
+    rf = r[pages][:, :, 0].double().reshape(B, NB * ps, -1)
+    s = (torch.einsum("bhc,btc->bht", q_lat.double(), cf)
+         + torch.einsum("bhd,btd->bht", q_rope.double(), rf)) * scale
+    kpos = torch.arange(NB * ps, device=q_lat.device)
+    vis = (kpos[None] <= pos.long()[:, None])[:, None]  # (B, 1, T)
+    p = torch.softmax(torch.where(vis, s, float("-inf")), dim=-1).nan_to_num(0.0)
+    return torch.einsum("bht,btc->bhc", p, cf)
 
 
 def paged_mla_attn_cuda(q_lat, q_rope, c, c_s, r, pos, block_table, *,
                         bits: Optional[int], scale: float) -> torch.Tensor:
-    """Launch the CUDA kernel. q_lat (B, H, C) f32; q_rope (B, H, dr) f32;
-    c (P, ps, 1, C/r) int8 (bf16 when ``bits`` is None); c_s (P, ps, 1) f32;
-    r (P, ps, 1, dr) bf16; pos (B,) int32; block_table (B, NB) int32.
-    Returns (B, H, C) f32."""
+    """Launch the CUDA kernel (the split pass and the merge). q_lat (B, H, C)
+    f32; q_rope (B, H, dr) f32; c (P, ps, 1, C/r) int8 (bf16 when ``bits``
+    is None); c_s (P, ps, 1) f32; r (P, ps, 1, dr) bf16; pos (B,) int32;
+    block_table (B, NB) int32. Returns (B, H, C) f32."""
     dev = q_lat.device
     if dev.type != "cuda":
         raise ValueError(f"paged_mla_attn_cuda needs CUDA tensors, got {dev}")
@@ -276,19 +422,20 @@ def paged_mla_attn_cuda(q_lat, q_rope, c, c_s, r, pos, block_table, *,
     build.check_tensor(block_table, "block_table", torch.int32, dev)
     if block_table.shape[0] != B:
         raise ValueError(f"block_table rows {block_table.shape[0]} != B={B}")
-    # pages stage with 16-byte loads where rows are whole 16-byte vectors
-    vec = int((C * _BITS_CODE[bits]) % 128 == 0 and dr % 8 == 0 and c.data_ptr() % 16 == 0
-              and r.data_ptr() % 16 == 0)
     NB = block_table.shape[1]
     out = torch.empty((B, H, C), dtype=torch.float32, device=dev)
     if B == 0:
         return out
+    nsplit = -(-NB // MLA_PAGES_PER_SPLIT)
+    hb = MLA_HEADS_PER_BLOCK
+    part = torch.empty(B * -(-H // hb) * nsplit * hb * (C + 2), dtype=torch.float32, device=dev)
+    vb = _copy_width(math.gcd(Cr * c.element_size(), dr * r.element_size()), c, r)
     fn = build.lib("paged_mla_attn").paged_mla_attn_launch
     fn.argtypes, fn.restype = _MLA_ARGTYPES, ctypes.c_int
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), c.data_ptr(),
              c_s.data_ptr() if bits is not None else None, r.data_ptr(), pos.data_ptr(),
-             block_table.data_ptr(), out.data_ptr(), B, H, C, dr, ps, NB, _BITS_CODE[bits],
-             float(scale), vec, build.stream_ptr(dev))
+             block_table.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, C, dr, ps, NB,
+             _BITS_CODE[bits], vb, float(scale), build.stream_ptr(dev))
     build.check(err, "paged_mla_attn_launch")
     build.LAUNCHES["paged_mla_attn"] += 1
     return out

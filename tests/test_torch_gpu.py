@@ -8,7 +8,10 @@ Tolerances: mpmm, conv2d and qntpack are integer kernels and paged_gather,
 paged_scatter and paged_copy copy kernels, all bit-exact;
 paged_attn and paged_mla_attn follow the plain version's page-blocked
 softmax but sum inside their dots in another order, so atol = rtol = 1e-5
-(the reference's own fused-vs-twin bound); wdqmm multiplies bf16
+(the reference's own fused-vs-twin bound); at the model's scores (~20),
+where two f32 orders of sums part by about that much, paged_mla_attn is
+held to the exact (f64) attention at 1e-5 and to the plain version at
+1e-5 * (1 + max |plain|), chip_smoke.py's gate; wdqmm multiplies bf16
 activations by the exact integer weights on the tensor cores and scales the
 sum once (f32 activations: the plain version's f32 products summed in
 another order), so |kernel - plain| <= TOL * sum_k |x w| (TOL = 2^-20,
@@ -250,15 +253,32 @@ def test_paged_attn_slot_view_equals_pool(dev, bits):
         assert torch.equal(a, d)
 
 
-def _mla_inputs(g, dev, bits, C, dr, B=3, H=18, ps=16, nb=4):
+def _mla_inputs(g, dev, bits, C, dr, B=3, H=18, ps=16, nb=4, pos=None, q_scale=1.0,
+                scale=None):
     P_ = B * nb + 1
-    q_lat = torch.randn((B, H, C), generator=g).to(dev)
-    q_rope = torch.randn((B, H, dr), generator=g).to(dev)
+    q_lat = (torch.randn((B, H, C), generator=g) * q_scale).to(dev)
+    q_rope = (torch.randn((B, H, dr), generator=g) * q_scale).to(dev)
     cq, cs = A.kv_quantize(torch.randn((P_, ps, 1, C), generator=g).to(dev), bits)
     r = torch.randn((P_, ps, 1, dr), generator=g).to(torch.bfloat16).to(dev)
     bt = (torch.randperm(P_ - 1, generator=g)[: B * nb] + 1).reshape(B, nb).to(torch.int32)
-    pos = torch.tensor([5, 37, nb * ps - 1], dtype=torch.int32, device=dev)
-    return q_lat, q_rope, cq, cs, r, pos, bt.to(dev), dict(bits=bits, scale=1.0 / (C + dr) ** 0.5)
+    pos = torch.tensor([5, 37, nb * ps - 1] if pos is None else pos, dtype=torch.int32,
+                       device=dev)
+    scale = 1.0 / (C + dr) ** 0.5 if scale is None else scale
+    return q_lat, q_rope, cq, cs, r, pos, bt.to(dev), dict(bits=bits, scale=scale)
+
+
+#: DeepSeek-V3's MLA widths (H, C, dr), its softmax scale 1 / sqrt(d_nope +
+#: d_rope), and a table of more than three splits, the last partial, with
+#: slots at 0, at each side of the first split boundary and at the last row
+MLA_FULL = dict(H=128, C=512, dr=64, scale=1.0 / 192 ** 0.5)
+MLA_NB = 3 * PA.MLA_PAGES_PER_SPLIT + 2
+MLA_POS = [0, PA.MLA_PAGES_PER_SPLIT * 16 - 1, PA.MLA_PAGES_PER_SPLIT * 16, MLA_NB * 16 - 1]
+
+
+def _mla_full(g, dev, bits, q_scale=1.0):
+    return _mla_inputs(g, dev, bits, MLA_FULL["C"], MLA_FULL["dr"], B=len(MLA_POS),
+                       H=MLA_FULL["H"], nb=MLA_NB, pos=MLA_POS, q_scale=q_scale,
+                       scale=MLA_FULL["scale"])
 
 
 def _offset(t, nbytes):
@@ -279,13 +299,13 @@ def _misaligned(t):
 
 @pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "kv8", "kv4"])
 def test_paged_mla_attn_kernel_vs_plain(dev, bits):
-    """H = 18 heads (a partial group of the kernel's 4 per block), a
+    """H = 18 heads (a partial group of the kernel's heads a block), a
     shuffled block table, slot 0 with its last pages masked and slot 1
     mid-page; then the dense slot layout through the identity-table view.
-    Pools off 16-byte alignment take the scalar staging, bit-identical to
-    the vector staging; so do rows that are not whole 16-byte vectors
-    (C = 16 at kv4 is 8 bytes, dr = 4 rope rows are 8 bytes), held against
-    the plain version."""
+    Pools off 16-byte alignment take the byte staging, bit-identical to the
+    vector staging; rows that are not whole 16-byte vectors (C = 16 at kv4
+    is 8 bytes, dr = 4 rope rows are 8 bytes, C = 12 is not a multiple of
+    16) are held against the plain version; then DeepSeek-V3's widths."""
     g = torch.Generator().manual_seed(5)
     B, nb, ps = 3, 4, 16
     q_lat, q_rope, cq, cs, r, pos, bt, kw = _mla_inputs(g, dev, bits, C=64, dr=16)
@@ -306,7 +326,53 @@ def test_paged_mla_attn_kernel_vs_plain(dev, bits):
     a = ops.paged_mla_attn(q_lat, q_rope, cq, cs, r, pos, block_table=bt, impl="cuda", **kw)
     b = ops.paged_mla_attn(q_lat, q_rope, cq, cs, r, pos, block_table=bt, impl="torch", **kw)
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
-    assert build.LAUNCHES["paged_mla_attn"] >= 4
+    # DeepSeek-V3's widths, slots on both sides of a split boundary: against
+    # the plain version and its split order. With the queries scaled so that
+    # the scores reach ~20 (the model's scale), where two f32 orders of sums
+    # part by about the gate (tests/test_torch_mla_split.py), against the
+    # exact attention (f64) and the plain version within chip_smoke.py's
+    # gate, 1e-5 * (1 + max |plain|)
+    for q_scale in (1.0, 2.7):
+        *ops_args, bt, kw = _mla_full(g, dev, bits, q_scale)
+        a = ops.paged_mla_attn(*ops_args, block_table=bt, impl="cuda", **kw)
+        b = ops.paged_mla_attn(*ops_args, block_table=bt, impl="torch", **kw)
+        assert torch.isfinite(a).all()
+        if q_scale == 1.0:
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+            c = PA.paged_mla_attn_split_ref(*ops_args, bt, **kw)
+            torch.testing.assert_close(a, c, atol=1e-5, rtol=1e-5)
+        else:
+            exact = PA.paged_mla_attn_f64(*ops_args, bt, **kw)
+            torch.testing.assert_close(a.double(), exact, atol=1e-5, rtol=1e-5)
+            assert float((a - b).abs().max()) <= 1e-5 * (1 + float(b.abs().max()))
+    assert build.LAUNCHES["paged_mla_attn"] >= 6
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["bf16", "kv8", "kv4"])
+def test_paged_mla_attn_bit_identical_and_slot_independent(dev, bits):
+    """At DeepSeek-V3's widths: two calls give the same bits (fixed splits
+    and head groups, a fixed merge order, no atomics), and so do the narrow
+    staging paths over pools off 16-byte alignment (8, 4 and 1 bytes); a
+    slot's output is the same alone, in a larger batch and beside other
+    positions."""
+    g = torch.Generator().manual_seed(53)
+    q_lat, q_rope, cq, cs, r, pos, bt, kw = _mla_full(g, dev, bits)
+    call = lambda ql, qr, c_, r_, p_, b_: ops.paged_mla_attn(  # noqa: E731
+        ql, qr, c_, cs, r_, p_, block_table=b_, impl="cuda", **kw)
+    a = call(q_lat, q_rope, cq, r, pos, bt)
+    assert torch.equal(a, call(q_lat, q_rope, cq, r, pos, bt))
+    for off, vb in ((8, 8), (4, 4), (2, 1)):
+        c_, r_ = _offset(cq, off), _offset(r, off)
+        assert PA._copy_width(cq.shape[-1] * cq.element_size(), c_, r_) == vb
+        assert torch.equal(a, call(q_lat, q_rope, c_, r_, pos, bt)), (off, vb)
+    other = pos.clone()
+    other[0], other[2] = int(pos[3]) - 1, 5
+    assert torch.equal(a[[1, 3]], call(q_lat, q_rope, cq, r, other, bt)[[1, 3]])
+    for b in range(len(pos)):
+        assert torch.equal(a[b:b + 1], call(q_lat[b:b + 1], q_rope[b:b + 1], cq, r,
+                                            pos[b:b + 1], bt[b:b + 1])), b
+    big = call(q_lat.repeat(2, 1, 1), q_rope.repeat(2, 1, 1), cq, r, pos.repeat(2), bt.repeat(2, 1))
+    assert torch.equal(big, a.repeat(2, 1, 1))
 
 
 def _first_difference(got: dict, want: dict) -> str:
