@@ -9,17 +9,22 @@ Phases, in order (any failure ends the run with a nonzero exit):
   2. hold each kernel against its plain PyTorch version on the card:
      mpmm on all 27 cells x 3 output kinds at a small shape and on the five
      main-path (N, K) at M = 4 and 16 (bit-exact); paged_scatter (bit-exact,
-     scratch page excluded); paged_attn on bf16 / kv8 / kv4, with and without
+     scratch page excluded) one leaf at a time and one launch a group on
+     every internlm2 and DeepSeek-V3 leaf set at kv8 / kv4 / bf16 (the
+     layer's k, v, k_s, v_s or c, c_s, r); paged_attn on bf16 / kv8 / kv4, with and without
      a window (tolerance ATTN_TOL), each call twice bit-identical and each
      slot's output the same alone, in the batch and beside other positions;
      conv2d on all 27 cells at the paper's
      Reference Layer and at a ragged shape, qntpack on every output width at
-     the Tab. 1 shape, paged_gather on every cache leaf (all bit-exact);
+     the Tab. 1 shape, paged_gather on every cache leaf and one launch a
+     group on the same leaf sets (all bit-exact);
   3. the serving path: ServeEngine serving internlm2-1.8b at full width under
      policy w4a8 with an 8-bit KV cache (weights from a seeded
      torch.Generator on the card), 4 greedy requests, first on the slot cache
-     and then on the paged cache; the token streams must be identical and
-     mpmm, paged_attn and paged_scatter must have launched;
+     and then on the paged cache; the token streams must be identical,
+     mpmm, paged_attn and paged_scatter must have launched, paged_scatter
+     once a layer and decode step (24 a step); then the paged cache's decode
+     step breakdown, fused and unfused (after the slot cache's, phase 6);
   4. the Reference-Layer path: ``repro_torch.examples.quickstart`` and
      ``mixed_precision_sweep`` (27 cells) on the card, their packed ofmaps
      equal to the CPU run's and their mean errors within 1e-6; then the
@@ -27,13 +32,17 @@ Phases, in order (any failure ends the run with a nonzero exit):
      the fused conv2d; conv2d and qntpack must have launched;
   5. the unfused paged read: the serving path again with
      ``fused_attn=False``, slot then paged cache; the two streams must be
-     identical and paged_gather must have launched (agreement with the fused
+     identical, paged_gather and paged_scatter must have launched once a
+     layer and decode step of the paged run (agreement with the fused
      streams is printed, not gated: the softmax sums in another order);
   6. a teacher-forced decode step at full width, kernel path against plain
      path from the same cache (largest logit difference, argmax agreement);
   7. each kernel's time beside its bound and its plain version's time (per
      decode step for the serving kernels; per call at the paper's shape for
-     conv2d, also at 224 x 224, and qntpack; wdqmm's row, and flash_mha's
+     conv2d, also at 224 x 224, and qntpack; paged_scatter and paged_gather
+     one group a layer as the model calls them, beside the same leaves one
+     launch each, an ``index_put_`` / ``index_select`` a leaf (the library
+     time) and one empty kernel's time (the launch floor, printed); wdqmm's row, and flash_mha's
      and mpmm's prefill_step rows, are timed at the end of phases 10 and
      11, after their paths ran);
      paged_attn per step at kv8 (the row), kv4 and on the bf16 cell; kv8
@@ -45,10 +54,13 @@ Phases, in order (any failure ends the run with a nonzero exit):
      latent cache, the same 4 greedy requests, on the slot cache and then
      the paged cache (fused decode: paged_mla_attn), then both again with
      ``fused_attn=False`` (the paged read through paged_gather); slot and
-     paged streams identical, fused and unfused; then phase 9's five
+     paged streams identical, fused and unfused, paged_scatter once a layer
+     and decode step of the paged runs (3 a step) and paged_gather of the
+     unfused paged run; then phase 9's five
      requests on a cold paged engine and on a prefix engine (streams
      identical, paged_copy launched); then a teacher-forced MLA
-     decode step (kernel vs plain), the MLA step's breakdown, and
+     decode step (kernel vs plain), the MLA step's breakdowns (slot cache,
+     paged cache fused and unfused), and
      paged_mla_attn's time per decode step (its split pass and its merge
      apart) beside its bound, its plain version and
      ``F.scaled_dot_product_attention`` over the latent dequantized ahead of
@@ -583,12 +595,54 @@ def check_paged_mla_attn(torch, dev, mcfg, report):
     report["paged_mla_attn"] = {"max_abs_err": worst, "tol": ATTN_TOL}
 
 
-def check_paged_scatter(torch, dev, cfg, report):
-    from repro_torch.kernels import ops
+def seeded(torch, g, a):
+    """``a`` filled in place with seeded values of its dtype (any byte for
+    int8 codes and packed int4)."""
+    if a.dtype == torch.int8:
+        return a.copy_(torch.randint(-128, 128, a.shape, generator=g, device=a.device,
+                                     dtype=torch.int32))
+    return a.copy_(torch.randn(a.shape, generator=g, device=a.device).mul(40).clamp(-100, 100))
+
+
+def leaf_sets(torch, g, dev, cfg, mcfg, P_):
+    """The leaf sets a layer's cache write and unfused read move as one
+    group, as the model lays them out, (P_, PAGE_SIZE, ...) pools filled with
+    seeded values: internlm2's K/V leaves and DeepSeek-V3's latent leaves at
+    kv8, kv4 and on the bf16 cell."""
+    from repro_torch.models import attention as A
+
+    out = {}
+    for bits in (8, 4, None):
+        tag = "bf16" if bits is None else f"kv{bits}"
+        out[f"internlm2 {tag}"] = A.cache_init(P_, PAGE_SIZE, cfg.kv_heads, cfg.head_dim, bits,
+                                               dev)
+        out[f"DeepSeek-V3 {tag}"] = A.mla_cache_init(P_, PAGE_SIZE, mcfg.mla_cfg, bits, dev)
+    return {k: [seeded(torch, g, a) for a in v.values()] for k, v in out.items()}
+
+
+def same_bytes(torch, a, b) -> bool:
+    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def check_paged_scatter(torch, dev, cfg, mcfg, report):
+    """paged_scatter against its plain version, bit-exact (the scratch page
+    excluded): one leaf at a time on int8 / f32 / bf16 leaves, then one
+    launch a group on every internlm2 and DeepSeek-V3 leaf set; unallocated
+    entries and rows past the table included."""
+    from repro_torch.kernels import build, ops
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     nb = S_MAX // PAGE_SIZE
     P_ = N_SLOTS * nb + 1
+
+    def table():
+        bt = torch.randperm(P_ - 1, generator=g, device=dev)[: N_SLOTS * nb] + 1
+        bt = bt.reshape(N_SLOTS, nb).to(torch.int32)
+        bt[0, 5:] = 0  # unallocated entries land in the scratch page
+        return bt
+
+    # slot 2's rows run past its table
+    pos = torch.tensor([0, 37, S_MAX - 8, 70], dtype=torch.int32, device=dev)
     leaves = ((torch.int8, (cfg.kv_heads, cfg.head_dim)), (torch.float32, (cfg.kv_heads,)),
               (torch.bfloat16, (cfg.kv_heads, cfg.head_dim)))
     for dtype, tail in leaves:
@@ -597,18 +651,30 @@ def check_paged_scatter(torch, dev, cfg, report):
         for S_new in (1, 16):
             new = torch.randn((N_SLOTS, S_new, *tail), generator=g, device=dev).mul(40)
             new = new.clamp(-100, 100).to(dtype)
-            bt = torch.randperm(P_ - 1, generator=g, device=dev)[: N_SLOTS * nb] + 1
-            bt = bt.reshape(N_SLOTS, nb).to(torch.int32)
-            bt[0, 5:] = 0  # unallocated entries land in the scratch page
-            # slot 2's rows run past its table
-            pos = torch.tensor([0, 37, S_MAX - 8, 70], dtype=torch.int32, device=dev)
+            bt = table()
             a = ops.paged_scatter(pool.clone(), new, pos, bt, impl="cuda")
             b = ops.paged_scatter(pool.clone(), new, pos, bt, impl="torch")
             torch.cuda.synchronize()
             if not torch.equal(a[1:], b[1:]):
                 raise AssertionError(f"paged_scatter mismatch dtype={dtype} S_new={S_new}")
+    for name, pools in leaf_sets(torch, g, dev, cfg, mcfg, P_).items():
+        for S_new in (1, 16):
+            news = [seeded(torch, g, torch.empty((N_SLOTS, S_new, *a.shape[2:]), dtype=a.dtype,
+                                                 device=dev)) for a in pools]
+            bt = table()
+            n0 = build.LAUNCHES["paged_scatter"]
+            got = ops.paged_scatter_leaves([a.clone() for a in pools], news, pos, bt, impl="cuda")
+            if build.LAUNCHES["paged_scatter"] != n0 + 1:
+                raise AssertionError(f"paged_scatter group {name}: "
+                                     f"{build.LAUNCHES['paged_scatter'] - n0} launches, want 1")
+            want = ops.paged_scatter_leaves([a.clone() for a in pools], news, pos, bt,
+                                            impl="torch")
+            torch.cuda.synchronize()
+            if not all(same_bytes(torch, x[1:], y[1:]) for x, y in zip(got, want)):
+                raise AssertionError(f"paged_scatter group mismatch on {name} S_new={S_new}")
     report["paged_scatter"] = {"max_abs_err": 0.0}
-    log("paged_scatter: bit-exact on int8 / f32 / bf16 leaves (scratch page excluded)")
+    log("paged_scatter: bit-exact on int8 / f32 / bf16 leaves, and one launch a group on the "
+        "internlm2 and DeepSeek-V3 leaf sets at kv8 / kv4 / bf16 (scratch page excluded)")
 
 
 def ref_layer() -> tuple:
@@ -681,8 +747,12 @@ def check_qntpack(torch, dev, report):
     log(f"qntpack: bit-exact on y = 8, 4, 2 at (M, N) = {TAB1}, int32-edge accumulators included")
 
 
-def check_paged_gather(torch, dev, cfg, report):
-    from repro_torch.kernels import ops
+def check_paged_gather(torch, dev, cfg, mcfg, report):
+    """paged_gather against its plain version, bit-exact: one leaf at a time
+    on every cache leaf and on 15-byte pages, then one launch a group on
+    every internlm2 and DeepSeek-V3 leaf set; unallocated entries, ids past
+    the pool and negative ids included."""
+    from repro_torch.kernels import build, ops
 
     g = torch.Generator(device=dev).manual_seed(SEED + 6)
     nb = S_MAX // PAGE_SIZE
@@ -704,9 +774,20 @@ def check_paged_gather(torch, dev, cfg, report):
         torch.cuda.synchronize()
         if not torch.equal(a, b):
             raise AssertionError(f"paged_gather mismatch on {name} leaves")
+    for name, pools in leaf_sets(torch, g, dev, cfg, mcfg, P_).items():
+        n0 = build.LAUNCHES["paged_gather"]
+        got = ops.paged_gather_leaves(pools, bt, impl="cuda")
+        if build.LAUNCHES["paged_gather"] != n0 + 1:
+            raise AssertionError(f"paged_gather group {name}: "
+                                 f"{build.LAUNCHES['paged_gather'] - n0} launches, want 1")
+        want = ops.paged_gather_leaves(pools, bt, impl="torch")
+        torch.cuda.synchronize()
+        if not all(x.shape == y.shape and same_bytes(torch, x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"paged_gather group mismatch on {name}")
     report["paged_gather"] = {"max_abs_err": 0.0}
     log("paged_gather: bit-exact on int8 / packed int4 / bf16 / f32-scale leaves and 15-byte "
-        "pages, ids past the pool and negative ids included")
+        "pages, and one launch a group on the internlm2 and DeepSeek-V3 leaf sets at kv8 / kv4 "
+        "/ bf16; ids past the pool and negative ids included")
 
 
 def check_paged_copy(torch, dev, cfg, mcfg, report):
@@ -1013,6 +1094,17 @@ def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None, ti
     return out, m
 
 
+def once_a_layer(name, launched, m, cfg, what) -> None:
+    """Gate a page mover's launches on a paged run: one group a layer and
+    decode step (chunked prefill writes its pages by plain indexing)."""
+    want = cfg.n_layers * m["decode_steps"]
+    if launched != want:
+        raise AssertionError(f"{what}: {launched} {name} launches, want one a layer and decode "
+                             f"step ({cfg.n_layers} x {m['decode_steps']} = {want})")
+    log(f"{what}: {name} launched {launched} times, {cfg.n_layers} a decode step "
+        f"({m['decode_steps']} steps)")
+
+
 def reference_layer_path(torch, dev):
     """Phase 4: the quickstart and the 27-cell sweep on the card against
     their CPU runs, then the three phases unfused against the fused conv.
@@ -1278,50 +1370,81 @@ def kernel_table(torch, dev, cfg, params, launches, report):
                      replaces="src/repro/kernels/paged_attn.py:142", ms=t, plain_ms=tp,
                      bytes=nbytes, work=[(nops, F32_FLOPS_PER_S)], library_ms=tl))
 
-    # paged_scatter: the 4 leaves of every layer's pool take one new row per slot
-    news = [torch.ones((B, 1, *a.shape[2:]), dtype=a.dtype, device=dev)
-            for c in cases for a in (c[1], c[2], c[3], c[4])]
-    leaves = [(a, c[5], c[6]) for c in cases for a in (c[1], c[2], c[3], c[4])]
+    # the launch floor: one empty kernel's device time, printed beside the
+    # launch-bound rows (the bound's formula does not change)
+    from repro_torch.kernels.paged_gather import launch_floor_cuda
+
+    floor, _, howf = device_ms(lambda: [launch_floor_cuda(dev) for _ in range(CALLS)],
+                               names=("empty_kernel",))
+    floor /= CALLS
+    log(f"  launch floor: one empty kernel {floor * 1e3:.2f} us device ({CALLS} back to back, "
+        f"{howf})")
+
+    # paged_scatter: one group a layer, as the model calls it (its pool's 4
+    # leaves, one new row per slot); the single-leaf route (a launch a leaf)
+    # and the library yardstick (an index_put_ a leaf) beside it
+    groups = [([c[1], c[2], c[3], c[4]], c[5], c[6]) for c in cases]
+    news = [[torch.ones((B, 1, *a.shape[2:]), dtype=a.dtype, device=dev) for a in leaves]
+            for leaves, _, _ in groups]
 
     def scatter_step(impl):
-        return lambda: [ops.paged_scatter(a, n, p, b, impl=impl)
-                        for (a, p, b), n in zip(leaves, news)]
+        return lambda: [ops.paged_scatter_leaves(lv, n, p, b, impl=impl)
+                        for (lv, p, b), n in zip(groups, news)]
+
+    def scatter_leaf_by_leaf():
+        return [ops.paged_scatter(a, n_, p, b, impl="cuda")
+                for (lv, p, b), n in zip(groups, news) for a, n_ in zip(lv, n)]
 
     idx = []
-    for a, p, b in leaves:
+    for lv, p, b in groups:
         page = b.long().gather(1, (p.long() // PAGE_SIZE)[:, None])[:, 0]
-        idx.append((page, p.long() % PAGE_SIZE))
-    lib_step = lambda: [a.index_put_(ix, n[:, 0])  # noqa: E731
-                        for (a, _, _), n, ix in zip(leaves, news, idx)]
+        idx += [(page, p.long() % PAGE_SIZE)] * len(lv)
+    flat = [(a, n_) for (lv, _, _), n in zip(groups, news) for a, n_ in zip(lv, n)]
+    lib_step = lambda: [a.index_put_(ix, n_[:, 0])  # noqa: E731
+                        for (a, n_), ix in zip(flat, idx)]
     t, tw, how = device_ms(scatter_step("cuda"))
+    t1, t1w, _ = device_ms(scatter_leaf_by_leaf)
     tp, tpw, _ = device_ms(scatter_step("torch"))
     tl, tlw, _ = device_ms(lib_step)
-    nbytes = sum(2 * n.numel() * n.element_size() + B * 8 for n in news)
-    log(f"  paged_scatter, one decode step ({len(leaves)} calls): {t:.4f} ms device ({how}), "
-        f"{tw:.3f} ms wall; plain {tp:.4f} ms device, {tpw:.3f} ms wall; index_put_ "
-        f"{tl:.4f} ms device, {tlw:.3f} ms wall")
+    nbytes = sum(2 * n_.numel() * n_.element_size() + B * 8 for _, n_ in flat)
+    log(f"  paged_scatter, one decode step ({len(groups)} group calls of {len(flat)} leaves): "
+        f"{t:.4f} ms device ({how}), {t / len(groups) * 1e3:.2f} us a launch against the "
+        f"{floor * 1e3:.2f} us floor, {tw:.3f} ms wall; leaf by leaf ({len(flat)} launches) "
+        f"{t1:.4f} ms device, {t1w:.3f} ms wall; plain {tp:.4f} ms device, {tpw:.3f} ms wall; "
+        f"index_put_ ({len(flat)} calls) {tl:.4f} ms device, {tlw:.3f} ms wall")
     rows.append(dict(name="paged_scatter", route="cuda",
                      source="src/repro_torch/csrc/paged_scatter.cu",
                      replaces="src/repro/kernels/paged_gather.py:91", ms=t, plain_ms=tp,
                      bytes=nbytes, work=[], library_ms=tl))
 
-    # paged_gather: the unfused step reads the 4 leaves of every layer's pool
-    # through the block table (B = 4, 64 pages each)
-    gleaves = [(a, c[6]) for c in cases for a in (c[1], c[2], c[3], c[4])]
-
+    # paged_gather: the unfused step reads every layer's 4 leaves through
+    # the block table (B = 4, 64 pages each), one group a layer; the
+    # single-leaf route and the library yardstick (an index_select a leaf)
+    # beside it
     def gather_step(impl):
-        return lambda: [ops.paged_gather(a, b, impl=impl) for a, b in gleaves]
+        return lambda: [ops.paged_gather_leaves(lv, b, impl=impl) for lv, _, b in groups]
+
+    def gather_leaf_by_leaf():
+        return [ops.paged_gather(a, b, impl="cuda") for lv, _, b in groups for a in lv]
 
     lib_gather = lambda: [a.index_select(0, b.flatten())  # noqa: E731
-                          for a, b in gleaves]
+                          for lv, _, b in groups for a in lv]
     t, tw, how = device_ms(gather_step("cuda"))
+    t1, t1w, _ = device_ms(gather_leaf_by_leaf)
     tp, tpw, _ = device_ms(gather_step("torch"))
     tl, tlw, _ = device_ms(lib_gather)
     nbytes = sum(2 * b.numel() * a[0].numel() * a.element_size() + b.numel() * 4
-                 for a, b in gleaves)
-    log(f"  paged_gather, one unfused decode step ({len(gleaves)} calls, {nbytes / 1e6:.1f} MB "
-        f"moved): {t:.4f} ms device ({how}), {tw:.3f} ms wall; plain {tp:.4f} ms device, "
-        f"{tpw:.3f} ms wall; index_select {tl:.4f} ms device, {tlw:.3f} ms wall")
+                 for lv, _, b in groups for a in lv)
+    kv = sum(2 * b.numel() * lv[0][0].numel() * lv[0].element_size() * 2 for lv, _, b in groups)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  paged_gather, one unfused decode step ({len(groups)} group calls of "
+        f"{sum(len(lv) for lv, _, _ in groups)} leaves, {nbytes / 1e6:.1f} MB moved, "
+        f"{kv / 1e6:.1f} of it K/V codes): {t:.4f} ms device ({how}), "
+        f"{nbytes / t / 1e6:.0f} GB/s, {bound / t:.2f} of the bound, "
+        f"{t / len(groups) * 1e3:.2f} us a launch against the {floor * 1e3:.2f} us floor, "
+        f"{tw:.3f} ms wall; leaf by leaf ({sum(len(lv) for lv, _, _ in groups)} launches) "
+        f"{t1:.4f} ms device, {t1w:.3f} ms wall; plain {tp:.4f} ms device, {tpw:.3f} ms wall; "
+        f"index_select {tl:.4f} ms device, {tlw:.3f} ms wall")
     rows.append(dict(name="paged_gather", route="cuda",
                      source="src/repro_torch/csrc/paged_gather.cu",
                      replaces="src/repro/kernels/paged_gather.py:52", ms=t, plain_ms=tp,
@@ -1334,7 +1457,7 @@ def kernel_table(torch, dev, cfg, params, launches, report):
     from repro_torch.kernels.paged_gather import paged_copy_cuda, paged_copy_ref
 
     src, dst = torch.tensor([1], dtype=torch.int32), torch.tensor([2], dtype=torch.int32)
-    cow = [(a, src, dst) for c in cases for a in (c[1], c[2], c[3], c[4])]
+    cow = [(a, src, dst) for lv, _, _ in groups for a in lv]
     cow_dev = [(a, s_.to(dev), d_.to(dev)) for a, s_, d_ in cow]
     t, tw, how = device_ms(lambda: [paged_copy_cuda(a, s_, d_) for a, s_, d_ in cow],
                            names=("paged_copy_kernel",))
@@ -1473,6 +1596,30 @@ def step_breakdown(torch, dev, cfg, policy, params):
                                  fused_attn=True)
     profile_breakdown(torch, step, f"decode step breakdown ({cfg.name}, {policy.name}, "
                       f"{cfg.n_layers} layers, slot cache, 4 slots at 159..543 cached rows)")
+
+
+def paged_breakdown(torch, dev, cfg, policy, params):
+    """Profile one full-width decode step on the paged cache, fused (the
+    paged attention kernel) and unfused (every layer's leaves gathered
+    first): wall time, device busy time and device time by kernel. Each slot
+    holds S_MAX // PAGE_SIZE pages of its own, shuffled over the pool, at
+    the positions of ``step_breakdown``."""
+    from repro_torch.models import model as M
+
+    nb = S_MAX // PAGE_SIZE
+    caches = M.init_paged_cache(cfg, policy, N_SLOTS * nb + 1, PAGE_SIZE, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    bt = (torch.randperm(N_SLOTS * nb, generator=g, device=dev) + 1).reshape(N_SLOTS, nb)
+    bt = bt.to(torch.int32).contiguous()
+    toks = torch.ones((N_SLOTS, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor([n + MAX_NEW - 1 for n in PROMPT_LENS], dtype=torch.int32, device=dev)
+    for fused in (True, False):
+        step = lambda fused=fused: M.decode_step(  # noqa: E731
+            params, toks, pos, caches, cfg, policy, block_tables=bt, fused_attn=fused)
+        profile_breakdown(torch, step, f"decode step breakdown ({cfg.name}, {policy.name}, "
+                          f"{cfg.n_layers} layers, paged cache, "
+                          f"{'fused' if fused else 'unfused'}, 4 slots at 159..543 cached rows "
+                          f"of {nb} pages each)")
 
 
 def profile_breakdown(torch, step, label: str, reps: int = 3):
@@ -2113,7 +2260,7 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
 
     build.reset_launches()  # the fused MLA serving path starts here
     out_slot, _ = serve(torch, dev, cfg, policy, params, "slot")
-    out_paged, _ = serve(torch, dev, cfg, policy, params, "paged")
+    out_paged, m_paged = serve(torch, dev, cfg, policy, params, "paged")
     fused_launches = dict(build.LAUNCHES)  # the fused MLA serving path ends here
     log(f"launches on the fused MLA path: {fused_launches}")
     if out_slot != out_paged:
@@ -2121,6 +2268,8 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
     for name in ("mpmm", "paged_mla_attn", "paged_scatter"):
         if fused_launches.get(name, 0) == 0:
             raise AssertionError(f"kernel {name} was not launched on the fused MLA path")
+    once_a_layer("paged_scatter", fused_launches["paged_scatter"], m_paged, cfg,
+                 "the fused MLA paged path (the slot run launches none)")
     wo, wparams = wo_policy(), weight_only(params)
     build.reset_launches()  # the weight-only MLA path starts here
     wo_slot, _ = serve(torch, dev, cfg, wo, wparams, "slot")
@@ -2140,7 +2289,7 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
     del wparams
     build.reset_launches()  # the unfused MLA serving path starts here
     unf_slot, _ = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False)
-    unf_paged, _ = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
+    unf_paged, m_unf = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
     unf_launches = dict(build.LAUNCHES)  # the unfused MLA serving path ends here
     log(f"launches on the unfused MLA path: {unf_launches}")
     if unf_slot != unf_paged:
@@ -2148,6 +2297,8 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
     if unf_launches.get("paged_gather", 0) == 0 or unf_launches.get("paged_mla_attn", 0):
         raise AssertionError(f"MLA unfused path: paged_gather must run, paged_mla_attn not: "
                              f"{unf_launches}")
+    for name in ("paged_scatter", "paged_gather"):
+        once_a_layer(name, unf_launches[name], m_unf, cfg, "the unfused MLA paged path")
     same = sum(a == b for rid in out_paged for a, b in zip(out_paged[rid], unf_paged[rid]))
     log(f"MLA: slot and paged streams identical, fused and unfused; {same} of "
         f"{sum(len(t) for t in out_paged.values())} tokens of the unfused streams equal the "
@@ -2157,6 +2308,7 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
 
     teacher_forced(torch, dev, cfg, policy, params, report, key="teacher_forced_mla")
     step_breakdown(torch, dev, cfg, policy, params)
+    paged_breakdown(torch, dev, cfg, policy, params)
 
     # paged_mla_attn per decode step: one call per layer at kv8, each layer
     # on its own latent pool, at the serving run's positions. The window
@@ -2287,11 +2439,11 @@ def main() -> int:
     policy = get_policy("w4a8")
     report: dict = {}
     check_mpmm(torch, dev, cfg, report)
-    check_paged_scatter(torch, dev, cfg, report)
+    check_paged_scatter(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
     check_paged_attn(torch, dev, cfg, report)
     check_conv2d(torch, dev, report)
     check_qntpack(torch, dev, report)
-    check_paged_gather(torch, dev, cfg, report)
+    check_paged_gather(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
     check_paged_mla_attn(torch, dev, configs.get_arch(MLA_ARCH), report)
     check_paged_copy(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
     check_wdqmm(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
@@ -2307,7 +2459,7 @@ def main() -> int:
     build.reset_launches()  # the serving path starts here
     out_slot, _ = serve(torch, dev, cfg, policy, params, "slot")
     slot_launches = dict(build.LAUNCHES)
-    out_paged, _ = serve(torch, dev, cfg, policy, params, "paged")
+    out_paged, m_paged = serve(torch, dev, cfg, policy, params, "paged")
     launches = dict(build.LAUNCHES)  # the serving path ends here
     log(f"launches on the serving path: slot {slot_launches}, slot + paged {launches}")
     if out_slot != out_paged:
@@ -2316,18 +2468,22 @@ def main() -> int:
     for name in ("mpmm", "paged_attn", "paged_scatter"):
         if launches.get(name, 0) == 0:
             raise AssertionError(f"kernel {name} was not launched on the serving path")
+    once_a_layer("paged_scatter", launches["paged_scatter"] - slot_launches.get("paged_scatter", 0),
+                 m_paged, cfg, "the paged serving path")
 
     ref_launches = reference_layer_path(torch, dev)
 
     build.reset_launches()  # the unfused paged read starts here
     unf_slot, _ = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False)
-    unf_paged, _ = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
+    unf_paged, m_unf = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
     unf_launches = dict(build.LAUNCHES)  # the unfused paged read ends here
     log(f"launches on the unfused path: {unf_launches}")
     if unf_slot != unf_paged:
         raise AssertionError("unfused slot and unfused paged token streams differ")
     if unf_launches.get("paged_gather", 0) == 0:
         raise AssertionError("kernel paged_gather was not launched on the unfused paged path")
+    for name in ("paged_scatter", "paged_gather"):
+        once_a_layer(name, unf_launches[name], m_unf, cfg, "the unfused paged serving path")
     same = sum(a == b for rid in out_paged for a, b in zip(out_paged[rid], unf_paged[rid]))
     log(f"unfused slot and unfused paged token streams identical; {same} of "
         f"{sum(len(t) for t in out_paged.values())} tokens equal the fused paged streams "
@@ -2340,6 +2496,7 @@ def main() -> int:
 
     teacher_forced(torch, dev, cfg, policy, params, report)
     step_breakdown(torch, dev, cfg, policy, params)
+    paged_breakdown(torch, dev, cfg, policy, params)
     rows = kernel_table(torch, dev, cfg, params, launches, report)
     wo_row, wo_launches = weight_only_path(torch, dev, cfg, params, report)
     rows.insert(1, kernel_row(wo_row, wo_launches, report))

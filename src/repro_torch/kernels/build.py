@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 #: seconds the last :func:`ensure_built` spent compiling (0.0 on a cache hit)
 BUILD_SECONDS = 0.0
 #: seconds from the start of that build until each source's nvcc ended
@@ -132,6 +133,17 @@ def build_logs() -> dict[str, str]:
 
 def lib(name: str) -> ctypes.CDLL:
     return ensure_built()[name]
+
+
+def entry(source: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """C entry point ``symbol`` of source ``source``, its ``argtypes`` set
+    (and an int ``restype``, the ``cudaError_t``) once, at its first call."""
+    fn = _ENTRIES.get((source, symbol))
+    if fn is None:
+        fn = getattr(lib(source), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _ENTRIES[source, symbol] = fn
+    return fn
 
 
 def library_path(name: str) -> pathlib.Path:

@@ -66,8 +66,7 @@ def conv2d_cuda(
     out = torch.empty((H, W, Cout // ry), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    fn = build.lib("conv2d").conv2d_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.entry("conv2d", "conv2d_launch", _ARGTYPES)
     err = fn(x_p.data_ptr(), w_p.data_ptr(), rqv.data_ptr(), out.data_ptr(), H, W, C, cp, Cout,
              x_bits, w_bits, y_bits, build.stream_ptr(dev))
     build.check(err, "conv2d_launch")

@@ -17,7 +17,8 @@ device a kernel that does not build or launch raises.
 Ops in the registry: ``mpmm`` and ``conv2d`` (all 27 (x, w, y) cells),
 ``qntpack`` (one cell per output width y), ``wdqmm`` (one cell per weight
 width w), ``paged_gather``,
-``paged_scatter`` and ``paged_copy`` (one storage-agnostic cell each),
+``paged_scatter`` and ``paged_copy`` (one storage-agnostic cell each; a
+gather or scatter call moves a group of up to four leaves in one launch),
 ``paged_attn`` and ``paged_mla_attn`` (one cell per KV width each),
 ``flash_mha`` (one cell: f32 math over bf16 or f32 operands).
 """
@@ -185,10 +186,10 @@ def _register_library() -> None:
     from repro_torch.kernels.paged_gather import (
         paged_copy_cuda,
         paged_copy_ref,
-        paged_gather_cuda,
-        paged_gather_ref,
-        paged_scatter_cuda,
-        paged_scatter_ref,
+        paged_gather_leaves_cuda,
+        paged_gather_leaves_ref,
+        paged_scatter_leaves_cuda,
+        paged_scatter_leaves_ref,
     )
     from repro_torch.kernels.qntpack import qntpack_cuda
     from repro_torch.kernels.ref import (
@@ -223,10 +224,11 @@ def _register_library() -> None:
                  fn=functools.partial(wdqmm_cuda, w_bits=w_bits), name=f"wdqmm_i{w_bits}")
         register("wdqmm", w_bits=w_bits, impl="torch",
                  fn=functools.partial(wdqmm_ref, w_bits=w_bits), name=f"wdqmm_i{w_bits}_ref")
-    register("paged_gather", impl="cuda", fn=paged_gather_cuda, name="paged_gather")
-    register("paged_gather", impl="torch", fn=paged_gather_ref, name="paged_gather_ref")
-    register("paged_scatter", impl="cuda", fn=paged_scatter_cuda, name="paged_scatter")
-    register("paged_scatter", impl="torch", fn=paged_scatter_ref, name="paged_scatter_ref")
+    register("paged_gather", impl="cuda", fn=paged_gather_leaves_cuda, name="paged_gather")
+    register("paged_gather", impl="torch", fn=paged_gather_leaves_ref, name="paged_gather_ref")
+    register("paged_scatter", impl="cuda", fn=paged_scatter_leaves_cuda, name="paged_scatter")
+    register("paged_scatter", impl="torch", fn=paged_scatter_leaves_ref,
+             name="paged_scatter_ref")
     register("paged_copy", impl="cuda", fn=paged_copy_cuda, name="paged_copy")
     register("paged_copy", impl="torch", fn=paged_copy_ref, name="paged_copy_ref")
     register("flash_mha", impl="cuda", fn=flash_mha_cuda, name="flash_mha")

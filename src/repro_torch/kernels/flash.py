@@ -78,8 +78,7 @@ def flash_mha_cuda(
     vec = all(t.data_ptr() % 16 == 0 and all(t.stride(i) * t.element_size() % 16 == 0
                                              for i in range(3)) for t in (q, k, v))
     strides = (ctypes.c_longlong * 9)(*(t.stride(i) for t in (q, k, v) for i in (0, 1, 2)))
-    fn = build.lib("flash_mha").flash_mha_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.entry("flash_mha", "flash_mha_launch", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Sq, Sk, D,
              ctypes.cast(strides, ctypes.c_void_p), int(causal),
              0 if window is None else int(window), 1.0 / (D**0.5),

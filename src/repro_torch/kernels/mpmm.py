@@ -71,8 +71,7 @@ def mpmm_cuda(
         out = torch.empty((M, N), dtype=torch.int32, device=dev)
     if M == 0 or N == 0:
         return out
-    fn = build.lib("mpmm").mpmm_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.entry("mpmm", "mpmm_launch", _ARGTYPES)
     # the launcher picks the tile regime from M and 16-byte or byte staging
     # from the row pitches and the pointers
     err = fn(x_p.data_ptr(), w_p.data_ptr(),

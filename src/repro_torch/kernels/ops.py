@@ -1,6 +1,8 @@
 """Public entry points for the port's kernels (counterpart of
 ``repro.kernels.ops``): ``mpmm``, ``wdqmm``, ``qntpack``, ``conv2d``,
-``paged_gather``, ``paged_scatter``, ``paged_copy``, ``paged_attn``,
+``paged_gather`` and ``paged_scatter`` (one leaf, or a group of up to four
+leaves in one launch: ``paged_gather_leaves``, ``paged_scatter_leaves``),
+``paged_copy``, ``paged_attn``,
 ``paged_mla_attn`` and ``flash_mha``, plus the quantize-and-pack helpers.
 
 Every call routes through the dispatch registry. ``impl="auto"`` launches
@@ -123,9 +125,20 @@ def paged_gather(
     impl: Impl = "auto",
 ) -> torch.Tensor:
     """Gather a paged pool into contiguous logical rows (B, n_blocks *
-    page_size, ...) at stored width: the unfused paged decode read."""
-    entry = dispatch.lookup("paged_gather", device=pool.device, impl=impl)
-    return entry.fn(pool, block_table)
+    page_size, ...) at stored width: a group of one leaf."""
+    return paged_gather_leaves([pool], block_table, impl=impl)[0]
+
+
+def paged_gather_leaves(
+    pools,  # up to 4 (n_pages, page_size, ...) pools, any dtype each
+    block_table: torch.Tensor,  # (B, n_blocks) int32, shared by the leaves
+    *,
+    impl: Impl = "auto",
+) -> list:
+    """Gather each pool into contiguous logical rows at stored width in one
+    kernel launch: the unfused paged decode read of a layer's leaves."""
+    entry = dispatch.lookup("paged_gather", device=pools[0].device, impl=impl)
+    return entry.fn(pools, block_table)
 
 
 def paged_scatter(
@@ -138,9 +151,22 @@ def paged_scatter(
 ) -> torch.Tensor:
     """Scatter new token rows into the page pool through the block table
     (in place; returns the pool). Rows past the table, or on unallocated
-    entries (0), land in the scratch page."""
-    entry = dispatch.lookup("paged_scatter", device=pool.device, impl=impl)
-    return entry.fn(pool, new, pos, block_table)
+    entries (0), land in the scratch page. A group of one leaf."""
+    return paged_scatter_leaves([pool], [new], pos, block_table, impl=impl)[0]
+
+
+def paged_scatter_leaves(
+    pools,  # up to 4 (n_pages, page_size, ...) pools, written in place
+    news,  # each pool's (B, S_new, ...) rows to write
+    pos: torch.Tensor,  # (B,) int32 logical write positions, shared
+    block_table: torch.Tensor,  # (B, n_blocks) int32, shared
+    *,
+    impl: Impl = "auto",
+) -> list:
+    """Scatter each leaf's new rows into its pool in one kernel launch (in
+    place; returns the pools): a layer's cache write."""
+    entry = dispatch.lookup("paged_scatter", device=pools[0].device, impl=impl)
+    return entry.fn(pools, news, pos, block_table)
 
 
 def paged_copy(

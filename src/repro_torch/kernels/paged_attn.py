@@ -204,8 +204,7 @@ def paged_attn_cuda(q, k, k_s, v, v_s, pos, block_table, *, bits: Optional[int],
     part = torch.empty(B * Hkv * nsplit * (Hq // Hkv) * (D + 2), dtype=torch.float32,
                        device=dev)
     vb = _copy_width(Dr * k.element_size(), k, v)
-    fn = build.lib("paged_attn").paged_attn_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.entry("paged_attn", "paged_attn_launch", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(),
              k_s.data_ptr() if bits is not None else None, v.data_ptr(),
              v_s.data_ptr() if bits is not None else None, pos.data_ptr(),
@@ -430,8 +429,7 @@ def paged_mla_attn_cuda(q_lat, q_rope, c, c_s, r, pos, block_table, *,
     hb = MLA_HEADS_PER_BLOCK
     part = torch.empty(B * -(-H // hb) * nsplit * hb * (C + 2), dtype=torch.float32, device=dev)
     vb = _copy_width(math.gcd(Cr * c.element_size(), dr * r.element_size()), c, r)
-    fn = build.lib("paged_mla_attn").paged_mla_attn_launch
-    fn.argtypes, fn.restype = _MLA_ARGTYPES, ctypes.c_int
+    fn = build.entry("paged_mla_attn", "paged_mla_attn_launch", _MLA_ARGTYPES)
     err = fn(q_lat.data_ptr(), q_rope.data_ptr(), c.data_ptr(),
              c_s.data_ptr() if bits is not None else None, r.data_ptr(), pos.data_ptr(),
              block_table.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, C, dr, ps, NB,

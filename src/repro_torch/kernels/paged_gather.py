@@ -19,22 +19,44 @@ PyTorch versions.
     ORIGINAL bits. Ids follow the twin too: negative ids count from the
     end, then a source id clamps into the pool and a destination id outside
     it is dropped. Duplicate ``dst`` entries are outside the contract.
+
+Gather and scatter take a group of up to four leaves (a layer's k, v, k_s,
+v_s, or its c, c_s, r) that share the block table (and ``pos``), each leaf
+of its own dtype and width: one kernel launch a group. The single-leaf ops
+are a group of one.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.kernels import build
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_longlong,
-                                                            ctypes.c_int, ctypes.c_void_p]
+#: leaves a group call takes (a layer's k, v, k_s, v_s); MAX_LEAVES in
+#: csrc/paged_scatter.cu and csrc/paged_gather.cu
+MAX_LEAVES = 4
+_PTRS = ctypes.c_void_p * MAX_LEAVES
+_SIZES = ctypes.c_longlong * MAX_LEAVES
+_INTS = ctypes.c_int * MAX_LEAVES
+_SCATTER_ARGTYPES = [ctypes.c_int, _PTRS, _PTRS, _SIZES, _INTS, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_GATHER_ARGTYPES = [ctypes.c_int, _PTRS, _PTRS, _SIZES, _INTS, _INTS, ctypes.c_void_p,
+                    ctypes.c_longlong, ctypes.c_void_p]
 _COPY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_int,
                                                                 ctypes.c_void_p]
-_GATHER_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-                                            ctypes.c_int, ctypes.c_void_p]
+
+
+def _group_size(n: int, what: str) -> None:
+    if not 1 <= n <= MAX_LEAVES:
+        raise ValueError(f"{what} takes 1 to {MAX_LEAVES} leaves, got {n}")
+
+
+def _wide(nbytes: int, *tensors) -> int:
+    """1 where ``nbytes`` and every pointer allow 16-byte copies."""
+    return int(nbytes % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _page_ids(block_table: torch.Tensor, n_pages: int) -> torch.Tensor:
@@ -51,31 +73,42 @@ def paged_gather_ref(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Ten
     return g.reshape(B, NB * pool.shape[1], *pool.shape[2:])
 
 
-def paged_gather_cuda(pool: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: one block per gathered page."""
-    dev = pool.device
+def paged_gather_leaves_ref(pools, block_table: torch.Tensor) -> list:
+    """The group's plain version: ``paged_gather_ref`` on each leaf."""
+    return [paged_gather_ref(pool, block_table) for pool in pools]
+
+
+def paged_gather_leaves_cuda(pools, block_table: torch.Tensor) -> list:
+    """Launch the CUDA kernel once for up to four leaves that share the
+    block table: each pool (P, ps, ...) -> (B, NB * ps, ...)."""
+    _group_size(len(pools), "paged_gather")
+    dev = pools[0].device
     if dev.type != "cuda":
-        raise ValueError(f"paged_gather_cuda needs CUDA tensors, got {dev}")
-    build.check_tensor(pool, "pool", pool.dtype, dev)
+        raise ValueError(f"paged_gather needs CUDA tensors, got {dev}")
     build.check_tensor(block_table, "block_table", torch.int32, dev)
-    if block_table.dim() != 2 or pool.dim() < 2:
-        raise ValueError("paged_gather takes a (P, ps, ...) pool and a (B, NB) block table")
-    P_, ps = pool.shape[:2]
+    if block_table.dim() != 2:
+        raise ValueError("paged_gather takes a (B, NB) block table")
     B, NB = block_table.shape
-    out = torch.empty((B, NB * ps, *pool.shape[2:]), dtype=pool.dtype, device=dev)
-    if out.numel() == 0:
-        return out
-    if P_ == 0:
+    outs = []
+    for i, pool in enumerate(pools):
+        build.check_tensor(pool, f"pools[{i}]", pool.dtype, dev)
+        if pool.dim() < 2:
+            raise ValueError("paged_gather takes (P, ps, ...) pools")
+        outs.append(torch.empty((B, NB * pool.shape[1], *pool.shape[2:]), dtype=pool.dtype,
+                                device=dev))
+    page_bytes = [math.prod(pool.shape[1:]) * pool.element_size() for pool in pools]
+    if B * NB == 0 or not any(page_bytes):
+        return outs
+    if any(pool.shape[0] == 0 for pool in pools):
         raise ValueError("paged_gather from an empty pool")
-    page_bytes = pool[0].numel() * pool.element_size()
-    vec = int(page_bytes % 16 == 0 and pool.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
-    fn = build.lib("paged_gather").paged_gather_launch
-    fn.argtypes, fn.restype = _GATHER_ARGTYPES, ctypes.c_int
-    err = fn(pool.data_ptr(), block_table.data_ptr(), out.data_ptr(), P_, B * NB, page_bytes,
-             vec, build.stream_ptr(dev))
+    err = build.entry("paged_gather", "paged_gather_launch", _GATHER_ARGTYPES)(
+        len(pools), _PTRS(*(p.data_ptr() for p in pools)), _PTRS(*(o.data_ptr() for o in outs)),
+        _SIZES(*page_bytes), _INTS(*(_wide(n, p, o) for n, p, o in zip(page_bytes, pools, outs))),
+        _INTS(*(p.shape[0] for p in pools)), block_table.data_ptr(), B * NB,
+        build.stream_ptr(dev))
     build.check(err, "paged_gather_launch")
     build.LAUNCHES["paged_gather"] += 1
-    return out
+    return outs
 
 
 def paged_scatter_ref(pool: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
@@ -94,33 +127,55 @@ def paged_scatter_ref(pool: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
     return pool
 
 
-def paged_scatter_cuda(pool: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
-                       block_table: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: writes ``pool`` in place and returns it."""
-    dev = pool.device
+def paged_scatter_leaves_ref(pools, news, pos: torch.Tensor,
+                             block_table: torch.Tensor) -> list:
+    """The group's plain version: ``paged_scatter_ref`` on each leaf."""
+    return [paged_scatter_ref(pool, new, pos, block_table) for pool, new in zip(pools, news)]
+
+
+def paged_scatter_leaves_cuda(pools, news, pos: torch.Tensor,
+                              block_table: torch.Tensor) -> list:
+    """Launch the CUDA kernel once for up to four leaves that share ``pos``
+    and the block table: writes each pool in place and returns them."""
+    _group_size(len(pools), "paged_scatter")
+    if len(news) != len(pools):
+        raise ValueError(f"paged_scatter: {len(pools)} pools but {len(news)} new row sets")
+    dev = pools[0].device
     if dev.type != "cuda":
-        raise ValueError(f"paged_scatter_cuda needs CUDA tensors, got {dev}")
-    new = new.to(pool.dtype).contiguous()
-    P_, ps = pool.shape[:2]
-    B, S_new = new.shape[:2]
-    build.check_tensor(pool, "pool", pool.dtype, dev)
-    build.check_tensor(new, "new", pool.dtype, dev, (B, S_new, *pool.shape[2:]))
+        raise ValueError(f"paged_scatter needs CUDA tensors, got {dev}")
+    news = [new.to(pool.dtype).contiguous() for pool, new in zip(pools, news)]
+    ps = pools[0].shape[1]
+    B, S_new = news[0].shape[:2]
+    for i, (pool, new) in enumerate(zip(pools, news)):
+        build.check_tensor(pool, f"pools[{i}]", pool.dtype, dev)
+        build.check_tensor(new, f"news[{i}]", pool.dtype, dev, (B, S_new, *pool.shape[2:]))
+        if pool.shape[1] != ps:
+            raise ValueError(f"paged_scatter: pools of page size {pool.shape[1]} and {ps} "
+                             "cannot share a block table")
     build.check_tensor(pos, "pos", torch.int32, dev, (B,))
     build.check_tensor(block_table, "block_table", torch.int32, dev)
     if block_table.dim() != 2 or block_table.shape[0] != B:
         raise ValueError(f"block_table must be (B={B}, NB), got {tuple(block_table.shape)}")
     if B * S_new == 0:
-        return pool
-    row_bytes = new[0, 0].numel() * new.element_size()
-    vec = int(row_bytes % 16 == 0 and pool.data_ptr() % 16 == 0
-              and new.data_ptr() % 16 == 0)
-    fn = build.lib("paged_scatter").paged_scatter_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    err = fn(pool.data_ptr(), new.data_ptr(), pos.data_ptr(), block_table.data_ptr(),
-             B, S_new, block_table.shape[1], ps, row_bytes, vec, build.stream_ptr(dev))
+        return pools
+    row_bytes = [new[0, 0].numel() * new.element_size() for new in news]
+    err = build.entry("paged_scatter", "paged_scatter_launch", _SCATTER_ARGTYPES)(
+        len(pools), _PTRS(*(p.data_ptr() for p in pools)), _PTRS(*(n.data_ptr() for n in news)),
+        _SIZES(*row_bytes), _INTS(*(_wide(r, p, n) for r, p, n in zip(row_bytes, pools, news))),
+        pos.data_ptr(), block_table.data_ptr(), B, S_new, block_table.shape[1], ps,
+        build.stream_ptr(dev))
     build.check(err, "paged_scatter_launch")
     build.LAUNCHES["paged_scatter"] += 1
-    return pool
+    return pools
+
+
+def launch_floor_cuda(device) -> None:
+    """Launch one empty kernel on ``device``'s current stream: the launch
+    floor against which a launch-bound kernel's device time is read. Counts
+    no launch (it is no kernel of the port)."""
+    err = build.entry("paged_scatter", "empty_launch", [ctypes.c_void_p])(
+        build.stream_ptr(device))
+    build.check(err, "empty_launch")
 
 
 def _wrap_ids(ids: torch.Tensor, n_pages: int) -> torch.Tensor:
@@ -161,8 +216,7 @@ def paged_copy_cuda(pool: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) ->
     page_bytes = pool[0].numel() * pool.element_size()
     if K == 0 or page_bytes == 0:
         return pool
-    fn = build.lib("paged_copy").paged_copy_launch
-    fn.argtypes, fn.restype = _COPY_ARGTYPES, ctypes.c_int
+    fn = build.entry("paged_copy", "paged_copy_launch", _COPY_ARGTYPES)
     stream = build.stream_ptr(dev)
 
     def launch(frm, sidx, to, didx):

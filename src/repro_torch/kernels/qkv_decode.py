@@ -86,8 +86,7 @@ def qkv_decode_cuda(q, k_q, k_s, v_q, v_s, pos: int, *, bits: int = 8,
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
     if B == 0 or Hq == 0:
         return out
-    fn = build.lib("qkv_decode").qkv_decode_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.entry("qkv_decode", "qkv_decode_launch", _ARGTYPES)
     err = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
              out.data_ptr(), B, Hq, Hkv, S, D, bits, int(pos), 1.0 / (D**0.5),
              build.stream_ptr(dev))

@@ -36,8 +36,7 @@ def qntpack_cuda(phi: torch.Tensor, rqv: torch.Tensor, *, y_bits: int) -> torch.
     out = torch.empty((M, N // ry), dtype=torch.int8, device=dev)
     if out.numel() == 0:
         return out
-    fn = build.lib("qntpack").qntpack_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.entry("qntpack", "qntpack_launch", _ARGTYPES)
     err = fn(phi.data_ptr(), rqv.data_ptr(), out.data_ptr(), out.numel(), y_bits,
              build.stream_ptr(dev))
     build.check(err, "qntpack_launch")

@@ -69,8 +69,7 @@ def wdqmm_cuda(
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0 or N == 0:
         return out
-    fn = build.lib("wdqmm").wdqmm_launch
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    fn = build.entry("wdqmm", "wdqmm_launch", _ARGTYPES)
     # the launcher picks the vector or the scalar path from K and the pointers
     err = fn(x.data_ptr(), w_p.data_ptr(), eps_w.data_ptr(), out.data_ptr(), M, N, K, w_bits,
              int(x.dtype == torch.float32), build.stream_ptr(dev))

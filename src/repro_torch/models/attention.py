@@ -132,27 +132,29 @@ def cache_init(batch: int, s_max: int, kv_heads: int, head_dim: int,
             "v_s": torch.zeros(shape_s, dtype=torch.float32, device=device)}
 
 
-def seq_insert(buf: torch.Tensor, new: torch.Tensor, pos, *,
-               block_table: Optional[torch.Tensor] = None,
-               impl: ops.Impl = "auto") -> torch.Tensor:
-    """Write ``new`` (B, S_new, ...) into ``buf`` at sequence positions
-    ``pos`` ((B,) int32, one offset per row; (1,) broadcasts), in place.
+def seq_insert(bufs, news, pos, *, block_table: Optional[torch.Tensor] = None,
+               impl: ops.Impl = "auto") -> None:
+    """Write each ``news[i]`` (B, S_new, ...) into ``bufs[i]`` at sequence
+    positions ``pos`` ((B,) int32, one offset per row; (1,) broadcasts), in
+    place. The leaves share ``pos``, so its (B,) vector is built once.
 
-    Dense layout: ``buf`` is (B, S_max, ...); per-row writes past S_max are
-    DROPPED, never clamped (the reference's vector-``pos`` path, which every
-    serving caller takes). Paged layout (``block_table`` given): ``buf`` is
-    a page pool and the write routes through the paged_scatter kernel; rows
-    on unallocated blocks land in the scratch page 0."""
-    new = new.to(buf.dtype)
-    B, S_new = new.shape[:2]
-    pos_b = torch.as_tensor(pos, dtype=torch.int32, device=buf.device).reshape(-1).expand(B)
+    Dense layout: each buffer is (B, S_max, ...); per-row writes past S_max
+    are DROPPED, never clamped (the reference's vector-``pos`` path, which
+    every serving caller takes). Paged layout (``block_table`` given): each
+    buffer is a page pool and the leaves are written by one paged_scatter
+    launch; rows on unallocated blocks land in the scratch page 0."""
+    B, S_new = news[0].shape[:2]
+    dev = bufs[0].device
+    pos_b = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(-1).expand(B)
+    news = [new.to(buf.dtype) for buf, new in zip(bufs, news)]
     if block_table is not None:
-        return ops.paged_scatter(buf, new, pos_b.contiguous(), block_table, impl=impl)
-    idx = pos_b.long()[:, None] + torch.arange(S_new, device=buf.device)[None]  # (B, S_new)
-    keep = idx < buf.shape[1]
-    rows = torch.arange(B, device=buf.device)[:, None].expand(B, S_new)
-    buf[rows[keep], idx[keep]] = new[keep]
-    return buf
+        ops.paged_scatter_leaves(bufs, news, pos_b.contiguous(), block_table, impl=impl)
+        return
+    idx = pos_b.long()[:, None] + torch.arange(S_new, device=dev)[None]  # (B, S_new)
+    keep = idx < bufs[0].shape[1]
+    rows = torch.arange(B, device=dev)[:, None].expand(B, S_new)[keep]
+    for buf, new in zip(bufs, news):
+        buf[rows, idx[keep]] = new[keep]
 
 
 def cache_update(cache: dict, k: torch.Tensor, v: torch.Tensor, pos, bits: Optional[int], *,
@@ -161,31 +163,29 @@ def cache_update(cache: dict, k: torch.Tensor, v: torch.Tensor, pos, bits: Optio
     """Insert new k/v (B, S_new, H, D) at ``pos`` (in place)."""
     kq, ks = kv_quantize(k, bits)
     vq, vs = kv_quantize(v, bits)
-    pg = dict(block_table=block_table, impl=impl)
-    seq_insert(cache["k"], kq, pos, **pg)
-    seq_insert(cache["v"], vq, pos, **pg)
+    names, news = ["k", "v"], [kq, vq]
     if bits is not None:
-        seq_insert(cache["k_s"], ks, pos, **pg)
-        seq_insert(cache["v_s"], vs, pos, **pg)
+        names, news = names + ["k_s", "v_s"], news + [ks, vs]
+    seq_insert([cache[n] for n in names], news, pos, block_table=block_table, impl=impl)
     return cache
 
 
 def cache_read(cache: dict, bits: Optional[int], *,
                block_table: Optional[torch.Tensor] = None, impl: ops.Impl = "auto"):
     """Dequantized K/V, (B, S, Hkv, D) bf16. Dense: the (B, S_max, ...)
-    buffers as stored. Paged: each pool leaf is first gathered through the
-    block table into contiguous (B, n_blocks * page_size, ...) logical rows
-    at stored width (int8 / packed / f32 scales, never bf16), then
-    dequantized; gather and dequantize commute elementwise, so the result is
-    bit-identical to reading a dense cache holding the same rows."""
+    buffers as stored. Paged: the pool leaves are first gathered through
+    the block table (one paged_gather launch for all of them) into
+    contiguous (B, n_blocks * page_size, ...) logical rows at stored width
+    (int8 / packed / f32 scales, never bf16), then dequantized; gather and
+    dequantize commute elementwise, so the result is bit-identical to
+    reading a dense cache holding the same rows."""
     kq, ks = cache["k"], cache.get("k_s")
     vq, vs = cache["v"], cache.get("v_s")
     if block_table is not None:
-        kq = ops.paged_gather(kq, block_table, impl=impl)
-        vq = ops.paged_gather(vq, block_table, impl=impl)
-        if ks is not None:
-            ks = ops.paged_gather(ks, block_table, impl=impl)
-            vs = ops.paged_gather(vs, block_table, impl=impl)
+        if ks is None:
+            kq, vq = ops.paged_gather_leaves([kq, vq], block_table, impl=impl)
+        else:
+            kq, vq, ks, vs = ops.paged_gather_leaves([kq, vq, ks, vs], block_table, impl=impl)
     return kv_dequantize(kq, ks, bits), kv_dequantize(vq, vs, bits)
 
 
@@ -365,12 +365,11 @@ def mla_apply(
             "takes the key's width) cannot compute either; prefill in chunks")
     bits = policy.kv_cache_bits
     pos_b = torch.as_tensor(cache_pos, dtype=torch.int32, device=x.device).reshape(-1).expand(B)
-    pg = dict(block_table=block_table, impl=impl)
     ckv_q, ckv_s = kv_quantize(c_kv[:, :, None, :], bits)
-    seq_insert(cache["c"], ckv_q, pos_b, **pg)
+    names, news = ["c", "r"], [ckv_q, k_rope]
     if bits is not None:
-        seq_insert(cache["c_s"], ckv_s, pos_b, **pg)
-    seq_insert(cache["r"], k_rope, pos_b, **pg)
+        names, news = ["c", "c_s", "r"], [ckv_q, ckv_s, k_rope]
+    seq_insert([cache[n] for n in names], news, pos_b, block_table=block_table, impl=impl)
 
     wkv_b = _mla_wkv_b_dense(params, lp).reshape(H, cfg.d_nope + cfg.d_v, cfg.kv_lora)
     w_uk, w_uv = wkv_b[:, :cfg.d_nope, :], wkv_b[:, cfg.d_nope:, :]
@@ -386,11 +385,13 @@ def mla_apply(
     else:
         c_buf, c_s, r_all = cache["c"], cache.get("c_s"), cache["r"]
         if block_table is not None:
-            # gather latent pages at stored (packed) width, dequantize after
-            c_buf = ops.paged_gather(c_buf, block_table, impl=impl)
-            if c_s is not None:
-                c_s = ops.paged_gather(c_s, block_table, impl=impl)
-            r_all = ops.paged_gather(r_all, block_table, impl=impl)
+            # gather latent pages at stored (packed) width in one launch,
+            # dequantize after
+            if c_s is None:
+                c_buf, r_all = ops.paged_gather_leaves([c_buf, r_all], block_table, impl=impl)
+            else:
+                c_buf, c_s, r_all = ops.paged_gather_leaves([c_buf, c_s, r_all], block_table,
+                                                            impl=impl)
         c_all = kv_dequantize(c_buf, c_s, bits)[:, :, 0].to(torch.float32)
         q_lat = torch.einsum("bshd,hdc->bshc", q_nope.to(torch.float32), w_uk)
         s_lat = torch.einsum("bshc,btc->bhst", q_lat, c_all)

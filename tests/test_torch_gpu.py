@@ -520,6 +520,75 @@ def test_paged_gather_kernel_bit_exact(dev, leaf):
     assert build.LAUNCHES["paged_gather"] > 0
 
 
+def _mixed_group(g, dev, lead):
+    """Four leaves of one group, ``lead`` + each leaf's row: int8 rows of
+    1 KB (8 x 128), f32 rows of 32 bytes, bf16 rows (8 x 128) and a 15-byte
+    int8 leaf (3 x 5) at a storage offset off the 16-byte grid."""
+    def rnd(tail, dtype):
+        return (torch.randn((*lead, *tail), generator=g) * 40).clamp(-100, 100).to(dtype).to(dev)
+
+    return [rnd((8, 128), torch.int8), rnd((8,), torch.float32), rnd((8, 128), torch.bfloat16),
+            _misaligned(rnd((3, 5), torch.int8))]  # 1 byte past the grid: the byte path
+
+
+def _same_bytes(a, b):
+    return torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("s_new", [1, 16])
+def test_paged_scatter_group_kernel_bit_exact(dev, s_new):
+    """One launch writes four leaves of mixed dtypes and widths (16-byte and
+    byte copies side by side): bit-exact with the plain version (the
+    scratch page excluded) and twice bit-identical; unallocated entries and
+    rows past the table included."""
+    g = torch.Generator().manual_seed(40 + s_new)
+    P_, ps, B, nb = 33, 16, 4, 8
+    pools = _mixed_group(g, dev, (P_, ps))
+    news = _mixed_group(g, dev, (B, s_new))
+    assert pools[3].data_ptr() % 16 and news[3].data_ptr() % 16
+    bt = (torch.randperm(P_ - 1, generator=g)[: B * nb] + 1).reshape(B, nb).to(torch.int32)
+    bt[0, 3:] = 0
+    bt = bt.to(dev)
+    pos = torch.tensor([0, 37, nb * ps - 8, 70], dtype=torch.int32, device=dev)
+    runs = []
+    for _ in range(2):
+        mine = [_misaligned(p) if p.data_ptr() % 16 else p.clone() for p in pools]
+        n0 = build.LAUNCHES["paged_scatter"]
+        out = ops.paged_scatter_leaves(mine, news, pos, bt, impl="cuda")
+        assert build.LAUNCHES["paged_scatter"] == n0 + 1
+        assert all(o is p for o, p in zip(out, mine))
+        runs.append(out)
+    want = ops.paged_scatter_leaves([p.clone() for p in pools], news, pos, bt, impl="torch")
+    torch.cuda.synchronize()
+    for a, b, w in zip(*runs, want):
+        assert _same_bytes(a[1:], w[1:]) and _same_bytes(a[1:], b[1:])
+
+
+def test_paged_gather_group_kernel_bit_exact(dev):
+    """One launch reads four leaves of mixed dtypes and widths (16-byte and
+    byte copies side by side) through one table with unallocated, negative
+    and past-the-pool ids: bit-exact with the plain version, twice
+    bit-identical."""
+    g = torch.Generator().manual_seed(41)
+    P_, ps, B, nb = 33, 16, 4, 8
+    pools = _mixed_group(g, dev, (P_, ps))
+    bt = (torch.randperm(P_ - 1, generator=g)[: B * nb] + 1).reshape(B, nb).to(torch.int32)
+    bt[0, 5:] = 0
+    bt[1, 3] = P_ + 5
+    bt[2, 7] = -1
+    bt[3, 0] = -P_ - 4
+    bt = bt.to(dev)
+    runs = []
+    for _ in range(2):
+        n0 = build.LAUNCHES["paged_gather"]
+        runs.append(ops.paged_gather_leaves(pools, bt, impl="cuda"))
+        assert build.LAUNCHES["paged_gather"] == n0 + 1
+    want = ops.paged_gather_leaves(pools, bt, impl="torch")
+    torch.cuda.synchronize()
+    for a, b, w in zip(*runs, want):
+        assert a.shape == w.shape and _same_bytes(a, w) and _same_bytes(a, b)
+
+
 @pytest.mark.parametrize("leaf", ["int8", "f32", "bf16", "odd"])
 def test_paged_copy_kernel_bit_exact(dev, leaf):
     """Whole-page clones on 16-byte pages and on 15-byte pages (the byte
