@@ -15,7 +15,9 @@ Phases, in order (any failure ends the run with a nonzero exit):
      a window (tolerance ATTN_TOL), each call twice bit-identical and each
      slot's output the same alone, in the batch and beside other positions;
      conv2d on all 27 cells at the paper's
-     Reference Layer and at a ragged shape, qntpack on every output width at
+     Reference Layer, at two ragged shapes, at a shape whose blocks take two
+     rows and one whose rows take two blocks, and on three cells at 224 x 224
+     (its SASS holding IMMA), qntpack on every output width at
      the Tab. 1 shape, paged_gather on every cache leaf and one launch a
      group on the same leaf sets (all bit-exact);
   3. the serving path: ServeEngine serving internlm2-1.8b at full width under
@@ -39,7 +41,9 @@ Phases, in order (any failure ends the run with a nonzero exit):
      path from the same cache (largest logit difference, argmax agreement);
   7. each kernel's time beside its bound and its plain version's time (per
      decode step for the serving kernels; per call at the paper's shape for
-     conv2d, also at 224 x 224, and qntpack; paged_scatter and paged_gather
+     conv2d, also at 224 x 224, beside ``F.conv2d`` in f32 over the codes
+     unpacked ahead of time (TF32 allowed; whether it is exact is printed),
+     and qntpack, beside ``torch.bucketize``; paged_scatter and paged_gather
      one group a layer as the model calls them, beside the same leaves one
      launch each, an ``index_put_`` / ``index_select`` a leaf (the library
      time) and one empty kernel's time (the launch floor, printed); wdqmm's row, and flash_mha's
@@ -143,12 +147,13 @@ Phases, in order (any failure ends the run with a nonzero exit):
      paged_attn against the same with the bf16 rounding of the dequantized
      cache (the reference's oracle). Then
      qkv_decode's time per call (B 4, S 1024, 16 / 8 heads, D 128, pos 1023,
-     kv8 and kv4) beside its bound, its plain version and
+     kv8 and kv4; its split pass and merge apart) beside its bound, its plain
+     version and
      ``F.scaled_dot_product_attention`` over K/V dequantized ahead of time.
      Phase 2 holds qkv_decode against its plain version (ATTN_TOL, each
      call twice bit-identical) on the reference test's shapes with pos at
-     its edges (-1, 0, block ends) and at internlm2's full shape (kv8 and
-     kv4, pos 0, 511, 1023);
+     its edges (-1, 0, block ends), at internlm2's full shape (kv8 and
+     kv4, pos 0, 511, 900, 1023) and on one run of keys;
  13. the sampled serving path (run right after phase 12, on internlm2's
      w4a8 weights): phase 3's four requests at temperature 0.8, top-k 40,
      top-p 0.95, request i with seed 1000 + i, on the slot and the paged
@@ -705,15 +710,28 @@ def conv_operands(torch, g, dev, H, W, C, Cout, xb, wb, yb):
 
 
 def check_conv2d(torch, dev, report):
+    """conv2d against its plain version, bit-exact: all 27 cells (those the
+    shape's widths can pack) at the paper's Reference Layer, at the ragged
+    (5, 7, 12, 68) and (3, 9, 13, 66) (C not a multiple of 16 or even 2, a
+    partial Cout tile), at (300, 16, 32, 64) (bands of two rows: the input
+    row ring turns over), (2, 300, 32, 64) (two pixel segments a row and
+    their halo) and (4, 10, 64, 24) (two k32 steps a tap); the quickstart's
+    cell and one cell each of x = 4 and x = 2 at 224 x 224. Every built
+    conv2d kernel's SASS holds tensor-core (IMMA) instructions."""
     from repro_torch.core.policy import PERMUTATIONS
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
 
     g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    paper = ref_layer()
+    shapes = [(shape, PERMUTATIONS) for shape in (paper, (5, 7, 12, 68), (3, 9, 13, 66),
+                                                  (300, 16, 32, 64), (2, 300, 32, 64),
+                                                  (4, 10, 64, 24))]
+    shapes.append(((224, 224, *paper[2:]), ((8, 4, 4), (4, 8, 2), (2, 2, 8))))
     n = 0
-    # the Reference Layer, and a ragged shape: W = 7, C = 12 (staged to 12),
-    # Cout = 68 (a partial tile of 4 channels past the first 64)
-    for H, W, C, Cout in (ref_layer(), (5, 7, 12, 68)):
-        for xb, wb, yb in PERMUTATIONS:
+    for (H, W, C, Cout), cells in shapes:
+        for xb, wb, yb in cells:
+            if C % (8 // xb) or (9 * C) % (8 // wb) or Cout % (8 // yb):
+                continue
             x_p, w_p, rq = conv_operands(torch, g, dev, H, W, C, Cout, xb, wb, yb)
             bits = dict(x_bits=xb, w_bits=wb, y_bits=yb)
             a = ops.conv2d(x_p, w_p, rq, impl="cuda", **bits)
@@ -723,7 +741,14 @@ def check_conv2d(torch, dev, report):
                 raise AssertionError(f"conv2d mismatch cell {(xb, wb, yb)} shape {(H, W, C, Cout)}")
             n += 1
     report["conv2d"] = {"max_abs_err": 0.0, "checks": n}
-    log(f"conv2d: {n} comparisons bit-exact (27 cells at {ref_layer()} and at (5, 7, 12, 68))")
+    log(f"conv2d: {n} comparisons bit-exact (27 cells at {paper}, (5, 7, 12, 68), "
+        f"(3, 9, 13, 66), (300, 16, 32, 64), (2, 300, 32, 64) and (4, 10, 64, 24) where the "
+        f"widths pack; 3 cells at 224 x 224)")
+    imma = {fn: c["IMMA"] for fn, c in sass_counts(build.library_path("conv2d"),
+                                                    "conv2d_kernel").items()}
+    log(f"  sass: {len(imma)} conv2d kernels, {min(imma.values())}-{max(imma.values())} IMMA each")
+    if not imma or min(imma.values()) == 0:
+        raise AssertionError(f"conv2d kernels without tensor-core (IMMA) instructions: {imma}")
 
 
 def check_qntpack(torch, dev, report):
@@ -965,7 +990,8 @@ def check_qkv_decode(torch, dev, cfg, report):
     2; kv8 and kv4) with pos at its edges (-1: nothing visible, the mean of
     v; 0; a block's last and the next block's first key), and internlm2's
     full shape (B 4, S 1024, 16 / 8 heads, D 128, kv8 and kv4, pos 0, 511
-    and 1023)."""
+    and 1023, and 900: inside the last run of keys); one run of keys (S 100
+    and S = KEYS_PER_SPLIT, kv8 and kv4)."""
     from repro_torch.kernels import qkv_decode as QD
 
     g = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -974,7 +1000,9 @@ def check_qkv_decode(torch, dev, cfg, report):
              for bits, gqa, pos, bs in ((8, 1, 30, 8), (8, 2, 12, 8), (4, 1, 31, 8), (8, 2, -1, 8),
                                         (4, 2, 0, 32), (8, 1, 7, 8), (4, 2, 8, 8))]
     cases += [(N_SLOTS, S_MAX, Hq, Hkv, D, bits, pos, 512) for bits in (8, 4)
-              for pos in (0, 511, 1023)]
+              for pos in (0, 511, 900, 1023)]
+    kps = QD.KEYS_PER_SPLIT
+    cases += [(3, 100, Hq, Hkv, D, 8, 70, 100), (2, kps, Hq, Hkv, D, 4, kps - 1, kps)]
     worst = 0.0
     for B, S, hq, hkv, d, bits, pos, bs in cases:
         q, kq, ks, vq, vs = qkv_case(torch, g, dev, B, S, hq, hkv, d, bits)
@@ -1474,55 +1502,94 @@ def kernel_table(torch, dev, cfg, params, launches, report):
                      replaces="src/repro/kernels/paged_gather.py:141", ms=t, plain_ms=tp,
                      bytes=nbytes, work=[], library_ms=tl))
 
-    # qntpack and conv2d: per call, timed over CALLS back-to-back launches
-    # of the kernel's wrapper with the requant vector already on the card
-    # (one launch alone is below what the profiler resolves; ops.* would add
-    # the vector's host-to-device copy to every call)
+    rows += reference_layer_rows(torch, dev, g)
+    return [kernel_row(r, launches, report) for r in rows]
+
+
+def reference_layer_rows(torch, dev, g) -> list:
+    """qntpack and conv2d per call, timed over CALLS back-to-back launches
+    of the kernel's wrapper with the requant vector already on the card
+    (one launch alone is below what the profiler resolves; ops.* would add
+    the vector's host-to-device copy to every call), beside their bound,
+    their plain version and one PyTorch call for the same function:
+    qntpack at the Tab. 1 shape, y = 4 (the quickstart's width), beside
+    ``torch.bucketize`` over its thresholds (the requant ladder alone, no
+    pack); conv2d in the quickstart's cell (8, 4, 4) at the paper's shape
+    and at 224 x 224 with the paper's widths (C 32 -> 64), beside
+    ``F.conv2d`` in f32 with TF32 allowed, channels-last, over the codes
+    unpacked ahead of time (its int32 sums, not the requant and pack), with
+    whether it equals ``im2col @ w`` exactly. Returns the raw kernel rows
+    (the paper shape's conv2d; the 224 x 224 one is printed)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import pack as P
     from repro_torch.core import quant as Q
     from repro_torch.kernels.conv2d import conv2d_cuda
     from repro_torch.kernels.mpmm import requant_vector
     from repro_torch.kernels.qntpack import qntpack_cuda
-    from repro_torch.kernels.ref import conv2d_ref, qntpack_ref
+    from repro_torch.kernels.ref import conv2d_ref, im2col, qntpack_ref
 
     def per_call(fn):
         t, tw, how = device_ms(lambda: [fn() for _ in range(CALLS)])
         return t / CALLS, tw / CALLS, how
 
-    # qntpack at the Tab. 1 shape, y = 4 (the quickstart's width)
+    rows = []
     phi = torch.randint(-(1 << 20), 1 << 20, TAB1, generator=g, device=dev, dtype=torch.int32)
     rq = Q.make_requant_params(y_bits=4, eps_phi=2.0**-17, eps_y=1.0, lam=float(1 << 20))
     rqv = requant_vector(rq).to(dev)
     t, tw, how = per_call(lambda: qntpack_cuda(phi, rqv, y_bits=4))
     tp, tpw, _ = per_call(lambda: qntpack_ref(phi, rq, y_bits=4))
+    thresholds = torch.from_numpy(rq.thresholds.astype("int32")).to(dev)
+    tl, _, _ = per_call(lambda: torch.bucketize(phi, thresholds, right=True))
+    ladder = torch.equal(torch.bucketize(phi, thresholds, right=True).to(torch.uint8),
+                         P.unpack(qntpack_cuda(phi, rqv, y_bits=4), 4, signed=False))
     M_, N_ = TAB1
     log(f"  qntpack y=4 at (M, N) = {TAB1}: {t * 1e3:.2f} us device per call ({how}), "
-        f"{tw * 1e3:.2f} us wall; plain {tp * 1e3:.2f} us device, {tpw * 1e3:.2f} us wall")
+        f"{tw * 1e3:.2f} us wall; plain {tp * 1e3:.2f} us device, {tpw * 1e3:.2f} us wall; "
+        f"torch.bucketize over the thresholds (the requant ladder alone, no pack) "
+        f"{tl * 1e3:.2f} us device, codes {'equal' if ladder else 'NOT equal'} to the "
+        f"kernel's unpacked")
     rows.append(dict(name="qntpack", route="cuda", source="src/repro_torch/csrc/qntpack.cu",
                      replaces="src/repro/kernels/qntpack.py:28", ms=t, plain_ms=tp,
                      bytes=4 * M_ * N_ + M_ * N_ // 2 + rqv.numel() * 4,
-                     work=[(15 * M_ * N_, F32_FLOPS_PER_S)], library_ms=None))
+                     work=[(15 * M_ * N_, F32_FLOPS_PER_S)], library_ms=tl))
 
-    # conv2d: the quickstart's cell (8, 4, 4) at the paper's shape, and at
-    # 224 x 224 with the paper's widths (C 32 -> 64)
     paper = ref_layer()
-    for H, W, C, Cout in (paper, (224, 224, *paper[2:])):
-        x_p, w_p, rq = conv_operands(torch, g, dev, H, W, C, Cout, 8, 4, 4)
-        rqv = requant_vector(rq).to(dev)
-        bits = dict(x_bits=8, w_bits=4, y_bits=4)
-        t, tw, how = per_call(lambda: conv2d_cuda(x_p, w_p, rqv, **bits))
-        tp, tpw, _ = per_call(lambda: conv2d_ref(x_p, w_p, rq, **bits))
-        nbytes = x_p.numel() + w_p.numel() + H * W * Cout // 2 + rqv.numel() * 4
-        nops = 2 * H * W * Cout * 9 * C
-        bound = max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS_PER_S) * 1e3
-        log(f"  conv2d (8, 4, 4) at {H}x{W}, {C} -> {Cout}: {t * 1e3:.2f} us device per call "
-            f"({how}), {tw * 1e3:.2f} us wall; plain {tp * 1e3:.1f} us device, "
-            f"{tpw * 1e3:.1f} us wall; bound {bound * 1e3:.4f} us")
-        if (H, W) == paper[:2]:
-            rows.append(dict(name="conv2d", route="cuda", source="src/repro_torch/csrc/conv2d.cu",
-                             replaces="src/repro/kernels/conv2d.py:71", ms=t, plain_ms=tp,
-                             bytes=nbytes, work=[(nops, INT8_OPS_PER_S)], library_ms=None))
-
-    return [kernel_row(r, launches, report) for r in rows]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for H, W, C, Cout in (paper, (224, 224, *paper[2:])):
+            x_p, w_p, rq = conv_operands(torch, g, dev, H, W, C, Cout, 8, 4, 4)
+            rqv = requant_vector(rq).to(dev)
+            bits = dict(x_bits=8, w_bits=4, y_bits=4)
+            t, tw, how = per_call(lambda: conv2d_cuda(x_p, w_p, rqv, **bits))
+            tp, tpw, _ = per_call(lambda: conv2d_ref(x_p, w_p, rq, **bits))
+            # the library's conv over the codes: x (1, C, H, W) and w (Cout,
+            # C, 3, 3) from the (dy, dx, c) order, both channels-last f32
+            xf = P.unpack(x_p, 8, signed=False).float().permute(2, 0, 1)[None]
+            xf = xf.contiguous(memory_format=torch.channels_last)
+            wf = P.unpack(w_p, 4, signed=True).float().reshape(Cout, 3, 3, C).permute(0, 3, 1, 2)
+            wf = wf.contiguous(memory_format=torch.channels_last)
+            tl, _, _ = per_call(lambda: F.conv2d(xf, wf, padding=1))
+            sums = F.conv2d(xf, wf, padding=1)[0].permute(1, 2, 0).reshape(H * W, Cout)
+            exact = torch.equal(sums, (im2col(x_p, 8).double()
+                                       @ P.unpack(w_p, 4, signed=True).double().T).float())
+            nbytes = x_p.numel() + w_p.numel() + H * W * Cout // 2 + rqv.numel() * 4
+            nops = 2 * H * W * Cout * 9 * C
+            bound = max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS_PER_S) * 1e3
+            log(f"  conv2d (8, 4, 4) at {H}x{W}, {C} -> {Cout}: {t * 1e3:.2f} us device per "
+                f"call ({how}), {tw * 1e3:.2f} us wall; plain {tp * 1e3:.1f} us device, "
+                f"{tpw * 1e3:.1f} us wall; F.conv2d (f32, TF32 allowed, channels-last, codes "
+                f"unpacked ahead of time; int32 sums only) {tl * 1e3:.2f} us device, "
+                f"{'exact' if exact else 'NOT exact'}; bound {bound * 1e3:.4f} us")
+            if (H, W) == paper[:2]:
+                rows.append(dict(name="conv2d", route="cuda",
+                                 source="src/repro_torch/csrc/conv2d.cu",
+                                 replaces="src/repro/kernels/conv2d.py:71", ms=t, plain_ms=tp,
+                                 bytes=nbytes, work=[(nops, INT8_OPS_PER_S)], library_ms=tl))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return rows
 
 
 def paged_attn_library_ms(torch, dev, cfg, cases, bits) -> float:
@@ -1581,7 +1648,8 @@ def kernel_row(r, launches, report) -> dict:
 #: device kernels the step breakdown names (everything else is PyTorch's)
 KERNEL_NAMES = ("mpmm_kernel", "wdqmm_mma_kernel", "wdqmm_kernel", "paged_mla_split_kernel",
                 "paged_attn_kernel", "paged_attn_merge_kernel", "flash_mha_kernel",
-                "paged_scatter_kernel", "paged_gather_kernel", "qkv_decode_kernel")
+                "paged_scatter_kernel", "paged_gather_kernel", "qkv_split_kernel",
+                "qkv_merge_kernel")
 
 
 def step_breakdown(torch, dev, cfg, policy, params):
@@ -2113,6 +2181,8 @@ def qkv_decode_row(torch, dev, cfg) -> dict:
             return lambda: [fn(q, kq, ks, vq, vs, pos, bits=bits) for q, kq, ks, vq, vs in sets]
 
         t, tw, how = device_ms(calls(QD.qkv_decode_cuda))
+        ts, _, _ = device_ms(calls(QD.qkv_decode_cuda), names=("qkv_split_kernel",))
+        tm, _, _ = device_ms(calls(QD.qkv_decode_cuda), names=("qkv_merge_kernel",))
         tp, _, _ = device_ms(calls(QD.qkv_decode_plain), reps=3, warmup=1)
         lib_in = []
         for q, kq, ks, vq, vs in sets:
@@ -2131,7 +2201,8 @@ def qkv_decode_row(torch, dev, cfg) -> dict:
         bound = max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS_PER_S) * 1e3
         n = COLD_STEPS
         log(f"  qkv_decode kv{bits} per call (B={B}, S={S}, {Hq}/{Hkv} heads, D={D}, pos {pos}; "
-            f"{n} distinct caches a window, L2-cold): {t / n * 1e3:.2f} us device ({how}), "
+            f"{n} distinct caches a window, L2-cold): {t / n * 1e3:.2f} us device ({how}; "
+            f"split pass {ts / n * 1e3:.2f}, merge {tm / n * 1e3:.2f}), "
             f"{tw / n * 1e3:.2f} us wall; plain {tp / n * 1e3:.1f} us device; "
             f"F.scaled_dot_product_attention (f32, K/V dequantized ahead of time, kv heads "
             f"repeated, boolean mask) {tl / n * 1e3:.2f} us device, max |SDPA - kernel| = "

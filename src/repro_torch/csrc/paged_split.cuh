@@ -1,7 +1,8 @@
 // What the two split-page decode attention kernels share (paged_attn.cu,
 // GQA; paged_mla_attn.cu, absorbed MLA): which pages of a slot hold a
 // visible key, the staging copies, the dequantization of staged codes into
-// bf16 rows, and the merge of the splits' partials.
+// bf16 rows, and the merge of the splits' partials. qkv_decode.cu (dense
+// cache, split over runs of keys) takes the staging copies and the merge.
 //
 // Both kernels split a slot's page walk into runs of PPS pages (each file's
 // own compile-time constant) and write one partial a (slot, head group,
@@ -97,14 +98,33 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src) {
   }
 }
 
+// The merge of one output value i (head g) of a group: its splits s0..s1,
+// each a partial at pb + s * G * (D + 2), in split order: M = max m_i,
+// l = sum l_i * exp(m_i - M), acc = sum acc_i * exp(m_i - M), out = acc /
+// max(l, 1e-30). No atomics: the same bits on every call, whatever the grid.
+__device__ __forceinline__ float merge_splits(const float* __restrict__ pb, int G, int D, int g,
+                                              int i, int s0, int s1) {
+  const long long stride = (long long)G * (D + 2);
+  float M = BIG_NEG;
+#pragma unroll 4
+  for (int s = s0; s <= s1; ++s) M = fmaxf(M, pb[s * stride + G * D + g]);
+  float l = 0.0f, acc = 0.0f;
+#pragma unroll 4
+  for (int s = s0; s <= s1; ++s) {
+    const float* p = pb + s * stride;
+    const float e = expf(__fsub_rn(p[G * D + g], M));
+    l = __fadd_rn(l, __fmul_rn(p[G * D + G + g], e));
+    acc = __fadd_rn(acc, __fmul_rn(p[i], e));
+  }
+  return acc / fmaxf(l, 1e-30f);
+}
+
 // Merge, one thread an output value: block (b * Hkv + h, y) takes values
 // y * MERGE_THREADS.. of the group's G * D. Only the splits that hold a
-// visible key (decided again from pos and window) take part, in split order:
-// M = max m_i, l = sum l_i * exp(m_i - M), acc = sum acc_i * exp(m_i - M),
-// out = acc / max(l, 1e-30). No atomics: the same bits on every call, and
-// the same bits whatever the grid. A slot with no visible key gives 0, as
-// the plain versions do. out (B, H, D): group h's head g is out head
-// h * G + g, written only below H (the MLA kernel pads its last group).
+// visible key (decided again from pos and window) take part, in split order
+// (merge_splits). A slot with no visible key gives 0, as the plain versions
+// do. out (B, H, D): group h's head g is out head h * G + g, written only
+// below H (the MLA kernel pads its last group).
 template <int PPS>
 __global__ void __launch_bounds__(MERGE_THREADS)
 paged_attn_merge_kernel(const float* __restrict__ part, const int* __restrict__ pos,
@@ -119,20 +139,8 @@ paged_attn_merge_kernel(const float* __restrict__ part, const int* __restrict__ 
   const Span vis = visible_pages(pos[b], window, ps, nb);
   const int s0 = vis.lo <= vis.hi ? vis.lo / PPS : 0;
   const int s1 = vis.lo <= vis.hi ? vis.hi / PPS : -1;
-  const long long stride = (long long)G * (D + 2);
-  const float* pb = part + (long long)blockIdx.x * nsplit * stride;
-  float M = BIG_NEG;
-#pragma unroll 4
-  for (int s = s0; s <= s1; ++s) M = fmaxf(M, pb[s * stride + G * D + g]);
-  float l = 0.0f, acc = 0.0f;
-#pragma unroll 4
-  for (int s = s0; s <= s1; ++s) {
-    const float* p = pb + s * stride;
-    const float e = expf(__fsub_rn(p[G * D + g], M));
-    l = __fadd_rn(l, __fmul_rn(p[G * D + G + g], e));
-    acc = __fadd_rn(acc, __fmul_rn(p[i], e));
-  }
-  out[((long long)b * H + (long long)h * G) * D + i] = acc / fmaxf(l, 1e-30f);
+  const float* pb = part + (long long)blockIdx.x * nsplit * G * (D + 2);
+  out[((long long)b * H + (long long)h * G) * D + i] = merge_splits(pb, G, D, g, i, s0, s1);
 }
 
 // Launch the merge over B slots of Hkv groups of G heads of width D.

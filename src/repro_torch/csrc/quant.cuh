@@ -53,6 +53,7 @@ __device__ __forceinline__ int requant_one(int acc, const int* __restrict__ rqv,
   }
   int q = 0;
   const int nt = (1 << y_bits) - 1;
+#pragma unroll
   for (int i = 0; i < nt; ++i) q += (acc >= rqv[2 + i]) ? 1 : 0;
   return q;
 }

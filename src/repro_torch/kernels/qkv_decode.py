@@ -13,9 +13,12 @@ path goes through here: as in the reference, the serving decode stays on
 
 The kernel (``csrc/qkv_decode.cu``) replaces ``qkv_decode_pallas``; its
 plain version is :func:`repro_torch.kernels.ref.qkv_decode_plain`, which
-walks the Pallas kernel's ``bs``-key blocks. The kernel walks its own tiles
-of 64 keys, so the two differ only in the order of the f32 sums (within
-:data:`TOL`); the kernel gives the same bits on every call.
+walks the Pallas kernel's ``bs``-key blocks. The kernel splits the keys
+into runs of :data:`KEYS_PER_SPLIT`, one block a run, and merges the runs'
+partials in a fixed order (``kernels.ref.qkv_decode_split_ref`` repeats
+that order on the CPU; only tests use it), so kernel and plain version
+differ only in the order of the f32 sums (within :data:`TOL`); the kernel
+gives the same bits on every call.
 """
 
 from __future__ import annotations
@@ -33,8 +36,11 @@ from repro_torch.kernels.ref import BIG_NEG, qkv_decode_plain
 TOL = 1e-5
 #: head widths the kernel is instantiated for
 HEAD_DIMS = (16, 128)
+#: keys a block of the split pass takes (csrc/qkv_decode.cu: KPS); the
+#: scratch holds one partial a (sequence, kv head, run of keys)
+KEYS_PER_SPLIT = 128
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _shapes(q, k_q, k_s, v_q, v_s, bits: int, bs: int) -> tuple[int, int, int, int, int]:
@@ -66,8 +72,9 @@ def qkv_decode_cuda(q, k_q, k_s, v_q, v_s, pos: int, *, bits: int = 8,
     """Launch the CUDA kernel. q (B, Hq, D) any float dtype (read as f32);
     k_q / v_q (B, S, Hkv, D/r) int8, contiguous, 16-byte aligned; k_s / v_s
     (B, S, Hkv) f32; ``pos`` a host int. ``bs`` only checks S % bs, as the
-    plain version does: the kernel walks its own tiles. Returns (B, Hq, D)
-    f32."""
+    plain version does: the kernel walks its own runs of keys. Launches the
+    split pass and its merge (counted as one launch of ``qkv_decode``).
+    Returns (B, Hq, D) f32."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"qkv_decode_cuda needs CUDA tensors, got {dev}")
@@ -86,9 +93,11 @@ def qkv_decode_cuda(q, k_q, k_s, v_q, v_s, pos: int, *, bits: int = 8,
     out = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
     if B == 0 or Hq == 0:
         return out
+    nsplit = -(-S // KEYS_PER_SPLIT)
+    part = torch.empty(B * Hq * nsplit * (D + 2), dtype=torch.float32, device=dev)
     fn = build.entry("qkv_decode", "qkv_decode_launch", _ARGTYPES)
     err = fn(q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(), v_s.data_ptr(),
-             out.data_ptr(), B, Hq, Hkv, S, D, bits, int(pos), 1.0 / (D**0.5),
+             out.data_ptr(), part.data_ptr(), B, Hq, Hkv, S, D, bits, int(pos), 1.0 / (D**0.5),
              build.stream_ptr(dev))
     build.check(err, "qkv_decode_launch")
     build.LAUNCHES["qkv_decode"] += 1

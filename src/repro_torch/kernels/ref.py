@@ -6,7 +6,9 @@ whole-sequence flash attention (the function of
 ``repro.kernels.flash.flash_mha_pallas``, in the order of the reference's
 CPU path ``repro.models.attention.flash_attention``) and decode attention
 over a dense quantized cache (``repro.kernels.qkv_decode.qkv_decode_pallas``,
-step for step).
+step for step). Two more repeat a CUDA kernel's order of work for the tests:
+``qkv_decode_split_ref`` (the split key walk and its merge) and
+``conv2d_igemm_ref`` (the implicit GEMM's addressing).
 
 The integer products are float64 matmuls of the unpacked values: every
 partial sum is an integer below 2^53 (|sum| <= K * 255 * 128, K = 9C for
@@ -232,3 +234,123 @@ def qkv_decode_plain(
         acc = acc * alpha[..., None] + torch.einsum("bhgs,bshd->bhgd", p, vf)
         m = m_new
     return (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(B, Hq, D)
+
+
+def qkv_decode_split_ref(
+    q: torch.Tensor,  # (B, Hq, D), any float dtype
+    k_q: torch.Tensor,  # (B, S, Hkv, D/r) int8 storage
+    k_s: torch.Tensor,  # (B, S, Hkv) f32
+    v_q: torch.Tensor,
+    v_s: torch.Tensor,
+    pos: int,
+    *,
+    bits: int = 8,
+    keys_per_split: int,
+    skip_empty: bool = True,
+) -> torch.Tensor:
+    """The CUDA kernel's order of work for :func:`qkv_decode_plain`'s
+    function: the keys in runs of ``keys_per_split`` (the last one ragged),
+    each a softmax from a fresh state over its own keys (f32 dequantization,
+    ``s = q . k * (1 / sqrt(D))``, keys past ``pos`` at BIG_NEG) to a
+    partial (m, l, acc); the partials of the runs that hold a visible key
+    (every run when ``pos < 0``, or when ``skip_empty`` is False) merge in
+    run order, M = max m, l = sum l * exp(m - M), acc = sum acc * exp(m -
+    M), then acc / max(l, 1e-30). Only tests use it. Returns (B, Hq, D)
+    f32."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k_q.shape
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"qkv_decode: Hq={Hq} not a multiple of Hkv={Hkv}")
+    G = Hq // Hkv
+    dev = q.device
+    scale = 1.0 / (D**0.5)
+    qf = q.to(torch.float32).reshape(B, Hkv, G, D)
+    neg = torch.tensor(BIG_NEG, dtype=torch.float32, device=dev)
+    M = torch.full((B, Hkv, G), BIG_NEG, dtype=torch.float32, device=dev)
+    parts = []
+    for j in range(0, S, keys_per_split):
+        n = min(keys_per_split, S - j)
+        kc, vc = k_q[:, j:j + n], v_q[:, j:j + n]
+        if bits < 8:
+            kc, vc = P.unpack(kc, bits, signed=True), P.unpack(vc, bits, signed=True)
+        kf = kc.to(torch.float32) * k_s[:, j:j + n, :, None]
+        vf = vc.to(torch.float32) * v_s[:, j:j + n, :, None]
+        s = torch.einsum("bhgd,bshd->bhgs", qf, kf) * scale
+        s = torch.where(torch.arange(j, j + n, device=dev) <= pos, s, neg)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        take = pos < 0 or j <= pos or not skip_empty
+        parts.append((take, m, p.sum(dim=-1), torch.einsum("bhgs,bshd->bhgd", p, vf)))
+        if take:
+            M = torch.maximum(M, m)
+    l = torch.zeros_like(M)
+    acc = torch.zeros((B, Hkv, G, D), dtype=torch.float32, device=dev)
+    for take, m, ls, accs in parts:
+        if take:
+            e = torch.exp(m - M)
+            l = l + ls * e
+            acc = acc + accs * e[..., None]
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(B, Hq, D)
+
+
+def conv2d_igemm_ref(
+    x_p: torch.Tensor,  # (H, W, C/rx) packed unsigned HWC ifmap
+    w_p: torch.Tensor,  # (Cout, 9C/rw) packed signed weights, (dy, dx, c) order
+    rq: Q.RequantParams,
+    *,
+    x_bits: int,
+    w_bits: int,
+    y_bits: int,
+    cout_tile: int = 16,
+    rows_per_block: int = 2,
+    segment: int = 16,
+) -> torch.Tensor:
+    """The CUDA conv2d kernel's addressing on the CPU: blocks of
+    ``rows_per_block`` output rows x ``segment`` pixels x ``cout_tile``
+    channels; channels padded with zeros to Cp = C rounded up to 32 on both
+    operands, so K is 9 Cp in whole k32 steps; input rows staged (zeros at
+    the border and past the ifmap) into a ring of three slots, the band's
+    first rows h-1..h+1 together and then one row a row into the slot of row
+    h - 2; each m16 tile of pixels summed tap by tap and k32 step by step
+    from rows p + g + dx of its slot; then requant and pack. Integer sums, so
+    it equals :func:`conv2d_ref` bit for bit when the addressing is right.
+    Only tests use it. Returns (H, W, Cout/ry) int8."""
+    H, W, _ = x_p.shape
+    x = P.unpack(x_p, x_bits, signed=False).to(torch.int64)  # (H, W, C)
+    C = x.shape[2]
+    Cout = w_p.shape[0]
+    Cp = -(-C // 32) * 32
+    ct = cout_tile
+    nct = -(-Cout // ct)
+    w = P.unpack(w_p, w_bits, signed=True).to(torch.int64).reshape(Cout, 9, C)
+    wpad = torch.zeros((nct * ct, 9, Cp), dtype=torch.int64)
+    wpad[:Cout, :, :C] = w
+    phi = torch.zeros((H, W, nct * ct), dtype=torch.int64)
+    for h0 in range(0, H, rows_per_block):
+        for w0 in range(0, W, segment):
+            for n0 in range(0, nct * ct, ct):
+                ring = [None] * 3
+
+                def stage(ih):
+                    row = torch.zeros((-(-segment // 16) * 16 + 2, Cp), dtype=torch.int64)
+                    if 0 <= ih < H:
+                        lo, hi = max(w0 - 1, 0), min(w0 + segment + 1, W)
+                        row[lo - (w0 - 1):hi - (w0 - 1), :C] = x[ih, lo:hi]
+                    ring[(ih - h0 + 1) % 3] = row
+
+                for ih in (h0 - 1, h0, h0 + 1):
+                    stage(ih)
+                for h in range(h0, min(H, h0 + rows_per_block)):
+                    if h > h0:
+                        stage(h + 1)
+                    for p0 in range(0, segment, 16):
+                        acc = torch.zeros((16, ct), dtype=torch.int64)
+                        for tap in range(9):
+                            dy, dx = divmod(tap, 3)
+                            a = ring[(h - 1 + dy - h0 + 1) % 3][p0 + dx:p0 + dx + 16]
+                            for k in range(0, Cp, 32):
+                                acc += a[:, k:k + 32] @ wpad[n0:n0 + ct, tap, k:k + 32].T
+                        n = min(16, segment - p0, W - w0 - p0)
+                        if n > 0:
+                            phi[h, w0 + p0:w0 + p0 + n, n0:n0 + ct] = acc[:n]
+    return P.pack(Q.requant(phi[..., :Cout].to(torch.int32), rq), y_bits)

@@ -461,11 +461,16 @@ def _conv_rq(x_p, w_p, xb, wb, yb):
                                  lam=levels / 2 / r - float(phi.mean()))
 
 
-@pytest.mark.parametrize("shape", [(16, 16, 32, 64), (5, 7, 12, 68), (3, 9, 13, 66)])
+@pytest.mark.parametrize("shape", [(16, 16, 32, 64), (5, 7, 12, 68), (3, 9, 13, 66),
+                                   (300, 16, 32, 64), (2, 300, 32, 64), (4, 10, 64, 24),
+                                   (3, 6, 96, 8)])
 def test_conv2d_kernel_bit_exact_all_cells(dev, shape):
     """Every (x, w, y) cell at the paper's Reference Layer and at ragged
-    shapes: a partial Cout tile, channels padded in shared memory, W not a
-    power of two; the border taps carry the u8 offset fold."""
+    shapes: a partial Cout tile, channels padded with zeros to whole k32
+    steps, W not a power of two and below one m16 tile; 300 rows (a block
+    takes two: the input row ring turns over), 300 pixels a row (two
+    segments a row, with their halo), and C 64 and 96 (two and three k32
+    steps a tap; C 64's pixels padded in shared memory)."""
     H, W, C, Cout = shape
     g = torch.Generator().manual_seed(H * W + C)
     n = 0
@@ -484,6 +489,21 @@ def test_conv2d_kernel_bit_exact_all_cells(dev, shape):
         assert torch.equal(a.cpu(), conv2d_ref(x_p.cpu(), w_p.cpu(), rq, **bits))
         n += 1
     assert n > 0 and build.LAUNCHES["conv2d"] >= n
+
+
+@pytest.mark.parametrize("cell", [(8, 4, 4), (4, 8, 2), (2, 2, 8)])
+def test_conv2d_kernel_bit_exact_at_224(dev, cell):
+    """224 x 224 at the paper's widths (32 -> 64): the quickstart's cell and
+    one cell each of x = 4 and x = 2."""
+    xb, wb, yb = cell
+    g = torch.Generator().manual_seed(224 + xb)
+    x = torch.randint(0, 1 << xb, (224, 224, 32), generator=g, dtype=torch.int32)
+    w = torch.randint(-(1 << (wb - 1)), 1 << (wb - 1), (64, 288), generator=g, dtype=torch.int32)
+    x_p, w_p = P.pack(x.to(torch.uint8), xb).to(dev), P.pack(w.to(torch.int8), wb).to(dev)
+    rq = _conv_rq(x_p, w_p, xb, wb, yb)
+    bits = dict(x_bits=xb, w_bits=wb, y_bits=yb)
+    assert torch.equal(ops.conv2d(x_p, w_p, rq, impl="cuda", **bits),
+                       conv2d_ref(x_p, w_p, rq, **bits))
 
 
 @pytest.mark.parametrize("y_bits", [8, 4, 2])
@@ -1102,7 +1122,9 @@ QKV_CASES = ([(2, 32, 2 * gqa, 2, 16, bits, pos, bs)
                                          (8, 2, -1, 8), (4, 2, 0, 32), (8, 1, 8, 8))]
              + [(4, 1024, 16, 8, 128, bits, pos, 512) for bits in (8, 4)
                 for pos in (0, 511, 1023, -1)]
-             + [(3, 100, 16, 8, 128, 8, 70, 100)])  # S not a multiple of the kernel's tile
+             + [(3, 100, 16, 8, 128, 8, 70, 100)]  # S below one run of keys, not a multiple of 8
+             + [(4, 1024, 16, 8, 128, 8, 900, 512),  # pos inside the last run of keys
+                (2, 128, 16, 8, 128, 4, 127, 128)])  # exactly one run of keys
 
 
 def _qkv_operands(g, dev, B, S, Hq, Hkv, D, bits):
