@@ -18,8 +18,9 @@ Phases, in order (any failure ends the run with a nonzero exit):
      Reference Layer, at two ragged shapes, at a shape whose blocks take two
      rows and one whose rows take two blocks, and on three cells at 224 x 224
      (its SASS holding IMMA), qntpack on every output width at
-     the Tab. 1 shape, paged_gather on every cache leaf and one launch a
-     group on the same leaf sets (all bit-exact);
+     the Tab. 1 shape and a ragged one, phi aligned and off the 16-byte
+     grid, ascending and shuffled thresholds, paged_gather on every cache
+     leaf and one launch a group on the same leaf sets (all bit-exact);
   3. the serving path: ServeEngine serving internlm2-1.8b at full width under
      policy w4a8 with an 8-bit KV cache (weights from a seeded
      torch.Generator on the card), 4 greedy requests, first on the slot cache
@@ -43,10 +44,15 @@ Phases, in order (any failure ends the run with a nonzero exit):
      decode step for the serving kernels; per call at the paper's shape for
      conv2d, also at 224 x 224, beside ``F.conv2d`` in f32 over the codes
      unpacked ahead of time (TF32 allowed; whether it is exact is printed),
-     and qntpack, beside ``torch.bucketize``; paged_scatter and paged_gather
+     and qntpack at the Tab. 1 shape and at the 224 x 224 Reference
+     Layer's accumulators, beside ``torch.bucketize``, ``ops.qntpack``
+     copying nothing to the card (gated); paged_scatter and paged_gather
      one group a layer as the model calls them, beside the same leaves one
      launch each, an ``index_put_`` / ``index_select`` a leaf (the library
-     time) and one empty kernel's time (the launch floor, printed); wdqmm's row, and flash_mha's
+     time) and one empty kernel's time (the launch floor, printed);
+     paged_copy, one COW clone in one launch, beside the same leaves one
+     launch each and an ``index_select`` + ``index_copy_`` a leaf, a clone
+     after the set's first copying nothing to the card (gated); wdqmm's row, and flash_mha's
      and mpmm's prefill_step rows, are timed at the end of phases 10 and
      11, after their paths ran);
      paged_attn per step at kv8 (the row), kv4 and on the bf16 cell; kv8
@@ -62,7 +68,7 @@ Phases, in order (any failure ends the run with a nonzero exit):
      and decode step of the paged runs (3 a step) and paged_gather of the
      unfused paged run; then phase 9's five
      requests on a cold paged engine and on a prefix engine (streams
-     identical, paged_copy launched); then a teacher-forced MLA
+     identical, paged_copy launched once a COW clone); then a teacher-forced MLA
      decode step (kernel vs plain), the MLA step's breakdowns (slot cache,
      paged cache fused and unfused), and
      paged_mla_attn's time per decode step (its split pass and its merge
@@ -85,11 +91,14 @@ Phases, in order (any failure ends the run with a nonzero exit):
      again (the S-1 cap), (d) the shared prompt's first 256 tokens, (e) an
      unrelated 512-token prompt; served on a cold paged engine and then on a
      prefix engine. The streams must be identical, paged_copy must have
-     launched, the hit rate must be above 0, at least 3 COW clones made and
-     fewer prefill calls spent. Phase 2 holds paged_copy bit-exact against
-     its plain version on every internlm2 kv8 and DeepSeek-V3 latent leaf
-     (disjoint, overlapping and self-copies; host and device ids), and
-     phase 7 times one COW clone (all 96 leaves);
+     launched once a COW clone (one launch over every leaf of every layer),
+     the hit rate must be above 0, at least 3 COW clones made and fewer
+     prefill calls spent. Phase 2 holds paged_copy's group bit-exact
+     against its plain version on every leaf of an internlm2 and a
+     DeepSeek-V3 clone at kv8, kv4 and bf16 and on 15-byte pages
+     (disjoint, negative, out-of-range, overlapping and self-copies; host
+     and device ids; one launch for disjoint host ids, else two), and
+     phase 7 times one COW clone (all 96 leaves in one launch);
  10. the weight-only path (run right after phase 7, on internlm2's weights):
      policy WO_POLICY (every projection and the head weight-only w4, bf16
      activations, 8-bit KV cache) over the w4a8 packed weights with each
@@ -224,8 +233,10 @@ PREFILL_LEN = 512
 SHARED_LEN, UNIQ_A, UNIQ_B = 360, 152, 24
 N_SLOTS, S_MAX, PAGE_SIZE = 4, 1024, 16
 SEED = 0
-#: the paper's Tab. 1 QntPack shape (M, N)
+#: the paper's Tab. 1 QntPack shape (M, N), and the accumulators of the
+#: Reference Layer's conv at 224 x 224 (H * W, C_out)
 TAB1 = (256, 64)
+REF224_PHI = (224 * 224, 64)
 #: launches per timed window for the per-call kernel times
 CALLS = 50
 #: phase 13: how the sampled requests decode, and the greedy / sampled
@@ -752,24 +763,50 @@ def check_conv2d(torch, dev, report):
 
 
 def check_qntpack(torch, dev, report):
+    """qntpack against its plain version, bit-exact, at y = 8, 4 and 2: at
+    the Tab. 1 shape with accumulators at the int32 edges (acc + bias wraps,
+    as JAX's add does), at a ragged shape (111 output bytes: 27 words and a
+    3-byte tail), on a flat ``phi[1:]`` view (4 bytes off the 16-byte grid:
+    the byte path) and, at y = 4 and 2, with a hand-made vector whose
+    thresholds do not ascend (the ladder counts them in any order); the
+    same call twice bit-identical."""
+    import numpy as np
+
     from repro_torch.core import quant as Q
     from repro_torch.kernels import ops
 
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    n = 0
     for yb in (8, 4, 2):
-        phi = torch.randint(-(1 << 20), 1 << 20, TAB1, generator=g, device=dev, dtype=torch.int32)
-        # accumulators at the int32 edges: acc + bias wraps, as JAX's add does
-        phi[0] = (1 << 31) - 1 - torch.arange(TAB1[1], dtype=torch.int32, device=dev)
-        phi[1] = -(1 << 31) + torch.arange(TAB1[1], dtype=torch.int32, device=dev)
+        ry = 8 // yb
         rq = Q.make_requant_params(y_bits=yb, eps_phi=(1 << yb) / 2.0**21, eps_y=1.0,
                                    lam=float(1 << 20))
-        a = ops.qntpack(phi, rq, y_bits=yb, impl="cuda")
-        b = ops.qntpack(phi, rq, y_bits=yb, impl="torch")
-        torch.cuda.synchronize()
-        if not torch.equal(a, b):
-            raise AssertionError(f"qntpack mismatch y_bits={yb}")
-    report["qntpack"] = {"max_abs_err": 0.0}
-    log(f"qntpack: bit-exact on y = 8, 4, 2 at (M, N) = {TAB1}, int32-edge accumulators included")
+        shuffled = dataclasses.replace(
+            rq, thresholds=np.random.RandomState(yb).permutation(rq.thresholds).astype(np.int32))
+        for shape in (TAB1, (37, 3 * ry)):
+            phi = torch.randint(-(1 << 20), 1 << 20, shape, generator=g, device=dev,
+                                dtype=torch.int32)
+            # accumulators at the int32 edges: acc + bias wraps, as JAX's add does
+            phi[0] = (1 << 31) - 1 - torch.arange(shape[1], dtype=torch.int32, device=dev)
+            phi[1] = -(1 << 31) + torch.arange(shape[1], dtype=torch.int32, device=dev)
+            flat = torch.empty(phi.numel() + 1, dtype=torch.int32, device=dev)
+            flat[1:].copy_(phi.reshape(-1))
+            for x in (phi, flat[1:].view(shape)):
+                for r in (rq, shuffled) if yb < 8 else (rq,):
+                    a = ops.qntpack(x, r, y_bits=yb, impl="cuda")
+                    a2 = ops.qntpack(x, r, y_bits=yb, impl="cuda")
+                    b = ops.qntpack(x, r, y_bits=yb, impl="torch")
+                    torch.cuda.synchronize()
+                    if not (torch.equal(a, b) and torch.equal(a, a2)):
+                        raise AssertionError(
+                            f"qntpack mismatch y_bits={yb} shape={shape} phi off 16 B by "
+                            f"{x.data_ptr() % 16} thresholds ascending {r is rq}")
+                    n += 1
+    report["qntpack"] = {"max_abs_err": 0.0, "checks": n}
+    log(f"qntpack: {n} comparisons bit-exact on y = 8, 4, 2 at (M, N) = {TAB1} and at a ragged "
+        f"shape (37, 3 ry), int32-edge accumulators included, phi aligned and 4 bytes off "
+        f"the 16-byte grid, ascending and shuffled thresholds (y = 4, 2); each call twice "
+        f"bit-identical")
 
 
 def check_paged_gather(torch, dev, cfg, mcfg, report):
@@ -815,40 +852,68 @@ def check_paged_gather(torch, dev, cfg, mcfg, report):
         "/ bf16; ids past the pool and negative ids included")
 
 
+def clone_sets(torch, g, dev, cfg, mcfg, P_):
+    """The leaf sets a COW clone moves as one group, as the prefix cache
+    passes them (every leaf of every layer, (P_, PAGE_SIZE, ...) pools
+    filled with seeded values): internlm2 at full depth and DeepSeek-V3 cut
+    to its MLA_LAYERS dense layers, at kv8, kv4 and on the bf16 cell."""
+    from repro_torch.models import attention as A
+
+    out = {}
+    for bits in (8, 4, None):
+        tag = "bf16" if bits is None else f"kv{bits}"
+        out[f"internlm2 {tag}"] = [
+            a for _ in range(cfg.n_layers)
+            for a in A.cache_init(P_, PAGE_SIZE, cfg.kv_heads, cfg.head_dim, bits, dev).values()]
+        out[f"DeepSeek-V3 {tag}"] = [
+            a for _ in range(MLA_LAYERS)
+            for a in A.mla_cache_init(P_, PAGE_SIZE, mcfg.mla_cfg, bits, dev).values()]
+    return {k: [seeded(torch, g, a) for a in v] for k, v in out.items()}
+
+
 def check_paged_copy(torch, dev, cfg, mcfg, report):
-    """paged_copy against its plain version on every leaf of an internlm2
-    kv8 layer and a DeepSeek-V3 latent layer, pages of 16: disjoint ids on
-    the host (one launch), an overlap (a dst page read later as a src reads
-    the original bits) and a self-copy, on host and on device ids (two
-    launches through the staging buffer)."""
+    """paged_copy's group against its plain version, bit-exact: one call on
+    every leaf of an internlm2 (24 layers) and a DeepSeek-V3 (3 layers)
+    clone at kv8, kv4 and on the bf16 cell, and on a set with 15-byte pages
+    of another page count (the byte path); disjoint host ids (one launch,
+    gated), negative ids, ids past the pool (a source clamps, a destination
+    is dropped), an overlap (a dst page read later as a src reads the
+    original bits) and a self-copy (two launches through the staging
+    buffer), and device ids (two launches); the same call twice
+    bit-identical."""
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels.paged_gather import copy_launches
 
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
-    P_ = N_SLOTS * (S_MAX // PAGE_SIZE) + 1
-    hkv, d = cfg.kv_heads, cfg.head_dim
-    leaves = {"k/v int8": (torch.int8, (hkv, d)), "k_s/v_s f32": (torch.float32, (hkv,)),
-              "c int8": (torch.int8, (1, mcfg.kv_lora)), "c_s f32": (torch.float32, (1,)),
-              "r bf16": (torch.bfloat16, (1, mcfg.d_rope))}
-    cases = (([3, 17], [40, 41]), ([1, 2], [2, 3]), ([5, 7], [5, 9]))
+    P_ = 33
+    sets = clone_sets(torch, g, dev, cfg, mcfg, P_)
+    odd = torch.randn((9, 3, 5), generator=g, device=dev).mul(40).clamp(-100, 100)
+    sets["15-byte pages"] = [odd.to(torch.int8), sets["internlm2 kv8"][2]]
+    cases = (([1], [2]), ([3, 17], [30, 31]), ([5, -1], [7, 20]), ([40, 2], [6, 41]),
+             ([1, 2], [2, 3]), ([5], [5]))
     n = 0
-    for name, (dtype, tail) in leaves.items():
-        pool = torch.randn((P_, PAGE_SIZE, *tail), generator=g, device=dev).mul(40)
-        pool = pool.clamp(-100, 100).to(dtype)
+    for name, pools in sets.items():
         for src, dst in cases:
             s_, d_ = (torch.tensor(x, dtype=torch.int32) for x in (src, dst))
-            want = ops.paged_copy(pool.clone(), s_, d_, impl="torch")
-            for ids in ((s_, d_), (s_.to(dev), d_.to(dev))):
-                got = ops.paged_copy(pool.clone(), *ids, impl="cuda")
+            want = ops.paged_copy_leaves([a.clone() for a in pools], s_, d_, impl="torch")
+            host = copy_launches([a.shape[0] for a in pools], src, dst)
+            for ids, launches in (((s_, d_), host), ((s_, d_), host),
+                                  ((s_.to(dev), d_.to(dev)), 2)):
+                n0 = build.LAUNCHES["paged_copy"]
+                got = ops.paged_copy_leaves([a.clone() for a in pools], *ids, impl="cuda")
+                if build.LAUNCHES["paged_copy"] - n0 != launches:
+                    raise AssertionError(f"paged_copy group {name} src={src} dst={dst}: "
+                                         f"{build.LAUNCHES['paged_copy'] - n0} launches, want "
+                                         f"{launches}")
                 torch.cuda.synchronize()
-                if not torch.equal(got, want):
-                    raise AssertionError(f"paged_copy mismatch on {name} src={src} dst={dst} "
-                                         f"ids on {ids[0].device}")
+                if not all(same_bytes(torch, x, y) for x, y in zip(got, want)):
+                    raise AssertionError(f"paged_copy group mismatch on {name} src={src} "
+                                         f"dst={dst} ids on {ids[0].device}")
                 n += 1
-    if build.LAUNCHES["paged_copy"] == 0:
-        raise AssertionError("paged_copy was not launched in its check")
     report["paged_copy"] = {"max_abs_err": 0.0, "checks": n}
-    log(f"paged_copy: {n} comparisons bit-exact ({', '.join(leaves)} leaves at pages of "
-        f"{PAGE_SIZE}; disjoint, overlapping and self-copies; host and device ids)")
+    log(f"paged_copy: {n} group calls bit-exact ({', '.join(sets)}; disjoint host ids in one "
+        f"launch, negative ids, ids past the pool, an overlap and a self-copy in two, device "
+        f"ids in two; each host-id call run twice)")
 
 
 def flash_case(torch, g, dev, B, Sq, Sk, Hq, Hkv, D, dtype, layout="bshd", scales=(1, 1, 1),
@@ -1194,13 +1259,17 @@ def prefix_path(torch, dev, cfg, policy, params, key="", sampled=False) -> tuple
         raise AssertionError(f"{key}prefix streams differ from the cold paged streams")
     if launches.get("paged_copy", 0) == 0:
         raise AssertionError(f"kernel paged_copy was not launched on the {key}prefix path")
+    if launches["paged_copy"] != mw["cache/cow_copies"]:
+        raise AssertionError(f"{key}prefix path: {launches['paged_copy']} paged_copy launches "
+                             f"for {mw['cache/cow_copies']} COW clones (want one a clone)")
     if not (mw["cache/prefix_hit_rate"] > 0 and mw["cache/cow_copies"] >= 3):
         raise AssertionError(f"{key}prefix path: hit rate {mw['cache/prefix_hit_rate']}, "
                              f"{mw['cache/cow_copies']} COW clones (want > 0 and >= 3)")
     if not mw["prefill_jit_calls"] < mc["prefill_jit_calls"]:
         raise AssertionError(f"{key}prefix path: {mw['prefill_jit_calls']} prefill calls, cold "
                              f"{mc['prefill_jit_calls']}")
-    log(f"{key}prefix streams identical to the cold paged streams; prefill calls "
+    log(f"{key}prefix streams identical to the cold paged streams; paged_copy launched "
+        f"{launches['paged_copy']} times for {mw['cache/cow_copies']} COW clones; prefill calls "
         f"{mc['prefill_jit_calls']} -> {mw['prefill_jit_calls']}, pages drawn "
         f"{mc['cache/pages_drawn']} -> {mw['cache/pages_drawn']}, TTFT p50 "
         f"{mc['slo/ttft_p50_s']:.3f} -> {mw['slo/ttft_p50_s']:.3f} s")
@@ -1293,6 +1362,35 @@ def device_ms(fn, reps: int = 5, warmup: int = 2, names=None) -> tuple[float, fl
     launched = devs[0][2]
     return (statistics.median(kept), wall,
             f"profiler, {len(kept)}/{reps} windows of {most} kernels, {launched} launched")
+
+
+def _htod_events(torch, dev, fn) -> int:
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    pad = torch.zeros(1, device=dev)
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        # the warm-up step (its events dropped) runs fn and enough kernels
+        # that the first device events a window loses are among them
+        fn()
+        for _ in range(64):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return sum(e.count for e in prof.key_averages() if "Memcpy HtoD" in e.key)
+
+
+def htod_copies(torch, dev, fn) -> int:
+    """Host-to-device copies (the profiler's ``Memcpy HtoD`` device events)
+    in the second of two calls of ``fn()``. Raises where a window around
+    one upload shows none: the count could not be read."""
+    if _htod_events(torch, dev, lambda: torch.ones(4).to(dev)) == 0:
+        raise AssertionError("the profiler shows no Memcpy HtoD for an upload: host-to-device "
+                             "copies cannot be counted here")
+    return _htod_events(torch, dev, fn)
 
 
 def linears(params):
@@ -1478,26 +1576,38 @@ def kernel_table(torch, dev, cfg, params, launches, report):
                      replaces="src/repro/kernels/paged_gather.py:52", ms=t, plain_ms=tp,
                      bytes=nbytes, work=[], library_ms=tl))
 
-    # paged_copy: one COW clone as the prefix cache makes it, one page on
-    # every leaf of every layer (4 x 24 = 96 calls), host ids (one launch a
-    # leaf, after the ids' upload); the kernel's own device time, then the
-    # whole clone's (uploads included)
-    from repro_torch.kernels.paged_gather import paged_copy_cuda, paged_copy_ref
-
+    # paged_copy: one COW clone as the prefix cache makes it, page 1 into
+    # page 2 on every leaf of every layer (4 x 24 = 96 leaves) with host ids,
+    # one launch; beside it the same leaves one launch each (the first
+    # design's call pattern), the plain version and the library pair (an
+    # index_select and an index_copy_ a leaf, ids on the card). After the
+    # set's first clone a clone must copy nothing to the card (gated)
     src, dst = torch.tensor([1], dtype=torch.int32), torch.tensor([2], dtype=torch.int32)
-    cow = [(a, src, dst) for lv, _, _ in groups for a in lv]
-    cow_dev = [(a, s_.to(dev), d_.to(dev)) for a, s_, d_ in cow]
-    t, tw, how = device_ms(lambda: [paged_copy_cuda(a, s_, d_) for a, s_, d_ in cow],
+    cow = [a for lv, _, _ in groups for a in lv]
+    clone = lambda: ops.paged_copy_leaves(cow, src, dst, impl="cuda")  # noqa: E731
+    t, tw, how = device_ms(clone, names=("paged_copy_kernel",))
+    t1, t1w, _ = device_ms(lambda: [ops.paged_copy(a, src, dst, impl="cuda") for a in cow],
                            names=("paged_copy_kernel",))
-    tall, _, _ = device_ms(lambda: [paged_copy_cuda(a, s_, d_) for a, s_, d_ in cow])
-    tp, tpw, _ = device_ms(lambda: [paged_copy_ref(a, s_, d_) for a, s_, d_ in cow])
-    tl, tlw, _ = device_ms(lambda: [a.index_copy_(0, d_.long(), a.index_select(0, s_.long()))
-                                    for a, s_, d_ in cow_dev])
-    nbytes = sum(2 * a[0].numel() * a.element_size() + 8 for a, _, _ in cow)
-    log(f"  paged_copy, one COW clone ({len(cow)} calls, {nbytes / 1e6:.3f} MB moved): "
-        f"{t * 1e3:.2f} us device in the kernel ({how}), {tall * 1e3:.2f} us with the ids' "
-        f"uploads, {tw:.3f} ms wall; plain {tp:.4f} ms device, {tpw:.3f} ms wall; "
-        f"index_select + index_copy_ (ids on the card) {tl:.4f} ms device, {tlw:.3f} ms wall")
+    tp, tpw, _ = device_ms(lambda: ops.paged_copy_leaves(cow, src, dst, impl="torch"))
+    s_dev, d_dev = src.to(dev).long(), dst.to(dev).long()
+    tl, tlw, _ = device_ms(lambda: [a.index_copy_(0, d_dev, a.index_select(0, s_dev))
+                                    for a in cow])
+    htod = htod_copies(torch, dev, clone)
+    if htod:
+        raise AssertionError(f"a COW clone after the set's first copied {htod} times to the card")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        clone()
+    torch.cuda.synchronize()
+    host_wall = (time.perf_counter() - t0) * 1e3 / 20
+    nbytes = sum(2 * a[0].numel() * a.element_size() for a in cow) + 8
+    log(f"  paged_copy, one COW clone ({len(cow)} leaves, {nbytes / 1e6:.3f} MB moved): "
+        f"{t * 1e3:.2f} us device in one launch ({how}), {tw:.3f} ms wall, {host_wall:.4f} ms "
+        f"on the host's clock (20 clones, then one synchronize), {htod} Memcpy HtoD a clone; "
+        f"leaf by leaf ({len(cow)} launches) {t1 * 1e3:.2f} us device, {t1w:.3f} ms wall; plain "
+        f"{tp:.4f} ms device, {tpw:.3f} ms wall; index_select + index_copy_ (ids on the card) "
+        f"{tl:.4f} ms device, {tlw:.3f} ms wall")
     rows.append(dict(name="paged_copy", route="cuda", source="src/repro_torch/csrc/paged_copy.cu",
                      replaces="src/repro/kernels/paged_gather.py:141", ms=t, plain_ms=tp,
                      bytes=nbytes, work=[], library_ms=tl))
@@ -1508,22 +1618,26 @@ def kernel_table(torch, dev, cfg, params, launches, report):
 
 def reference_layer_rows(torch, dev, g) -> list:
     """qntpack and conv2d per call, timed over CALLS back-to-back launches
-    of the kernel's wrapper with the requant vector already on the card
-    (one launch alone is below what the profiler resolves; ops.* would add
-    the vector's host-to-device copy to every call), beside their bound,
-    their plain version and one PyTorch call for the same function:
-    qntpack at the Tab. 1 shape, y = 4 (the quickstart's width), beside
+    of the kernel's wrapper (one launch alone is below what the profiler
+    resolves), beside their bound, their plain version and one PyTorch call
+    for the same function: qntpack at y = 4 (the quickstart's width) at
+    the Tab. 1 shape and at the 224 x 224 Reference Layer's accumulators
+    (REF224_PHI), its requant vector on the host (the kernel takes it by
+    value; ``ops.qntpack`` must copy nothing to the card, gated), beside
     ``torch.bucketize`` over its thresholds (the requant ladder alone, no
-    pack); conv2d in the quickstart's cell (8, 4, 4) at the paper's shape
-    and at 224 x 224 with the paper's widths (C 32 -> 64), beside
-    ``F.conv2d`` in f32 with TF32 allowed, channels-last, over the codes
-    unpacked ahead of time (its int32 sums, not the requant and pack), with
-    whether it equals ``im2col @ w`` exactly. Returns the raw kernel rows
-    (the paper shape's conv2d; the 224 x 224 one is printed)."""
+    pack); conv2d (its vector uploaded once, ahead of the window) in the
+    quickstart's cell (8, 4, 4) at the paper's shape and at 224 x 224 with
+    the paper's widths (C 32 -> 64), beside ``F.conv2d`` in f32 with TF32
+    allowed, channels-last, over the codes unpacked ahead of time (its int32
+    sums, not the requant and pack), with whether it equals ``im2col @ w``
+    exactly. Returns the raw kernel rows (both qntpack shapes, told apart
+    by their "at"; the paper shape's conv2d; the 224 x 224 one is
+    printed)."""
     import torch.nn.functional as F
 
     from repro_torch.core import pack as P
     from repro_torch.core import quant as Q
+    from repro_torch.kernels import ops
     from repro_torch.kernels.conv2d import conv2d_cuda
     from repro_torch.kernels.mpmm import requant_vector
     from repro_torch.kernels.qntpack import qntpack_cuda
@@ -1534,25 +1648,32 @@ def reference_layer_rows(torch, dev, g) -> list:
         return t / CALLS, tw / CALLS, how
 
     rows = []
-    phi = torch.randint(-(1 << 20), 1 << 20, TAB1, generator=g, device=dev, dtype=torch.int32)
     rq = Q.make_requant_params(y_bits=4, eps_phi=2.0**-17, eps_y=1.0, lam=float(1 << 20))
-    rqv = requant_vector(rq).to(dev)
-    t, tw, how = per_call(lambda: qntpack_cuda(phi, rqv, y_bits=4))
-    tp, tpw, _ = per_call(lambda: qntpack_ref(phi, rq, y_bits=4))
+    rqv = requant_vector(rq)
     thresholds = torch.from_numpy(rq.thresholds.astype("int32")).to(dev)
-    tl, _, _ = per_call(lambda: torch.bucketize(phi, thresholds, right=True))
-    ladder = torch.equal(torch.bucketize(phi, thresholds, right=True).to(torch.uint8),
-                         P.unpack(qntpack_cuda(phi, rqv, y_bits=4), 4, signed=False))
-    M_, N_ = TAB1
-    log(f"  qntpack y=4 at (M, N) = {TAB1}: {t * 1e3:.2f} us device per call ({how}), "
-        f"{tw * 1e3:.2f} us wall; plain {tp * 1e3:.2f} us device, {tpw * 1e3:.2f} us wall; "
-        f"torch.bucketize over the thresholds (the requant ladder alone, no pack) "
-        f"{tl * 1e3:.2f} us device, codes {'equal' if ladder else 'NOT equal'} to the "
-        f"kernel's unpacked")
-    rows.append(dict(name="qntpack", route="cuda", source="src/repro_torch/csrc/qntpack.cu",
-                     replaces="src/repro/kernels/qntpack.py:28", ms=t, plain_ms=tp,
-                     bytes=4 * M_ * N_ + M_ * N_ // 2 + rqv.numel() * 4,
-                     work=[(15 * M_ * N_, F32_FLOPS_PER_S)], library_ms=tl))
+    for (M_, N_), at in ((TAB1, "Tab. 1"), (REF224_PHI, "224 x 224 Reference Layer")):
+        phi = torch.randint(-(1 << 20), 1 << 20, (M_, N_), generator=g, device=dev,
+                            dtype=torch.int32)
+        t, tw, how = per_call(lambda: qntpack_cuda(phi, rqv, y_bits=4))
+        tp, tpw, _ = per_call(lambda: qntpack_ref(phi, rq, y_bits=4))
+        tl, _, _ = per_call(lambda: torch.bucketize(phi, thresholds, right=True))
+        ladder = torch.equal(torch.bucketize(phi, thresholds, right=True).to(torch.uint8),
+                             P.unpack(qntpack_cuda(phi, rqv, y_bits=4), 4, signed=False))
+        nbytes = 4 * M_ * N_ + M_ * N_ // 2 + rqv.numel() * 4
+        log(f"  qntpack y=4 at (M, N) = {(M_, N_)} ({at}): {t * 1e3:.3f} us device per call "
+            f"({how}), {tw * 1e3:.2f} us wall, {nbytes / HBM_BYTES_PER_S * 1e6 / t / 1e3:.2f} of "
+            f"the bytes' bound; plain {tp * 1e3:.2f} us device, {tpw * 1e3:.2f} us wall; "
+            f"torch.bucketize over the thresholds (the requant ladder alone, no pack) "
+            f"{tl * 1e3:.3f} us device, codes {'equal' if ladder else 'NOT equal'} to the "
+            f"kernel's unpacked")
+        rows.append(dict(name="qntpack", route="cuda", source="src/repro_torch/csrc/qntpack.cu",
+                         replaces="src/repro/kernels/qntpack.py:28", ms=t, plain_ms=tp,
+                         bytes=nbytes, work=[(15 * M_ * N_, F32_FLOPS_PER_S)], library_ms=tl,
+                         at=f"{at} ({M_}, {N_}), y = 4"))
+    htod = htod_copies(torch, dev, lambda: ops.qntpack(phi, rq, y_bits=4))
+    log(f"  qntpack: {htod} Memcpy HtoD an ops.qntpack call")
+    if htod:
+        raise AssertionError(f"ops.qntpack copied {htod} times to the card")
 
     paper = ref_layer()
     tf32 = torch.backends.cudnn.allow_tf32

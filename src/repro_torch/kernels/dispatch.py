@@ -18,7 +18,8 @@ Ops in the registry: ``mpmm`` and ``conv2d`` (all 27 (x, w, y) cells),
 ``qntpack`` (one cell per output width y), ``wdqmm`` (one cell per weight
 width w), ``paged_gather``,
 ``paged_scatter`` and ``paged_copy`` (one storage-agnostic cell each; a
-gather or scatter call moves a group of up to four leaves in one launch),
+gather or scatter call moves a group of up to four leaves in one launch, a
+copy call any number of leaves),
 ``paged_attn`` and ``paged_mla_attn`` (one cell per KV width each),
 ``flash_mha`` (one cell: f32 math over bf16 or f32 operands).
 """
@@ -184,8 +185,8 @@ def _register_library() -> None:
         paged_mla_attn_ref,
     )
     from repro_torch.kernels.paged_gather import (
-        paged_copy_cuda,
-        paged_copy_ref,
+        paged_copy_leaves_cuda,
+        paged_copy_leaves_ref,
         paged_gather_leaves_cuda,
         paged_gather_leaves_ref,
         paged_scatter_leaves_cuda,
@@ -229,8 +230,8 @@ def _register_library() -> None:
     register("paged_scatter", impl="cuda", fn=paged_scatter_leaves_cuda, name="paged_scatter")
     register("paged_scatter", impl="torch", fn=paged_scatter_leaves_ref,
              name="paged_scatter_ref")
-    register("paged_copy", impl="cuda", fn=paged_copy_cuda, name="paged_copy")
-    register("paged_copy", impl="torch", fn=paged_copy_ref, name="paged_copy_ref")
+    register("paged_copy", impl="cuda", fn=paged_copy_leaves_cuda, name="paged_copy")
+    register("paged_copy", impl="torch", fn=paged_copy_leaves_ref, name="paged_copy_ref")
     register("flash_mha", impl="cuda", fn=flash_mha_cuda, name="flash_mha")
     register("flash_mha", impl="torch", fn=flash_mha_ref, name="flash_mha_ref")
     for kv_bits in KV_BITS:

@@ -2,7 +2,8 @@
 ``repro.kernels.ops``): ``mpmm``, ``wdqmm``, ``qntpack``, ``conv2d``,
 ``paged_gather`` and ``paged_scatter`` (one leaf, or a group of up to four
 leaves in one launch: ``paged_gather_leaves``, ``paged_scatter_leaves``),
-``paged_copy``, ``paged_attn``,
+``paged_copy`` (one leaf, or any number in one launch:
+``paged_copy_leaves``), ``paged_attn``,
 ``paged_mla_attn`` and ``flash_mha``, plus the quantize-and-pack helpers.
 
 Every call routes through the dispatch registry. ``impl="auto"`` launches
@@ -85,11 +86,13 @@ def qntpack(
     y_bits: int,
     impl: Impl = "auto",
 ) -> torch.Tensor:
-    """The paper's QntPack on its own: requantize and pack -> (M, N/ry) int8."""
+    """The paper's QntPack on its own: requantize and pack -> (M, N/ry) int8.
+    The kernel takes the requant vector by value from the host: a call
+    copies nothing to the card."""
     entry = dispatch.lookup("qntpack", device=phi.device, y_bits=y_bits, impl=impl)
     if entry.key.impl == "torch":
         return entry.fn(phi, rq)
-    return entry.fn(phi, requant_vector(rq).to(phi.device))
+    return entry.fn(phi, requant_vector(rq))
 
 
 def conv2d(
@@ -178,9 +181,23 @@ def paged_copy(
 ) -> torch.Tensor:
     """Clone whole pages ``src`` -> ``dst`` in place (returns the pool),
     with snapshot semantics: a ``dst`` page that reappears as a later
-    ``src`` reads the original bits. The prefix cache's copy-on-write."""
-    entry = dispatch.lookup("paged_copy", device=pool.device, impl=impl)
-    return entry.fn(pool, src, dst)
+    ``src`` reads the original bits. A group of one leaf."""
+    return paged_copy_leaves([pool], src, dst, impl=impl)[0]
+
+
+def paged_copy_leaves(
+    pools,  # any number of (n_pages, page_size, ...) pools, written in place
+    src: torch.Tensor,  # (K,) int32 source page ids (host or the pools' device)
+    dst: torch.Tensor,  # (K,) int32 destination page ids
+    *,
+    impl: Impl = "auto",
+) -> list:
+    """Clone pages ``src`` -> ``dst`` on every pool in one kernel launch (in
+    place; returns the pools), with the snapshot semantics of
+    :func:`paged_copy`: the prefix cache's copy-on-write over every cache
+    leaf of every layer."""
+    entry = dispatch.lookup("paged_copy", device=pools[0].device, impl=impl)
+    return entry.fn(pools, src, dst)
 
 
 def _dense_as_pool(bufs, B: int, S: int, bs: int):

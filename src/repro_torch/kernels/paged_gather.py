@@ -22,8 +22,9 @@ PyTorch versions.
 
 Gather and scatter take a group of up to four leaves (a layer's k, v, k_s,
 v_s, or its c, c_s, r) that share the block table (and ``pos``), each leaf
-of its own dtype and width: one kernel launch a group. The single-leaf ops
-are a group of one.
+of its own dtype and width: one kernel launch a group. The copy takes any
+number of leaves (every leaf of every layer: one launch a COW clone). The
+single-leaf ops are a group of one.
 """
 
 from __future__ import annotations
@@ -45,8 +46,14 @@ _SCATTER_ARGTYPES = [ctypes.c_int, _PTRS, _PTRS, _SIZES, _INTS, ctypes.c_void_p,
                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _GATHER_ARGTYPES = [ctypes.c_int, _PTRS, _PTRS, _SIZES, _INTS, _INTS, ctypes.c_void_p,
                     ctypes.c_longlong, ctypes.c_void_p]
-_COPY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong, ctypes.c_int,
-                                                                ctypes.c_void_p]
+#: page ids one copy launch takes by value (MAX_IDS in csrc/paged_copy.cu)
+MAX_IDS = 16
+_IDS = ctypes.c_int * MAX_IDS
+#: bytes a block of the copy moves (CHUNK in csrc/paged_copy.cu)
+COPY_CHUNK = 4096
+_COPY_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                  ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
 
 
 def _group_size(n: int, what: str) -> None:
@@ -194,47 +201,113 @@ def paged_copy_ref(pool: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> 
     return pool
 
 
-def paged_copy_cuda(pool: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel: writes ``pool`` in place and returns it.
+def paged_copy_leaves_ref(pools, src: torch.Tensor, dst: torch.Tensor) -> list:
+    """The group's plain version: ``paged_copy_ref`` on each leaf."""
+    return [paged_copy_ref(pool, src, dst) for pool in pools]
+
+
+def copy_table(leaves) -> tuple[list, int, int]:
+    """The copy kernel's leaf table for leaves given as (address, pages,
+    page bytes): one row of five int64 words a leaf (``LeafRec`` in
+    csrc/paged_copy.cu): the address, the page bytes, the leaf's offset in
+    a staging row (rounded up to 16 bytes), ``chunk_begin | chunk_end <<
+    32`` (the running sum of the leaves' COPY_CHUNK-byte chunks) and
+    ``pages | vec << 32`` (vec: 16-byte copies, where the page size and the
+    address allow them). Returns (rows, the set's chunks, the staging row's
+    bytes)."""
+    rows, chunk, off = [], 0, 0
+    for addr, pages, nbytes in leaves:
+        end = chunk + -(-nbytes // COPY_CHUNK)
+        vec = int(nbytes % 16 == 0 and addr % 16 == 0)
+        rows.append([addr, nbytes, off, chunk | end << 32, pages | vec << 32])
+        chunk, off = end, off + -(-nbytes // 16) * 16
+    if chunk >= 1 << 31:
+        raise ValueError(f"paged_copy: {chunk} chunks of {COPY_CHUNK} bytes, want < 2^31")
+    return rows, chunk, off
+
+
+def copy_launches(page_counts, src, dst) -> int:
+    """Launches one copy takes: 1 (pool to pool) for host ids (lists), at
+    most MAX_IDS of them, whose sources (wrapped, clamped) share no page
+    with their destinations (wrapped) under any of the leaves' page counts;
+    else 2, through the staging buffer (``src`` None: ids on the card)."""
+    if src is None or len(src) > MAX_IDS:
+        return 2
+    for n in set(page_counts):
+        s = {min(max(x + n if x < 0 else x, 0), n - 1) for x in src}
+        if not s.isdisjoint(x + n if x < 0 else x for x in dst):
+            return 2
+    return 1
+
+
+#: leaf tables on the card, keyed by each leaf's (address, pages, page
+#: bytes) on one device: a table is a pure function of its key, so an entry
+#: is never stale; the dict is emptied when it reaches TABLES_KEPT entries
+_TABLES: dict = {}
+TABLES_KEPT = 256
+
+
+def _leaf_table(dev, pools, page_bytes) -> tuple:
+    key = (dev.index, *((p.data_ptr(), p.shape[0], n) for p, n in zip(pools, page_bytes)))
+    hit = _TABLES.get(key)
+    if hit is None:
+        rows, chunks, row_bytes = copy_table(key[1:])
+        if len(_TABLES) >= TABLES_KEPT:
+            _TABLES.clear()
+        hit = _TABLES[key] = (torch.tensor(rows, dtype=torch.int64).to(dev), chunks, row_bytes)
+    return hit
+
+
+def paged_copy_leaves_cuda(pools, src: torch.Tensor, dst: torch.Tensor) -> list:
+    """Clone pages ``src`` -> ``dst`` on every pool of the set (any number
+    of leaves, each of its own dtype, width and page count) in place, and
+    return the pools.
 
     ``src`` and ``dst`` are (K,) int32, both on the host or both on the
-    pool's device. Host ids that share no page between the two lists (the
-    prefix cache's clone into a freshly drawn page) take one launch, pool to
-    pool; otherwise the pages go through a (K, page) staging buffer in two
-    launches, so an overlap reads the original bits without a host sync."""
-    dev = pool.device
+    pools' device. Host ids (at most MAX_IDS) that share no page between the
+    two lists (the prefix cache's clone into a freshly drawn page) take one
+    launch, pool to pool, the ids by value; otherwise the pages go through
+    one staging buffer for the set in two launches, so an overlap reads the
+    original bits without a host sync. The set's leaf table is uploaded at
+    its first copy only."""
+    if not pools:
+        raise ValueError("paged_copy takes at least one leaf")
+    dev = pools[0].device
     if dev.type != "cuda":
-        raise ValueError(f"paged_copy_cuda needs CUDA tensors, got {dev}")
-    build.check_tensor(pool, "pool", pool.dtype, dev)
-    if pool.dim() < 2:
-        raise ValueError("paged_copy takes a (P, ps, ...) pool")
+        raise ValueError(f"paged_copy needs CUDA tensors, got {dev}")
+    for i, pool in enumerate(pools):
+        build.check_tensor(pool, f"pools[{i}]", pool.dtype, dev)
+        if pool.dim() < 2:
+            raise ValueError("paged_copy takes (P, ps, ...) pools")
     (K,) = src.shape
     on_host = src.device.type == "cpu"
     for name, ids in (("src", src), ("dst", dst)):
         build.check_tensor(ids, name, torch.int32, torch.device("cpu") if on_host else dev, (K,))
-    P_ = pool.shape[0]
-    page_bytes = pool[0].numel() * pool.element_size()
-    if K == 0 or page_bytes == 0:
-        return pool
+    page_bytes = [math.prod(pool.shape[1:]) * pool.element_size() for pool in pools]
+    if K == 0 or not any(page_bytes):
+        return pools
+    if any(pool.shape[0] == 0 for pool, n in zip(pools, page_bytes) if n):
+        raise ValueError("paged_copy in an empty pool")
+    table, chunks, row_bytes = _leaf_table(dev, pools, page_bytes)
+    s_ids, d_ids = (src.tolist(), dst.tolist()) if on_host else (None, None)
+    n_launches = copy_launches([p.shape[0] for p in pools], s_ids, d_ids)
+    if on_host and K > MAX_IDS:  # too many to pass by value
+        src, dst, on_host = src.to(dev), dst.to(dev), False
+    ids = ((None, None, _IDS(*s_ids), _IDS(*d_ids)) if on_host
+           else (src.data_ptr(), dst.data_ptr(), None, None))
     fn = build.entry("paged_copy", "paged_copy_launch", _COPY_ARGTYPES)
     stream = build.stream_ptr(dev)
 
-    def launch(frm, sidx, to, didx):
-        vec = int(page_bytes % 16 == 0 and frm.data_ptr() % 16 == 0 and to.data_ptr() % 16 == 0)
-        err = fn(frm.data_ptr(), None if sidx is None else sidx.data_ptr(), to.data_ptr(),
-                 None if didx is None else didx.data_ptr(), P_, K, page_bytes, vec, stream)
+    def launch(mode, buf):
+        err = fn(table.data_ptr(), len(pools), chunks, *ids, K,
+                 None if buf is None else buf.data_ptr(), row_bytes, mode, stream)
         build.check(err, "paged_copy_launch")
         build.LAUNCHES["paged_copy"] += 1
 
-    direct = False
-    if on_host:
-        direct = set(_wrap_ids(src, P_).clamp(0, P_ - 1).tolist()).isdisjoint(
-            _wrap_ids(dst, P_).tolist())
-        src, dst = torch.stack([src, dst]).to(dev)
-    if direct:
-        launch(pool, src, pool, dst)
+    if n_launches == 1:
+        launch(0, None)
     else:
-        buf = torch.empty((K, *pool.shape[1:]), dtype=pool.dtype, device=dev)
-        launch(pool, src, buf, None)
-        launch(buf, None, pool, dst)
-    return pool
+        buf = torch.empty(K * row_bytes, dtype=torch.uint8, device=dev)
+        launch(1, buf)
+        launch(2, buf)
+    return pools

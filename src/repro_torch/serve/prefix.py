@@ -17,8 +17,9 @@ them:
     prefill starts at the match frontier and the pool is charged only the
     unmatched pages.
   * **Copy-on-write.** The first divergent or partial page is cloned into a
-    fresh page through ``ops.paged_copy`` (the ``paged_copy`` CUDA kernel on
-    the card, its plain version on CPU tensors) before the request writes
+    fresh page on every cache leaf through one ``ops.paged_copy_leaves``
+    call (one launch of the ``paged_copy`` CUDA kernel on the card, its
+    plain version on CPU tensors) before the request writes
     into it; the shared original stays bit-frozen for its other readers. A
     fully matched prompt is capped at S-1 reused tokens, so the last prompt
     token always re-prefills and the engine gets last-token logits to sample
@@ -208,13 +209,12 @@ class PrefixCache(PagedKVCache):
 
     def _copy_pages(self, src: int, dst: int) -> None:
         """Clone pool page ``src`` into ``dst`` on every cache leaf of every
-        layer. The ids stay on the host, where the wrapper sees them
-        disjoint and copies in one launch per leaf."""
+        layer in one call (the reference's tree map over the leaves). The
+        ids stay on the host, where the wrapper sees them disjoint and
+        copies every leaf in one launch."""
         s = torch.tensor([src], dtype=torch.int32)
         d = torch.tensor([dst], dtype=torch.int32)
-        for layer in self.caches:
-            for a in layer.values():
-                ops.paged_copy(a, s, d)
+        ops.paged_copy_leaves([a for layer in self.caches for a in layer.values()], s, d)
 
     # --- admission ----------------------------------------------------------
 

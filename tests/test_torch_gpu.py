@@ -522,6 +522,67 @@ def test_qntpack_kernel_bit_exact(dev, y_bits):
     assert len(torch.unique(b)) > 2
 
 
+def _qntpack_case(g, y_bits, shape):
+    """Accumulators over (-2^20, 2^20), the first rows at the int32 edges
+    (so that ``acc + bias`` wraps), and requant parameters that spread
+    them over the codes."""
+    phi = torch.randint(-(1 << 20), 1 << 20, shape, generator=g, dtype=torch.int32)
+    phi[0] = (1 << 31) - 1 - torch.arange(shape[1], dtype=torch.int32)
+    phi[-1] = -(1 << 31) + torch.arange(shape[1], dtype=torch.int32)
+    rq = Q.make_requant_params(y_bits=y_bits, eps_phi=(1 << y_bits) / 2.0**21, eps_y=1.0,
+                               lam=float(1 << 20))
+    return phi, rq
+
+
+@pytest.mark.parametrize("y_bits", [8, 4, 2])
+def test_qntpack_kernel_ragged_and_misaligned(dev, y_bits):
+    """A ragged tail (M * N / ry = 111 bytes: 27 words and 3 bytes), phi
+    4 bytes off the 16-byte grid (every word on the byte path) and a flat
+    ``phi[1:]`` view of Tab. 1's shape: bit-exact with the plain version,
+    twice bit-identical."""
+    ry = 8 // y_bits
+    g = torch.Generator().manual_seed(50 + y_bits)
+    for shape in ((37, 3 * ry), (256, 64)):
+        phi, rq = _qntpack_case(g, y_bits, shape)
+        want = ops.qntpack(phi, rq, y_bits=y_bits, impl="torch")
+        flat = torch.empty(phi.numel() + 1, dtype=torch.int32, device=dev)
+        flat[1:].copy_(phi.reshape(-1).to(dev))
+        views = (phi.to(dev), flat[1:].view(shape))
+        assert views[1].data_ptr() % 16 == 4
+        for x in views:
+            a = ops.qntpack(x, rq, y_bits=y_bits, impl="cuda")
+            b = ops.qntpack(x, rq, y_bits=y_bits, impl="cuda")
+            assert torch.equal(a.cpu(), want) and torch.equal(a, b), (shape, x.data_ptr() % 16)
+
+
+@pytest.mark.parametrize("y_bits", [4, 2])
+def test_qntpack_kernel_counts_thresholds_in_any_order(dev, y_bits):
+    """A hand-made vector whose thresholds do not ascend: the ladder counts
+    the thresholds an accumulator reaches, as the plain version does (a
+    search would not)."""
+    g = torch.Generator().manual_seed(60 + y_bits)
+    phi, rq = _qntpack_case(g, y_bits, (256, 64))
+    rng = np.random.RandomState(y_bits)
+    rq = dataclasses.replace(rq, thresholds=rng.permutation(rq.thresholds).astype(np.int32))
+    assert np.any(np.diff(rq.thresholds.astype(np.int64)) < 0)
+    a = ops.qntpack(phi.to(dev), rq, y_bits=y_bits, impl="cuda")
+    assert torch.equal(a.cpu(), ops.qntpack(phi, rq, y_bits=y_bits, impl="torch"))
+
+
+def test_qntpack_cuda_refuses_a_requant_vector_on_the_card(dev):
+    from repro_torch.kernels.mpmm import requant_vector
+    from repro_torch.kernels.qntpack import qntpack_cuda
+
+    phi = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    rqv = requant_vector(Q.make_requant_params(y_bits=4, eps_phi=1.0, eps_y=1.0))
+    n0 = build.LAUNCHES["qntpack"]
+    with pytest.raises(ValueError, match="rqv on cuda"):
+        qntpack_cuda(phi, rqv.to(dev), y_bits=4)
+    assert build.LAUNCHES["qntpack"] == n0
+    assert qntpack_cuda(phi, rqv, y_bits=4).shape == (4, 4)
+    assert build.LAUNCHES["qntpack"] == n0 + 1
+
+
 @pytest.mark.parametrize("leaf", ["int8", "int4", "bf16", "f32", "odd"])
 def test_paged_gather_kernel_bit_exact(dev, leaf):
     """Every cache leaf at stored width (16-byte copies), a page of 15 bytes
@@ -631,6 +692,67 @@ def test_paged_copy_kernel_bit_exact(dev, leaf):
             assert torch.equal(got.cpu(), want), (leaf, src, dst)
             direct = ids[0].device.type == "cpu" and not set(src) & set(dst)
             assert build.LAUNCHES["paged_copy"] == (1 if direct else 2)
+
+
+def _copy_set(g, dev):
+    """A clone's leaf set of three layers, as the prefix cache passes it:
+    int8 K/V pages of 1 KB (4 rows of 2 x 128), f32 scales (32 B), bf16
+    pages and a 15-byte int8 leaf off the 16-byte grid (the byte path) of
+    another page count; 33 pages each but the last."""
+    def rnd(shape, dtype):
+        return (torch.randn(shape, generator=g) * 40).clamp(-100, 100).to(dtype).to(dev)
+
+    layer = lambda: [rnd((33, 4, 2, 128), torch.int8), rnd((33, 4, 2), torch.float32),  # noqa: E731
+                     rnd((33, 4, 2, 64), torch.bfloat16), _misaligned(rnd((9, 3, 5), torch.int8))]
+    return [a for _ in range(3) for a in layer()]
+
+
+@pytest.mark.parametrize("src,dst,launches", [
+    ([1], [2], 1),  # a COW clone
+    ([5, 3, -1], [7, 20, 4], 1),  # a negative source (the last page of each pool)
+    ([40, 2], [6, 41], 1),  # a source past a pool clamps, a destination past it is dropped
+    ([1, 2], [2, 3], 2),  # a dst page read later as a src: the original bits
+    ([6], [6], 2),
+])
+def test_paged_copy_group_kernel_bit_exact(dev, src, dst, launches):
+    """One call clones pages on every leaf of a mixed set (16-byte and byte
+    copies, two page counts): bit-exact with the plain version, the
+    launches the plan gives (1 for disjoint host ids, else 2 through the
+    staging buffer), twice bit-identical; device ids take two launches and
+    leave the same bits."""
+    g = torch.Generator().manual_seed(70 + len(src))
+    pools = _copy_set(g, dev)
+    s, d = (torch.tensor(x, dtype=torch.int32) for x in (src, dst))
+    want = ops.paged_copy_leaves([p.cpu() for p in pools], s, d, impl="torch")
+    runs = []
+    for ids in ((s, d), (s, d), (s.to(dev), d.to(dev))):
+        mine = [_misaligned(p) if p.data_ptr() % 16 else p.clone() for p in pools]
+        n0 = build.LAUNCHES["paged_copy"]
+        out = ops.paged_copy_leaves(mine, *ids, impl="cuda")
+        assert build.LAUNCHES["paged_copy"] - n0 == (launches if ids[0].is_cpu else 2)
+        assert all(o is p for o, p in zip(out, mine))
+        runs.append(out)
+    torch.cuda.synchronize()
+    for a, b, c, w in zip(*runs, want):
+        assert _same_bytes(a.cpu(), w) and _same_bytes(a, b) and _same_bytes(a, c)
+
+
+def test_paged_copy_group_kernel_many_ids(dev):
+    """More ids than a launch takes by value (MAX_IDS) go to the card: two
+    launches through the staging buffer, bit-exact with the plain version."""
+    from repro_torch.kernels.paged_gather import MAX_IDS
+
+    g = torch.Generator().manual_seed(80)
+    pools = _copy_set(g, dev)[:3]
+    src = list(range(1, MAX_IDS + 2))
+    dst = [x + MAX_IDS + 1 for x in src]
+    s, d = (torch.tensor(x, dtype=torch.int32) for x in (src, dst))
+    want = ops.paged_copy_leaves([p.cpu() for p in pools], s, d, impl="torch")
+    n0 = build.LAUNCHES["paged_copy"]
+    got = ops.paged_copy_leaves([p.clone() for p in pools], s, d, impl="cuda")
+    assert build.LAUNCHES["paged_copy"] - n0 == 2
+    for a, w in zip(got, want):
+        assert _same_bytes(a.cpu(), w)
 
 
 def _index_page_bytes(cache) -> dict:
