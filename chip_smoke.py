@@ -8,8 +8,10 @@ Phases, in order (any failure ends the run with a nonzero exit):
      ``src/repro_torch/csrc/`` with nvcc (sm_90a) and report the build time;
   2. hold each kernel against its plain PyTorch version on the card:
      mpmm on all 27 cells x 3 output kinds at a small shape and on the five
-     main-path (N, K) at M = 4 and 16 (bit-exact); paged_scatter (bit-exact,
-     scratch page excluded) one leaf at a time and one launch a group on
+     main-path (N, K) at M = 4, 16, 64 (a continuous mixed step) and 2048
+     (bit-exact); paged_scatter (bit-exact, scratch page excluded; S_new 1
+     and 16, a mixed step's rows, at ragged per-slot positions, one slot's
+     rows past its table) one leaf at a time and one launch a group on
      every internlm2 and DeepSeek-V3 leaf set at kv8 / kv4 / bf16 (the
      layer's k, v, k_s, v_s or c, c_s, r); paged_attn on bf16 / kv8 / kv4, with and without
      a window (tolerance ATTN_TOL), each call twice bit-identical and each
@@ -176,6 +178,49 @@ Phases, in order (any failure ends the run with a nonzero exit):
      paged_scatter launched. Printed: a sampled decode step's device and
      wall time beside a greedy step's from the same cache, and the
      sampler's own device time.
+ 14. continuous batching (run right after phase 13, on phase 3's internlm2
+     w4a8 kv8 weights at full width and depth; its DeepSeek-V3 runs right
+     after phase 8's prefix run, on phase 8's weights): ``ServeEngine(...,
+     mixed=True, mixed_budget=MIXED_BUDGET (16), inflight=INFLIGHT (2))``,
+     4 slots, s_max 1024, pages of 16. A mixed step reads the cache
+     unfused, so the continuous runs whose streams are held read it
+     unfused in every step and are held to serialized runs that read it
+     unfused too: phase 3's four greedy requests on slot and paged against
+     phase 5's runs, phase 9's five on prefix and phase 13's sampled four on
+     paged against serialized runs made here, DeepSeek-V3's three MLA
+     layers on phase 3's four (paged) against phase 8's unfused paged run
+     (those serialized runs keep each draw's logits row). Held
+     (``held_to_serial``): each stream equals the serialized one, or, where
+     a greedy stream first parts, the serialized engine's logits of the two
+     tokens drawn there lie within one bf16 step at the row's largest
+     |logit| (a tie), and the rest of the continuous stream is held the same
+     way to a serialized run fed the prompt and the continuous tokens up to
+     the parting (a replay); a sampled stream must be equal. The witness
+     for such ties (``mixed_witness``): from one full-width serving state,
+     one unfused decode step and one mixed step of the same four decode
+     lanes; for DeepSeek-V3 the two are bit-equal on the CPU (gated), and
+     printed are how far they part on the card and from the CPU, and which
+     of the unfused read's einsums (and an RMS norm) give one query row
+     other bits alone than among 16. One more continuous run each, fused
+     (pure-decode steps through paged_attn / paged_mla_attn), on phase 3's
+     requests on paged: launches and syncs gated, streams printed against
+     the fused serialized ones (a mix of unfused mixed and fused
+     pure-decode steps that no serialized run computes). Gates on every
+     continuous run: mixed steps ran and ``inflight`` is 0 after
+     ``drain()``; the in-flight depth, read after every dispatch and from
+     ``on_token``, never exceeds 2; every admission and every dispatch,
+     mixed and pure decode, makes zero host syncs
+     (``serve.boundary.counting_syncs``, with a control: a window around one
+     ``.item()`` must count one); mpmm launches 169 times a step,
+     paged_scatter once a layer a step, paged_gather once a layer a mixed
+     step (a step, unfused), paged_attn / paged_mla_attn once a layer a
+     pure-decode step when fused, paged_copy once a COW clone. Printed: each
+     engine's step EMA, TPOT and TTFT p50 and tokens/s, the syncs of one
+     retire beside its event wait, the device-idle share of 8 profiled
+     fused paged steps of each engine (serialized decode steps, continuous
+     mixed steps and its last pure-decode steps), mpmm's time per mixed
+     step (168 calls at M = 64) beside its bound, its plain version and
+     ``torch._int_mm``, and the phase's own seconds.
 
 Phases 3, 4, 5, 8, 9, 10, 11, 12 and 13 each start with every launch count
 at 0 (phase 8 once for its fused runs, once for its unfused runs, once for
@@ -185,9 +230,11 @@ and its decode steps and once for forward; phase 13 once for its slot and
 paged runs and once for its prefix run) and read the counts at their end;
 the kernels line gives each kernel the count of its own path (paged_copy:
 phase 9's prefix run; wdqmm: phase 10's slot and paged runs; flash_mha:
-phase 11's prefill_step; qkv_decode: phase 12). mpmm has two rows, told
-apart by their "at": per decode step (phase 3's launches) and per
-prefill_step (phase 11's prefill_step launches).
+phase 11's prefill_step; qkv_decode: phase 12). Each of phase 14's
+continuous runs starts at 0 too. mpmm has three rows, told apart by their
+"at": per decode step (phase 3's launches), per prefill_step (phase 11's
+prefill_step launches) and per mixed step (the launches of phase 14's four
+greedy internlm2 runs).
 
 The line before the last is the kernels JSON, the last line the result
 JSON.
@@ -243,6 +290,15 @@ CALLS = 50
 #: decode steps whose walls are compared
 SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.95)
 STEP_PAIRS = 10
+#: phase 14: the continuous engine's token budget a mixed step and its
+#: steps in flight
+MIXED_BUDGET, INFLIGHT = 16, 2
+#: phase 14: where a greedy continuous stream parts from the serialized one
+#: of the same attention, the serialized engine's logits of the two tokens
+#: drawn there lie within this many bf16 steps at the row's largest |logit|:
+#: a tie that the two engines, summing in other orders, break apart (the
+#: witness: ``mixed_witness``)
+TIE_STEPS = 1
 
 
 def wo_policy():
@@ -303,9 +359,9 @@ def mla_mm_shapes(mcfg):
 def check_mpmm(torch, dev, cfg, report):
     """mpmm against its plain version, bit-exact: all 27 cells x 3 output
     kinds x signedness at three ragged shapes (the decode tiles, K % 16 != 0,
-    the prefill tiles), the main path's cell at its shapes at M = 4, 16 and
-    2048; every built mpmm kernel's SASS holds tensor-core (IMMA)
-    instructions."""
+    the prefill tiles), the main path's cell at its shapes at M = 4, 16, 64
+    (a continuous mixed step) and 2048; every built mpmm kernel's SASS holds
+    tensor-core (IMMA) instructions."""
     from repro_torch.core import pack as P
     from repro_torch.core import quant as Q
     from repro_torch.core.policy import PERMUTATIONS
@@ -344,8 +400,9 @@ def check_mpmm(torch, dev, cfg, report):
                                              f"signed={signed} shape {(M, N, K)}")
                     n += 1
     # the main path's cell (8, 4, 8), signed, f32 out, at its shapes: a
-    # decode step, a prefill chunk and a whole-prompt prefill_step
-    for M in (4, 16, N_SLOTS * PREFILL_LEN):
+    # decode step, a prefill chunk, a continuous mixed step and a
+    # whole-prompt prefill_step
+    for M in (4, 16, N_SLOTS * MIXED_BUDGET, N_SLOTS * PREFILL_LEN):
         for N, K, _ in main_path_mm_shapes(cfg):
             x_p, w_p = operands(M, N, K, 8, 4)
             kw = dict(x_bits=8, w_bits=4, y_bits=8, x_signed=True, out_kind="f32",
@@ -360,8 +417,8 @@ def check_mpmm(torch, dev, cfg, report):
             del a, b
     report["mpmm"] = {"max_abs_err": worst, "checks": n}
     log(f"mpmm: {n} comparisons bit-exact (27 cells x 3 kinds x signedness at (37, 40, 96), "
-        f"(3, 24, 44) and (150, 72, 200); main-path shapes at M = 4, 16 and "
-        f"{N_SLOTS * PREFILL_LEN})")
+        f"(3, 24, 44) and (150, 72, 200); main-path shapes at M = 4, 16, "
+        f"{N_SLOTS * MIXED_BUDGET} and {N_SLOTS * PREFILL_LEN})")
     imma = {fn: c["IMMA"] for fn, c in sass_counts(build.library_path("mpmm"),
                                                     "mpmm_kernel").items()}
     log(f"  sass: {len(imma)} mpmm kernels, {min(imma.values())}-{max(imma.values())} IMMA each")
@@ -644,7 +701,9 @@ def check_paged_scatter(torch, dev, cfg, mcfg, report):
     """paged_scatter against its plain version, bit-exact (the scratch page
     excluded): one leaf at a time on int8 / f32 / bf16 leaves, then one
     launch a group on every internlm2 and DeepSeek-V3 leaf set; unallocated
-    entries and rows past the table included."""
+    entries and rows past the table included. S_new 16 at ragged per-slot
+    positions is a continuous mixed step's write (MIXED_BUDGET rows a
+    lane)."""
     from repro_torch.kernels import build, ops
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -664,7 +723,7 @@ def check_paged_scatter(torch, dev, cfg, mcfg, report):
     for dtype, tail in leaves:
         pool = torch.randn((P_, PAGE_SIZE, *tail), generator=g, device=dev).mul(40)
         pool = pool.clamp(-100, 100).to(dtype)
-        for S_new in (1, 16):
+        for S_new in (1, MIXED_BUDGET):
             new = torch.randn((N_SLOTS, S_new, *tail), generator=g, device=dev).mul(40)
             new = new.clamp(-100, 100).to(dtype)
             bt = table()
@@ -674,7 +733,7 @@ def check_paged_scatter(torch, dev, cfg, mcfg, report):
             if not torch.equal(a[1:], b[1:]):
                 raise AssertionError(f"paged_scatter mismatch dtype={dtype} S_new={S_new}")
     for name, pools in leaf_sets(torch, g, dev, cfg, mcfg, P_).items():
-        for S_new in (1, 16):
+        for S_new in (1, MIXED_BUDGET):
             news = [seeded(torch, g, torch.empty((N_SLOTS, S_new, *a.shape[2:]), dtype=a.dtype,
                                                  device=dev)) for a in pools]
             bt = table()
@@ -690,7 +749,8 @@ def check_paged_scatter(torch, dev, cfg, mcfg, report):
                 raise AssertionError(f"paged_scatter group mismatch on {name} S_new={S_new}")
     report["paged_scatter"] = {"max_abs_err": 0.0}
     log("paged_scatter: bit-exact on int8 / f32 / bf16 leaves, and one launch a group on the "
-        "internlm2 and DeepSeek-V3 leaf sets at kv8 / kv4 / bf16 (scratch page excluded)")
+        "internlm2 and DeepSeek-V3 leaf sets at kv8 / kv4 / bf16 (scratch page excluded), "
+        f"S_new 1 and {MIXED_BUDGET} at per-slot positions {pos.tolist()}")
 
 
 def ref_layer() -> tuple:
@@ -1127,10 +1187,13 @@ def sampled_requests(reqs, greedy=(), **over):
     return reqs
 
 
-def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None, ties=None):
+def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None, ties=None,
+          rows=None):
     """Serve ``reqs`` (default: phase 3's four greedy requests). With a dict
     ``ties``, record in it for each token a request draws whether the two
-    best logits it was drawn from tie: {(rid, index): bool}."""
+    best logits it was drawn from tie: {(rid, index): bool}; with a dict
+    ``rows``, the logits row of each draw (``drawn_rows``; phase 14's
+    references, which the log line marks)."""
     from repro_torch.models import model as M
     from repro_torch.serve import Request, ServeEngine
 
@@ -1157,12 +1220,15 @@ def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None, ti
 
     if ties is not None:
         M.sample_tokens = recording
+    if rows is not None:
+        drawn_rows(eng, rows)  # ``rows`` fills while the engine serves
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    reqs = reqs if reqs is not None else requests(cfg, Request)
+    want_len = {r.rid: r.max_new for r in reqs}
     try:
-        out = eng.run(reqs if reqs is not None else requests(cfg, Request),
-                      on_token=peak_shared if cache == "prefix" else None)
+        out = eng.run(reqs, on_token=peak_shared if cache == "prefix" else None)
     finally:
         M.sample_tokens = sample_tokens
     torch.cuda.synchronize()
@@ -1175,14 +1241,15 @@ def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None, ti
     if cache == "prefix":
         pages += (f", at most {shared[0]} pages shared by live requests, hit rate "
                   f"{m['cache/prefix_hit_rate']:.4f}, {m['cache/cow_copies']} COW clones")
-    mode = "" if reqs is None or all(r.params is None or r.params.greedy for r in reqs) else (
-        ", sampled")
+    mode = "" if all(r.params is None or r.params.greedy for r in reqs) else ", sampled"
+    if rows is not None:
+        pages += ", each draw's logits kept"
     log(f"serve[{cfg.name}, {policy.name}, {cache}{'' if fused_attn else ', unfused'}{mode}]: {toks} tokens in {dt:.3f} s ({toks / dt:.2f} tokens/s end to end), "
         f"{m['decode_steps']} decode steps, step EMA {m['step_ema_s'] * 1e3:.2f} ms, "
         f"TTFT p50 {m['slo/ttft_p50_s']:.3f} s, TPOT p50 {m['slo/tpot_p50_s'] * 1e3:.2f} ms, "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{pages}")
     for rid, t in out.items():
-        if len(t) != MAX_NEW or not all(0 <= x < cfg.vocab_padded for x in t):
+        if len(t) != want_len[rid] or not all(0 <= x < cfg.vocab_padded for x in t):
             raise AssertionError(f"request {rid}: bad output {t}")
     return out, m
 
@@ -1338,10 +1405,16 @@ def device_ms(fn, reps: int = 5, warmup: int = 2, names=None) -> tuple[float, fl
         end.record()
         torch.cuda.synchronize()
         walls.append(start.elapsed_time(end))
+    pad = torch.zeros(1, device="cuda")
     for _ in range(reps):
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            # the warm-up step (its events dropped) runs fn and enough
+            # kernels that the first device events a window loses are
+            # among them, as in ``_htod_events``
             fn()
+            for _ in range(64):
+                pad.add_(1)
             torch.cuda.synchronize()
             prof.step()
             n0 = sum(build.LAUNCHES.values())
@@ -2430,6 +2503,588 @@ def sampled_path(torch, dev, cfg, policy, params, greedy_out) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 14
+
+
+def engines(dev, cfg, policy, params, cache, fused_attn=True):
+    """``make(mixed)``: a serialized (False) or continuous (True: budget
+    MIXED_BUDGET, INFLIGHT steps in flight) engine, 4 slots, s_max 1024."""
+    from repro_torch.serve import ServeEngine
+
+    def make(mixed):
+        kw = dict(mixed=True, mixed_budget=MIXED_BUDGET, inflight=INFLIGHT) if mixed else {}
+        return ServeEngine(params, cfg, policy, n_slots=N_SLOTS, s_max=S_MAX, cache=cache,
+                           page_size=PAGE_SIZE if cache != "slot" else None,
+                           fused_attn=fused_attn, device=dev, **kw)
+
+    return make
+
+
+def drawn_rows(eng, rows: dict) -> None:
+    """Until ``M.sample_tokens`` is restored, keep in ``rows`` each draw's
+    logits row (f32, on the card, no host sync) under (rid, index of the
+    token drawn): the serialized engine draws token ``len(out)`` of a slot,
+    the continuous one token ``_counters[slot]`` at dispatch (a mid-prompt
+    chunk's row is overwritten by its final chunk's)."""
+    from repro_torch.models import model as M
+
+    orig = M.sample_tokens
+
+    def wrapped(logits, *lanes, **kw):
+        f = logits.float()
+        if logits.shape[0] == 1:  # serialized admission: the request with no token yet
+            r = next(r for r in eng.slot_req if r is not None and not r.out)
+            rows[r.rid, 0] = f[0].clone()
+        else:
+            for s_, r in enumerate(eng.slot_req):
+                if r is not None:
+                    rows[r.rid, int(eng._counters[s_])] = f[s_].clone()
+        return orig(logits, *lanes, **kw)
+
+    M.sample_tokens = wrapped
+
+
+def bf16_step(row) -> float:
+    """The spacing of bf16 values at ``row``'s largest magnitude."""
+    import math
+
+    top = float(row.abs().max())
+    return 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 0.0
+
+
+def first_parting(a, b):
+    """The first index where token lists ``a`` and ``b`` differ, or None."""
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def held_to_serial(what, reqs, want, got, rows_w, rows_g, replay) -> int:
+    """Hold continuous streams ``got`` (their draws' logits ``rows_g``) to
+    the serialized streams ``want`` (``rows_w``) of the same cache and
+    attention. Equal, or: where request r first parts, at draw i, the
+    serialized engine's logits of its token a and of the continuous
+    engine's token b lie within TIE_STEPS bf16 steps at that row's largest
+    |logit| (a tie the two engines break apart: they sum in other orders,
+    see ``mixed_witness``), and the rest of the continuous stream,
+    ``got[r][i + 1:]``, is held the same way to ``replay(request)``: a
+    serialized run of the same cache and attention fed the prompt and
+    ``got[r][:i + 1]``, returning (streams, rows). Greedy only: a sampled
+    stream must be equal (a replay cannot start a request's draws at
+    counter i + 1). Returns the number of partings."""
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    partings = 0
+    for r in reqs:
+        a_s, b_s = want[r.rid], got[r.rid]
+        if len(a_s) != len(b_s):
+            raise AssertionError(f"{what}: request {r.rid} drew {len(b_s)} tokens, the serialized "
+                                 f"engine {len(a_s)}")
+        i = first_parting(a_s, b_s)
+        if i is None:
+            continue
+        if r.params is not None and not r.params.greedy:
+            raise AssertionError(f"{what}: sampled request {r.rid} parts from the serialized "
+                                 f"stream at token {i}")
+        lw = rows_w[r.rid, i].cpu()
+        a, b = a_s[i], b_s[i]
+        gap, tol = abs(float(lw[a] - lw[b])), TIE_STEPS * bf16_step(lw)
+        log(f"  {what}: request {r.rid} parts at token {i} ({a} serialized, {b} continuous): the "
+            f"serialized logits of the two {gap:.4g} apart (one bf16 step there: {tol:.4g}); the "
+            f"rows part by {float((lw - rows_g[r.rid, i].cpu()).abs().max()):.4g}")
+        if gap > tol:
+            raise AssertionError(f"{what}: request {r.rid} parts from the serialized stream at "
+                                 f"token {i}, not at a tie (gap {gap:.4g} > {tol:.4g})")
+        partings += 1
+        if i + 1 < len(b_s):
+            tail = Request(rid=r.rid, prompt=np.concatenate(
+                [r.prompt, np.asarray(b_s[:i + 1], np.int32)]), max_new=len(b_s) - i - 1)
+            want_t, rows_t = replay(tail)
+            rows_gt = {(rid, j - i - 1): v for (rid, j), v in rows_g.items()
+                       if rid == r.rid and j > i}
+            partings += held_to_serial(f"{what}, request {r.rid} from token {i + 1}", [tail],
+                                       want_t, {r.rid: b_s[i + 1:]}, rows_t, rows_gt, replay)
+    return partings
+
+
+def replayer(torch, dev, cfg, policy, params, cache, fused_attn):
+    """``replay(request)`` for ``held_to_serial``: the request served alone
+    on a serialized engine of ``cache`` and ``fused_attn``, its draws'
+    logits kept: (streams, rows)."""
+    def replay(req):
+        rows: dict = {}
+        out, _ = serve(torch, dev, cfg, policy, params, cache, fused_attn=fused_attn, reqs=[req],
+                       rows=rows)
+        return out, rows
+    return replay
+
+
+def rows_apart(want, got, rows_w, rows_g) -> float:
+    """The largest distance, in bf16 steps at the serialized row's largest
+    |logit|, between the two engines' logits over every draw up to and
+    including each request's first parting."""
+    worst = 0.0
+    for rid, a_s in want.items():
+        i = first_parting(a_s, got[rid])
+        for j in range(len(a_s) if i is None else i + 1):
+            lw = rows_w[rid, j]
+            worst = max(worst, float((lw - rows_g[rid, j]).abs().max()) / bf16_step(lw))
+    return worst
+
+
+def continuous_serve(torch, dev, cfg, policy, params, cache, reqs, fused_attn=True,
+                     keep_rows=True):
+    """Serve ``reqs`` on a continuous engine (``mixed=True``, MIXED_BUDGET
+    prompt tokens a mixed step, INFLIGHT steps in flight), keeping each
+    draw's logits row with ``keep_rows``. Counts the host syncs
+    (``serve.boundary.counting_syncs``) of every admission, every dispatch
+    (mixed or pure decode) and every retire, the CUDA event waits of the
+    retires, and the in-flight depth after every dispatch and at every
+    token. Returns (streams, metrics, info); info["rows"] holds the rows."""
+    from repro_torch.models import model as M
+    from repro_torch.serve.boundary import counting_syncs
+
+    eng = engines(dev, cfg, policy, params, cache, fused_attn)(True)
+    info: dict = {"mixed": [], "decode": [], "admit": [], "retire": [], "waits": 0, "depth": [],
+                  "peak": 0, "rows": {}}
+    dispatch, admit, retire = eng._dispatch, eng._admit, eng._retire_one
+
+    def counted_dispatch():
+        before, out = eng._mixed_steps, []
+        with counting_syncs() as got:
+            out.append(dispatch())
+        if out[0]:
+            info["mixed" if eng._mixed_steps > before else "decode"].append(got)
+        info["peak"] = max(info["peak"], eng.metrics()["inflight"])
+        return out[0]
+
+    def counted(name, fn):
+        def run():
+            with counting_syncs() as got:
+                fn()
+            info[name].append(got)
+        return run
+
+    wait, sample_tokens = torch.cuda.Event.synchronize, M.sample_tokens
+
+    def counting_wait(ev):
+        info["waits"] += 1
+        return wait(ev)
+
+    eng._dispatch = counted_dispatch
+    eng._admit, eng._retire_one = counted("admit", admit), counted("retire", retire)
+    torch.cuda.Event.synchronize = counting_wait
+    if keep_rows:
+        drawn_rows(eng, info["rows"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = eng.run(reqs, on_token=lambda rid, tok: info["depth"].append(
+            eng.metrics()["inflight"]))
+    finally:
+        torch.cuda.Event.synchronize = wait
+        M.sample_tokens = sample_tokens
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    m = eng.metrics()
+    mode = "" if all(r.params is None or r.params.greedy for r in reqs) else ", sampled"
+    kept = ", each draw's logits kept" if keep_rows else ""
+    log(f"continuous[{cfg.name}, {policy.name}, {cache}{'' if fused_attn else ', unfused'}{mode}]: "
+        f"{m['tokens_generated']} tokens in {dt:.3f} s ({m['tokens_generated'] / dt:.2f} tokens/s "
+        f"end to end), {m['decode_steps']} steps ({m['mixed_steps']} mixed), step EMA "
+        f"{m['step_ema_s'] * 1e3:.2f} ms, TTFT p50 {m['slo/ttft_p50_s']:.3f} s, TPOT p50 "
+        f"{m['slo/tpot_p50_s'] * 1e3:.2f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{kept}; in flight at most "
+        f"{info['peak']} after a dispatch, {max(info['depth'], default=0)} at a token; host syncs: "
+        f"mixed dispatches {sum(map(len, info['mixed']))} over {len(info['mixed'])}, pure-decode "
+        f"dispatches {sum(map(len, info['decode']))} over {len(info['decode'])}, admissions "
+        f"{sum(map(len, info['admit']))} over {len(info['admit'])}, retires "
+        f"{sum(map(len, info['retire']))} over {len(info['retire'])} (and {info['waits']} "
+        f"event waits)")
+    return out, m, info
+
+
+def gate_continuous(what, reqs, out, m, info, launched, cfg, cache, fused_attn=True,
+                    serial=None):
+    """Phase 14's gates on one continuous run: with ``serial`` = (streams,
+    rows, replay) of the serialized engine of the same cache and attention,
+    the streams are held to it (``held_to_serial``); mixed steps ran and
+    the pipeline drained; the in-flight depth never passed INFLIGHT; no
+    admission or dispatch made a host sync; every step launched mpmm, a
+    paged run paged_scatter once a layer a step and paged_gather once a
+    layer a mixed step (every step unfused), the fused attention kernel once
+    a layer a pure-decode step (none unfused). A fused run (``serial``
+    None) reads the cache unfused in its mixed steps and fused in its
+    pure-decode steps, a mix no serialized run computes: its caller prints
+    how its streams compare."""
+    held = ""
+    if serial is not None:
+        want, want_rows, replay = serial
+        apart = rows_apart(want, out, want_rows, info["rows"])
+        n = held_to_serial(what, reqs, want, out, want_rows, info["rows"], replay)
+        held = ("; streams equal the serialized ones" if n == 0 else
+                f"; streams part from the serialized ones {n} times, each at a tie, every tail "
+                f"held to a serialized replay") + (
+            f" (the engines' logits part by at most {apart:.2f} bf16 steps up to each first "
+            f"parting)")
+    if not (m["mixed_steps"] > 0 and m["inflight"] == 0):
+        raise AssertionError(f"{what}: {m['mixed_steps']} mixed steps, {m['inflight']} in flight "
+                             f"after drain()")
+    if not info["depth"] or max(info["depth"] + [info["peak"]]) > INFLIGHT:
+        raise AssertionError(f"{what}: in-flight depth {max(info['depth'], default=None)} at a "
+                             f"token, {info['peak']} after a dispatch; want at most {INFLIGHT}")
+    for kind in ("mixed", "decode", "admit"):
+        bad = [got for got in info[kind] if got]
+        if bad:
+            raise AssertionError(f"{what}: {len(bad)} of {len(info[kind])} {kind} calls made "
+                                 f"host syncs, first: {bad[0]}")
+    if not info["mixed"]:
+        raise AssertionError(f"{what}: no mixed dispatch")
+    L, steps, mixed = cfg.n_layers, m["decode_steps"], m["mixed_steps"]
+    attn = "paged_mla_attn" if cfg.family == "mla_moe" else "paged_attn"
+    want_n = {attn: L * (steps - mixed) if fused_attn else 0}
+    if cache != "slot":
+        want_n["paged_scatter"] = L * steps
+        want_n["paged_gather"] = L * (mixed if fused_attn else steps)
+    if cfg.family == "dense":
+        want_n["mpmm"] = 7 * L * steps + steps  # seven projections a layer and the head
+    if cache == "prefix":
+        want_n["paged_copy"] = m["cache/cow_copies"]
+    got_n = {k: launched.get(k, 0) for k in want_n}
+    if got_n != want_n or launched.get("mpmm", 0) == 0:
+        raise AssertionError(f"{what}: launches {got_n}, want {want_n} ({steps} steps, {mixed} "
+                             f"mixed)")
+    log(f"{what}: launches {got_n} ({steps} steps, {mixed} mixed){held}")
+
+
+def tokens_equal(want, got) -> str:
+    same = sum(a == b for rid in want for a, b in zip(want[rid], got[rid]))
+    return f"{same} of {sum(len(t) for t in want.values())} tokens"
+
+
+def _moved(tree, dev):
+    """``tree`` (dicts, lists and tuples of tensors) with every tensor on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _moved(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_moved(v, dev) for v in tree)
+    return tree.to(dev) if hasattr(tree, "to") and hasattr(tree, "device") else tree
+
+
+def mixed_witness(torch, dev, cfg, policy, params, cpu: bool) -> None:
+    """Phase 14's witness for the partings at ties. From one serving state
+    at full width (phase 3's four requests served serialized on the paged
+    cache, unfused, for 6 steps: every slot decoding), one unfused decode
+    step and one mixed step of the same four decode lanes (width
+    MIXED_BUDGET, one real token each) run on copies of the cache. They
+    compute the same function: with ``cpu``, on the CPU (the plain versions,
+    on copies of the weights and the cache) their logits must be bit-equal.
+    Printed: how far the card's two part from each other and, with ``cpu``,
+    from the CPU's, in bf16 steps at the row's largest |logit|; and where
+    the card's arithmetic depends on the step's shape: the attention's f32
+    products (einsums, which cuBLAS runs with a kernel picked by the shape)
+    for one query row computed alone (S = 1, a decode step) and among
+    MIXED_BUDGET rows (a mixed step), and an RMS norm of 4 rows and of 64."""
+    from repro_torch.models import model as M
+    from repro_torch.models.common import rms_norm
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    eng = ServeEngine(params, cfg, policy, n_slots=N_SLOTS, s_max=S_MAX, cache="paged",
+                      page_size=PAGE_SIZE, fused_attn=False, device=dev)
+    for r in requests(cfg, Request):
+        eng.submit(r.prompt, SamplingParams(max_new=r.max_new), rid=r.rid)
+    for _ in range(6):  # the four admissions (blocking prefills), then decode steps
+        eng.step()
+    if any(r is None or not r.out for r in eng.slot_req):
+        raise AssertionError(f"witness {cfg.name}: not every slot decodes after 6 steps")
+    toks = [r.out[-1] for r in eng.slot_req]
+    pos, bt = eng.cache.pos.copy(), eng.cache.block_tables.copy()
+    state = [{k: a.clone() for k, a in layer.items()} for layer in eng.cache.caches]
+    eng.close()
+
+    def both(d, prm):
+        """The four decode lanes' logits (f32, on the host) of one unfused
+        decode step and of one mixed step, on device ``d``."""
+        t = torch.tensor(toks, dtype=torch.int32, device=d)
+        p = torch.tensor(pos, dtype=torch.int32, device=d)
+        b = torch.tensor(bt, dtype=torch.int32, device=d)
+
+        def cache():
+            return [{k: a.to(d, copy=True) for k, a in layer.items()} for layer in state]
+        dec = M.decode_step(prm, t[:, None], p, cache(), cfg, policy, block_tables=b,
+                            fused_attn=False)[:, -1]
+        wide = torch.zeros(len(toks), MIXED_BUDGET, dtype=torch.int32, device=d)
+        wide[:, 0] = t
+        mix = M.mixed_step(prm, wide, p, torch.ones_like(p), cache(), cfg, policy,
+                           block_tables=b, page_size=PAGE_SIZE)[:, 0]
+        return dec.float().cpu(), mix.float().cpu()
+
+    dec, mix = both(dev, params)
+    step = bf16_step(dec)
+
+    def apart(x, y):
+        return "bit-equal" if torch.equal(x, y) else (
+            f"{float((x - y).abs().max()) / step:.2f} bf16 steps apart")
+
+    said = f"card decode vs card mixed {apart(dec, mix)}"
+    if cpu:
+        cdec, cmix = both(torch.device("cpu"), _moved(params, torch.device("cpu")))
+        if not torch.equal(cdec, cmix):
+            raise AssertionError(f"witness {cfg.name}: on the CPU one decode step and one mixed "
+                                 f"step of the same lanes part: {apart(cdec, cmix)}")
+        said += (f"; CPU decode vs CPU mixed bit-equal (gated); card decode vs CPU "
+                 f"{apart(dec, cdec)}, card mixed vs CPU {apart(mix, cmix)}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    B, W = N_SLOTS, MIXED_BUDGET
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def pair(name, f, x, ax_in, ax_out):
+        """``f`` (the model's einsum) of the first query row alone and among
+        the W rows of ``x`` (rows on axis ``ax_in`` in, ``ax_out`` out)."""
+        one = f(x.narrow(ax_in, 0, 1).contiguous()).narrow(ax_out, 0, 1)
+        among = f(x).narrow(ax_out, 0, 1)
+        shape.append(f"{name} " + ("bit-equal" if torch.equal(one, among) else
+                                   f"parts by {float((one - among).abs().max()):.3g}"))
+
+    shape: list = []
+    if cfg.family == "mla_moe":  # the absorbed einsums of mla_apply's unfused read
+        q, w = rnd(B, W, cfg.n_heads, cfg.d_nope), rnd(cfg.n_heads, cfg.d_nope, cfg.kv_lora)
+        c = rnd(B, S_MAX, cfg.kv_lora)
+        lat = torch.einsum("bshd,hdc->bshc", q, w)
+        p = torch.softmax(torch.einsum("bshc,btc->bhst", lat, c) / 16, -1)
+        pair("q_nope . w_uk", lambda x: torch.einsum("bshd,hdc->bshc", x, w), q, 1, 1)
+        pair("q_lat . c", lambda x: torch.einsum("bshc,btc->bhst", x, c), lat, 1, 2)
+        pair("p . c", lambda x: torch.einsum("bhst,btc->bshc", x, c), p, 2, 1)
+    else:  # attn_apply's unfused read
+        q, k, v = (rnd(B, n, cfg.n_heads, cfg.head_dim) for n in (W, S_MAX, S_MAX))
+        p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) / 16, -1)
+        pair("q . k", lambda x: torch.einsum("bqhd,bkhd->bhqk", x, k), q, 1, 2)
+        pair("p . v", lambda x: torch.einsum("bhqk,bkhd->bqhd", x, v), p, 2, 1)
+    x = (rnd(64, cfg.d_model) * 3).to(torch.bfloat16)
+    scale = {"scale": rnd(cfg.d_model)}
+    same = torch.equal(rms_norm(scale, x[:4]), rms_norm(scale, x)[:4])
+    shape.append(f"RMS norm {'bit-equal' if same else 'parts'}")
+    log(f"witness ({cfg.name}, {policy.name}, paged, 4 decode lanes at {[int(p) for p in pos]} "
+        f"cached rows; "
+        f"{gpu_line()}): {said}. One query row alone (S = 1) against among {W} (f32, "
+        f"unit-normal operands at the step's shapes): " + ", ".join(shape))
+
+
+def window_idle(torch, eng, reqs, skip: int, steps: int) -> tuple[float, float, int]:
+    """Submit ``reqs``, take ``skip`` steps, then ``steps`` more under the
+    profiler: (device busy ms, wall ms, device kernels) of that window; the
+    engine is closed after it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import SamplingParams
+
+    for r in reqs:
+        eng.submit(r.prompt, r.params or SamplingParams(max_new=r.max_new), rid=r.rid)
+    for _ in range(skip):
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    eng.close()
+    seen = [e for e in prof.key_averages() if (getattr(e, "self_device_time_total", 0) or 0) > 0]
+    return (sum(e.self_device_time_total for e in seen) / 1e3, wall, sum(e.count for e in seen))
+
+
+def mpmm_mixed_row(torch, dev, cfg, params) -> dict:
+    """mpmm per continuous mixed step: the 168 projections at M = N_SLOTS x
+    MIXED_BUDGET = 64 (cell (8, 4, 8), f32 out; the head's call runs at M =
+    N_SLOTS, row 1's shape) over every layer's own weights, beside its
+    bound, its plain version and one ``torch._int_mm`` a projection over
+    the weights unpacked to int8 ahead of time (M = 64 > 16: allowed)."""
+    from repro_torch.core import pack as P
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 15)
+    M, lin = N_SLOTS * MIXED_BUDGET, linears(params)[:-1]
+
+    def K_of(p):
+        return p["w_packed"].shape[1] * 2
+
+    xs = {K: torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.int8) for K in {K_of(p) for p in lin}}
+    kw = dict(x_bits=8, w_bits=4, y_bits=8, x_signed=True, out_kind="f32")
+
+    def step(impl):
+        return lambda: [ops.mpmm(xs[K_of(p)], p["w_packed"], None, out_scale=p["eps_w"],
+                                 impl=impl, **kw) for p in lin]
+
+    t, tw, how = device_ms(step("cuda"), names=("mpmm_kernel",))
+    tp, tpw, _ = device_ms(step("torch"), reps=3, warmup=1)
+    ints = [P.unpack(p["w_packed"], 4, signed=True).to(torch.int8).t() for p in lin]
+    tl, tlw, _ = device_ms(lambda: [torch._int_mm(xs[w.shape[0]], w) for w in ints])
+    del ints
+    nops = sum(2 * M * p["w_packed"].shape[0] * K_of(p) for p in lin)
+    nbytes = sum(p["w_packed"].numel() + M * K_of(p) + 4 * M * p["w_packed"].shape[0] + 4
+                 for p in lin)
+    log(f"  mpmm, one mixed step ({len(lin)} calls, M={M}, cell (8, 4, 8), f32 out): {t:.4f} ms "
+        f"device ({how}), {tw:.3f} ms wall; plain {tp:.3f} ms device, {tpw:.3f} ms wall; "
+        f"torch._int_mm over the weights unpacked to int8 ahead of time {tl:.4f} ms device, "
+        f"{tlw:.3f} ms wall; bound {max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS_PER_S) * 1e3:.4f}"
+        f" ms ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G int8 operations)")
+    return dict(name="mpmm", at=f"mixed step, M = {M} ({len(lin)} projections)", route="cuda",
+                source="src/repro_torch/csrc/mpmm.cu", replaces="src/repro/kernels/mpmm.py:122",
+                ms=t, plain_ms=tp, bytes=nbytes, work=[(nops, INT8_OPS_PER_S)], library_ms=tl)
+
+
+def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict, dict]:
+    """Phase 14 (internlm2 w4a8 kv8, full width and depth, the weights of
+    phase 3). The continuous engine reads the cache unfused in every mixed
+    step, so its streams are held (``gate_continuous`` with
+    ``held_to_serial``) to serialized runs that read it unfused too: phase
+    3's four greedy requests on slot and paged against phase 5's runs
+    (``serial``: cache -> (streams, metrics, rows)), phase 9's five on
+    prefix and phase 13's sampled four on paged against serialized runs
+    made here. One more continuous run, fused (its pure-decode steps
+    through paged_attn), on phase 3's requests on paged: its launches and
+    syncs are gated, its streams printed against phase 3's fused ones
+    (``serial["paged fused"]``: (streams, metrics)). A window around one
+    ``.item()`` must count one sync, or the counts are unreadable and the
+    phase fails. Printed: ``mixed_witness``; each engine's step EMA, TPOT /
+    TTFT p50 and tokens/s; the device-idle share of 8 profiled steps of
+    each engine on the paged cache, fused (the serialized engine's decode
+    steps after its prefills; the continuous engine's mixed steps and its
+    last pure-decode steps). Returns the launches of the four greedy runs
+    and mpmm's per-mixed-step row."""
+    from collections import Counter
+
+    from repro_torch.kernels import build
+    from repro_torch.serve import Request
+    from repro_torch.serve.boundary import counting_syncs
+
+    t_phase = time.perf_counter()
+    x = torch.ones(4, device=dev)
+    with counting_syncs() as ctl:
+        x.sum().item()
+    if len(ctl) != 1:
+        raise AssertionError(f"host syncs cannot be counted here: a window around one .item() "
+                             f"counted {len(ctl)}")
+    log(f"host-sync control: a window around one .item() counts {len(ctl)}")
+    mixed_witness(torch, dev, cfg, policy, params, cpu=False)
+    ser = dict(serial)
+    rows: dict = {}
+    out_p, m_p = serve(torch, dev, cfg, policy, params, "prefix", fused_attn=False,
+                       reqs=prefix_requests(cfg, Request), rows=rows)
+    ser["prefix"] = (out_p, m_p, rows)
+    launches: Counter = Counter()
+    cont: dict = {}
+    for cache, reqs in (("slot", requests), ("paged", requests), ("prefix", prefix_requests)):
+        build.reset_launches()  # this continuous run starts here
+        out, m, info = continuous_serve(torch, dev, cfg, policy, params, cache, reqs(cfg, Request),
+                                        fused_attn=False)
+        launched = dict(build.LAUNCHES)  # this continuous run ends here
+        launches.update(launched)
+        want, _, want_rows = ser[cache]
+        gate_continuous(f"continuous {cache}, unfused", reqs(cfg, Request), out, m, info,
+                        launched, cfg, cache, fused_attn=False, serial=(
+                            want, want_rows,
+                            replayer(torch, dev, cfg, policy, params, cache, False)))
+        cont[cache] = m
+        del info
+    del ser, rows
+
+    build.reset_launches()  # the fused continuous run starts here
+    out, m, info = continuous_serve(torch, dev, cfg, policy, params, "paged",
+                                    requests(cfg, Request), keep_rows=False)
+    launched = dict(build.LAUNCHES)  # the fused continuous run ends here
+    launches.update(launched)
+    want_f, m_f = serial["paged fused"]
+    log(f"continuous paged, fused: {tokens_equal(want_f, out)} equal phase 3's fused serialized "
+        f"streams (not held: its mixed steps read the cache unfused, its pure-decode steps "
+        f"fused, a mix no serialized run computes)")
+    gate_continuous("continuous paged, fused", requests(cfg, Request), out, m, info, launched,
+                    cfg, "paged")
+    cont["paged fused"] = m
+    one = lambda kind: f"{len(info[kind][-1])}" if info[kind] else "none"  # noqa: E731
+    log(f"host syncs at full width (paged, fused): one mixed dispatch {one('mixed')}, one "
+        f"pure-decode dispatch {one('decode')}, one retire {one('retire')} and "
+        f"{info['waits'] / max(len(info['retire']), 1):.0f} event wait")
+    del info
+
+    sreqs = lambda: sampled_requests(requests(cfg, Request))  # noqa: E731
+    ser_rows: dict = {}
+    ser_s, _ = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False, reqs=sreqs(),
+                     rows=ser_rows)
+    build.reset_launches()
+    out, ms, info_s = continuous_serve(torch, dev, cfg, policy, params, "paged", sreqs(),
+                                       fused_attn=False)
+    gate_continuous("continuous paged, unfused, sampled", sreqs(), out, ms, info_s,
+                    dict(build.LAUNCHES), cfg, "paged", fused_attn=False, serial=(
+                        ser_s, ser_rows, None))  # a sampled parting raises before a replay
+    del ser_rows, info_s
+
+    card = gpu_line()
+    for key, label, src in (("slot", "slot, unfused", "phase 5"),
+                            ("paged", "paged, unfused", "phase 5"),
+                            ("prefix", "prefix, unfused", "this phase"),
+                            ("paged fused", "paged, fused", "phase 3")):
+        ms_ = m_p if key == "prefix" else (m_f if key == "paged fused" else serial[key][1])
+        mc = cont[key]
+        log(f"serialized vs continuous ({cfg.name}, {policy.name}, {label}, "
+            f"{'phase 9' if key == 'prefix' else 'phase 3'}'s requests, the serialized run "
+            f"{src}'s; {card}): step EMA {ms_['step_ema_s'] * 1e3:.2f} vs "
+            f"{mc['step_ema_s'] * 1e3:.2f} ms, TPOT p50 {ms_['slo/tpot_p50_s'] * 1e3:.2f} vs "
+            f"{mc['slo/tpot_p50_s'] * 1e3:.2f} ms, TTFT p50 {ms_['slo/ttft_p50_s']:.3f} vs "
+            f"{mc['slo/ttft_p50_s']:.3f} s, tokens/s {ms_['tokens_per_s']:.2f} vs "
+            f"{mc['tokens_per_s']:.2f}, steps {ms_['decode_steps']} "
+            f"(+{ms_['prefill_jit_calls']} prefill calls) vs {mc['decode_steps']} "
+            f"({mc['mixed_steps']} mixed)")
+    make = engines(dev, cfg, policy, params, "paged")
+    n_mixed = cont["paged fused"]["mixed_steps"]
+    for label, mixed, skip in (("serialized, decode steps 2-9", False, 1),
+                               ("continuous, mixed steps 11-18", True, 10),
+                               ("continuous, the last 8 pure-decode steps", True,
+                                cont["paged fused"]["decode_steps"] - 8)):
+        busy, wall, n = window_idle(torch, make(mixed), requests(cfg, Request), skip, 8)
+        log(f"device-idle share ({cfg.name}, {policy.name}, paged, fused, {label}; {card}): wall "
+            f"{wall:.2f} ms, device busy {busy:.3f} ms ({100 * (1 - busy / wall):.1f}% idle), "
+            f"{n} device kernels; {wall / 8:.2f} ms a step")
+    log(f"  (the continuous paged run has {n_mixed} mixed steps of "
+        f"{cont['paged fused']['decode_steps']})")
+    row = mpmm_mixed_row(torch, dev, cfg, params)
+    log(f"phase 14 (continuous batching): {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches), row
+
+
+def continuous_mla(torch, dev, cfg, policy, params, unfused, unfused_rows, fused) -> None:
+    """Phase 14's DeepSeek-V3 runs (three MLA-dense layers, full width):
+    ``mixed_witness`` with the CPU's plain versions; phase 3's four greedy
+    requests on a continuous paged engine, unfused, held to phase 8's
+    unfused paged streams (``unfused``, their draws' logits
+    ``unfused_rows``), then fused (its pure-decode steps through
+    paged_mla_attn), its launches gated and its streams printed against
+    phase 8's fused ones (``fused``)."""
+    from repro_torch.kernels import build
+    from repro_torch.serve import Request
+
+    mixed_witness(torch, dev, cfg, policy, params, cpu=True)
+    build.reset_launches()  # the continuous MLA run starts here
+    out, m, info = continuous_serve(torch, dev, cfg, policy, params, "paged",
+                                    requests(cfg, Request), fused_attn=False)
+    gate_continuous("continuous MLA paged, unfused", requests(cfg, Request), out, m, info,
+                    dict(build.LAUNCHES), cfg, "paged", fused_attn=False, serial=(
+                        unfused, unfused_rows,
+                        replayer(torch, dev, cfg, policy, params, "paged", False)))
+    build.reset_launches()  # the fused continuous MLA run starts here
+    out, m, info = continuous_serve(torch, dev, cfg, policy, params, "paged",
+                                    requests(cfg, Request), keep_rows=False)
+    log(f"continuous MLA paged, fused: {tokens_equal(fused, out)} equal phase 8's fused "
+        f"serialized streams (not held: a mix of unfused mixed and fused pure-decode steps)")
+    gate_continuous("continuous MLA paged, fused", requests(cfg, Request), out, m, info,
+                    dict(build.LAUNCHES), cfg, "paged")
+
+
 def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
     """Phase 8: serve DeepSeek-V3 (three MLA-dense layers, full width) on the
     slot and paged caches, fused then unfused; the teacher-forced step, the
@@ -2481,7 +3136,9 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
     del wparams
     build.reset_launches()  # the unfused MLA serving path starts here
     unf_slot, _ = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False)
-    unf_paged, m_unf = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
+    unf_rows: dict = {}  # phase 14 holds its continuous MLA run to these draws
+    unf_paged, m_unf = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False,
+                             rows=unf_rows)
     unf_launches = dict(build.LAUNCHES)  # the unfused MLA serving path ends here
     log(f"launches on the unfused MLA path: {unf_launches}")
     if unf_slot != unf_paged:
@@ -2497,6 +3154,8 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
         f"fused ones (not gated: the two softmax sum in another order)")
 
     prefix_path(torch, dev, cfg, policy, params, key="MLA ")
+    continuous_mla(torch, dev, cfg, policy, params, unf_paged, unf_rows, out_paged)  # phase 14's
+    del unf_rows
 
     teacher_forced(torch, dev, cfg, policy, params, report, key="teacher_forced_mla")
     step_breakdown(torch, dev, cfg, policy, params)
@@ -2649,7 +3308,7 @@ def main() -> int:
     log(f"params: internlm2-1.8b w4a8, {time.perf_counter() - t0:.1f} s to draw on the card")
 
     build.reset_launches()  # the serving path starts here
-    out_slot, _ = serve(torch, dev, cfg, policy, params, "slot")
+    out_slot, m_slot = serve(torch, dev, cfg, policy, params, "slot")
     slot_launches = dict(build.LAUNCHES)
     out_paged, m_paged = serve(torch, dev, cfg, policy, params, "paged")
     launches = dict(build.LAUNCHES)  # the serving path ends here
@@ -2666,8 +3325,11 @@ def main() -> int:
     ref_launches = reference_layer_path(torch, dev)
 
     build.reset_launches()  # the unfused paged read starts here
-    unf_slot, _ = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False)
-    unf_paged, m_unf = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
+    drawn = {"slot": {}, "paged": {}}  # each draw's logits, for phase 14
+    unf_slot, m_unf_slot = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False,
+                                 rows=drawn["slot"])
+    unf_paged, m_unf = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False,
+                             rows=drawn["paged"])
     unf_launches = dict(build.LAUNCHES)  # the unfused paged read ends here
     log(f"launches on the unfused path: {unf_launches}")
     if unf_slot != unf_paged:
@@ -2698,7 +3360,12 @@ def main() -> int:
     rows.insert(4, kernel_row(flash_row, prefill_launches, report))
     qkv_row, qkv_launches = dense_cache_path(torch, dev, cfg, policy, params, report)
     sampled_path(torch, dev, cfg, policy, params, out_slot)
-    del params
+    serial = {"slot": (unf_slot, m_unf_slot, drawn["slot"]),
+              "paged": (unf_paged, m_unf, drawn["paged"]),
+              "paged fused": (out_paged, m_paged)}
+    cont_launches, mixed_row = continuous_path(torch, dev, cfg, policy, params, serial)
+    rows.insert(2, kernel_row(mixed_row, cont_launches, report))
+    del params, serial, drawn
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -7,6 +7,7 @@ Entry points take ``device=None``, which means CUDA: they run on the card
 unless the caller passes ``device="cpu"`` (where the kernels' plain PyTorch
 versions run), and never fall back to the CPU on their own."""
 
+import numpy as np
 import torch
 
 
@@ -17,3 +18,16 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("CUDA is not available on this host; pass device='cpu' to run "
                            "the kernels' plain versions on the CPU")
     return device
+
+
+def host_copy(a, device) -> torch.Tensor:
+    """Snapshot host values into a tensor on ``device``; the caller may
+    keep mutating ``a``. The copy never waits for the card: on CUDA the
+    snapshot is pinned and uploaded with ``non_blocking=True`` (PyTorch's
+    caching host allocator keeps the pinned block until the copy has run);
+    on the CPU it is a private copy."""
+    t = torch.from_numpy(np.array(a, copy=True))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

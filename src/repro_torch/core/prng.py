@@ -25,6 +25,7 @@ is PyTorch's, which may differ from XLA's by an f32 ulp.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -80,9 +81,11 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0, maxval: float = 1.0)
     of the (..., 2) keys: f32 (..., n)."""
     bits = (random_bits(key, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
-    return torch.maximum(lo, floats * span + lo)
+    # f32 bounds as host scalars (exact in f32): a bound made on the card
+    # from a Python number would be an upload that waits for it
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    return torch.clamp(floats * span + float(lo), min=float(lo))
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:

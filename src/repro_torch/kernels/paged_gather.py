@@ -32,8 +32,10 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
+from repro_torch import host_copy
 from repro_torch.kernels import build
 
 #: leaves a group call takes (a layer's k, v, k_s, v_s); MAX_LEAVES in
@@ -254,7 +256,9 @@ def _leaf_table(dev, pools, page_bytes) -> tuple:
         rows, chunks, row_bytes = copy_table(key[1:])
         if len(_TABLES) >= TABLES_KEPT:
             _TABLES.clear()
-        hit = _TABLES[key] = (torch.tensor(rows, dtype=torch.int64).to(dev), chunks, row_bytes)
+        # the first clone of a set waits for nothing either
+        table = host_copy(np.asarray(rows, dtype=np.int64), dev)
+        hit = _TABLES[key] = (table, chunks, row_bytes)
     return hit
 
 

@@ -140,9 +140,12 @@ def seq_insert(bufs, news, pos, *, block_table: Optional[torch.Tensor] = None,
 
     Dense layout: each buffer is (B, S_max, ...); per-row writes past S_max
     are DROPPED, never clamped (the reference's vector-``pos`` path, which
-    every serving caller takes). Paged layout (``block_table`` given): each
-    buffer is a page pool and the leaves are written by one paged_scatter
-    launch; rows on unallocated blocks land in the scratch page 0."""
+    every serving caller takes: a mixed step's right-padded tail near
+    capacity must not land on the slot's real last row). The write never
+    waits for the card (see :func:`row_window`). Paged layout
+    (``block_table`` given): each buffer is a page pool and the leaves are
+    written by one paged_scatter launch; rows on unallocated blocks land in
+    the scratch page 0."""
     B, S_new = news[0].shape[:2]
     dev = bufs[0].device
     pos_b = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(-1).expand(B)
@@ -150,11 +153,30 @@ def seq_insert(bufs, news, pos, *, block_table: Optional[torch.Tensor] = None,
     if block_table is not None:
         ops.paged_scatter_leaves(bufs, news, pos_b.contiguous(), block_table, impl=impl)
         return
-    idx = pos_b.long()[:, None] + torch.arange(S_new, device=dev)[None]  # (B, S_new)
-    keep = idx < bufs[0].shape[1]
-    rows = torch.arange(B, device=dev)[:, None].expand(B, S_new)[keep]
+    rows, idx, src = row_window(pos_b, S_new, bufs[0].shape[1])
+    fresh = src >= 0
+    take = src.clamp(min=0)
     for buf, new in zip(bufs, news):
-        buf[rows, idx[keep]] = new[keep]
+        m = fresh.reshape(*fresh.shape, *([1] * (new.dim() - 2)))
+        buf[rows, idx] = torch.where(m, new[rows, take], buf[rows, idx])
+
+
+def row_window(pos_b: torch.Tensor, S: int, s_max: int):
+    """The dense cache rows a write of ``S`` rows at ``pos_b`` ((B,)) may
+    touch, as a window of ``L = min(S, s_max)`` distinct in-range rows per
+    slot: ``idx`` (B, L) starts at ``min(pos_b, s_max - L)``, and ``src``
+    (B, L) is each row's offset in the write (``idx - pos_b``; negative for
+    a row before the write, which keeps its bytes). Rows of the write past
+    ``s_max`` are in no window: they are dropped. Each index appears once
+    per slot, so an ``index_put_`` over the window is deterministic, and no
+    boolean mask (a ``nonzero``, which waits for the card) is needed.
+    Returns (rows (B, 1), idx, src), int64."""
+    B = pos_b.shape[0]
+    dev = pos_b.device
+    L = min(S, s_max)
+    p = pos_b.long()
+    idx = p.clamp(max=s_max - L)[:, None] + torch.arange(L, device=dev)[None]
+    return torch.arange(B, device=dev)[:, None], idx, idx - p[:, None]
 
 
 def cache_update(cache: dict, k: torch.Tensor, v: torch.Tensor, pos, bits: Optional[int], *,
@@ -269,8 +291,7 @@ def attn_apply(
         valid = k_idx[None, None, :] <= qpos[:, :, None]  # (B, S, Sk)
         if cfg.window is not None:
             valid &= (qpos[:, :, None] - k_idx[None, None, :]) < cfg.window
-        s = torch.where(valid[:, None], s,
-                        torch.tensor(BIG_NEG, dtype=torch.float32, device=x.device))
+        s = s.masked_fill(~valid[:, None], BIG_NEG)
         p = torch.softmax(s, dim=-1)
         y = torch.einsum("bhqk,bkhd->bqhd", p, vv.to(torch.float32)).to(x.dtype)
 
@@ -402,8 +423,7 @@ def mla_apply(
         t_idx = torch.arange(c_all.shape[1], device=x.device)
         qpos = pos_b[:, None] + torch.arange(S, device=x.device)[None]  # (B, S)
         valid = t_idx[None, None, :] <= qpos[:, :, None]
-        s = torch.where(valid[:, None], s,
-                        torch.tensor(BIG_NEG, dtype=torch.float32, device=x.device))
+        s = s.masked_fill(~valid[:, None], BIG_NEG)
         p = torch.softmax(s, dim=-1)
         ctx = torch.einsum("bhst,btc->bshc", p, c_all)
         y = torch.einsum("bshc,hdc->bshd", ctx, w_uv).to(x.dtype)  # (B, S, H, d_v)

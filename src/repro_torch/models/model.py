@@ -17,7 +17,8 @@ Every projection routes through ``core.linear`` under the active
 PrecisionPolicy. Ported: serve-mode ``init_params``, ``init_cache``,
 ``init_paged_cache``, ``forward`` (serve mode, dense family),
 ``prefill_step``, ``decode_step``, ``prefill_chunk``,
-``prefill_into_slot``, ``prefill_into_pages`` and ``sample_tokens``.
+``prefill_into_slot``, ``prefill_into_pages``, ``mixed_step`` (continuous
+batching) and ``sample_tokens``.
 Mixture-of-Experts layers (``mla_moe``, the moe family) are not ported:
 a config that has one raises at ``init_params`` / ``init_cache``.
 """
@@ -30,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import host_copy, resolve_device
 from repro_torch.core import prng
 from repro_torch.core.linear import linear_apply, linear_init
 from repro_torch.core.policy import PrecisionPolicy
@@ -44,6 +45,7 @@ from repro_torch.models.attention import (
     mla_apply,
     mla_cache_init,
     mla_init,
+    row_window,
 )
 from repro_torch.models.common import NORMS, embed_apply, embed_init
 from repro_torch.models.ffn import MLPCfg, mlp_apply, mlp_init
@@ -290,24 +292,32 @@ def decode_step(params: dict, tokens: torch.Tensor, pos, caches: list, cfg: Arch
     return linear_apply(params["head"], x, policy.of("head"), impl=impl)
 
 
+_TORCH_DTYPES = {np.float32: torch.float32, np.int64: torch.int64}
+
+
 def _lane(x, dtype, fill, n: int, device) -> torch.Tensor:
-    """One per-slot host vector on ``device``: a private numpy copy first,
-    so the caller may mutate its own buffer while the copy is in flight
-    (the port's boundary rule, ``serve.boundary``)."""
-    a = np.full(n, fill, dtype) if x is None else np.array(x, dtype=dtype, copy=True)
-    return torch.from_numpy(a.reshape(n)).to(device)
+    """One per-slot vector on ``device``. A tensor already there (a
+    ``SnapshotRing`` snapshot) is used as it is, cast to ``dtype`` on the
+    device; a host vector crosses through ``host_copy`` (a private copy,
+    so the caller may mutate its own while the upload is in flight: the
+    port's boundary rule, ``serve.boundary``)."""
+    if isinstance(x, torch.Tensor) and x.device == torch.device(device):
+        return x.to(_TORCH_DTYPES[dtype]).reshape(n)
+    a = np.full(n, fill, dtype) if x is None else np.asarray(x, dtype=dtype)
+    return host_copy(a.reshape(n), device)
 
 
 def sample_tokens(logits: torch.Tensor, temps, top_k=None, top_p=None, seeds=None,
-                  counters=None) -> torch.Tensor:
+                  counters=None, *, sampled: Optional[bool] = None) -> torch.Tensor:
     """The batched per-slot sampler (counterpart of the reference's
     ``sample_tokens``): every token the engine emits comes through here.
 
-    ``logits`` is (B, V) on the device; the per-slot vectors are host
-    (B,) sequences: ``temps`` (0 => greedy argmax, first maximum, as
-    ``jnp.argmax``), ``top_k`` (0 => off), ``top_p`` (1.0 => off),
-    ``seeds`` (uint32) and ``counters`` (tokens already emitted for the
-    slot's request). Token ``i`` of a request draws from
+    ``logits`` is (B, V) on the device; the per-slot vectors are (B,)
+    host sequences, or tensors already on the logits' device (the
+    continuous engine's snapshots): ``temps`` (0 => greedy argmax, first
+    maximum, as ``jnp.argmax``), ``top_k`` (0 => off), ``top_p`` (1.0 =>
+    off), ``seeds`` (uint32 values) and ``counters`` (tokens already
+    emitted for the slot's request). Token ``i`` of a request draws from
     ``fold_in(PRNGKey(seed), i)`` (``core.prng``, JAX's threefry bit for
     bit), so a stream depends on (seed, counter) alone.
 
@@ -317,34 +327,40 @@ def sample_tokens(logits: torch.Tensor, temps, top_k=None, top_p=None, seeds=Non
     ``(cumsum(sp) - sp) < p`` in sorted order, scattered back; the
     Gumbel-max draw. Greedy lanes keep their argmax. The reference branches
     on ``any(temps > 0)`` on the device (``lax.cond``); here the host
-    ``temps`` decide, so an all-greedy step launches nothing beyond the
-    argmax. Returns (B,) int32 on the logits' device."""
+    decides (``sampled``: whether any lane samples; None reads it from
+    ``temps``, which must then be on the host), so an all-greedy step
+    launches nothing beyond the argmax. Nothing here waits for the card
+    when the lanes are on the device. Returns (B,) int32 on the logits'
+    device."""
     logits = logits.to(torch.float32)
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    t_host = np.array(temps, dtype=np.float32, copy=True).reshape(-1)
-    if not np.any(t_host > 0):
+    if sampled is None:
+        if isinstance(temps, torch.Tensor) and temps.device.type != "cpu":
+            raise ValueError("sample_tokens: pass sampled= with temperatures on the device "
+                             "(reading them would wait for the card)")
+        sampled = bool(np.any(np.asarray(temps, dtype=np.float32) > 0))
+    if not sampled:
         return greedy
     B, V = logits.shape
     dev = logits.device
-    t = torch.from_numpy(t_host).to(dev)
+    t = _lane(temps, np.float32, 0.0, B, dev)
     k = _lane(top_k, np.int64, 0, B, dev)
     p = _lane(top_p, np.float32, 1.0, B, dev)
     key = prng.fold_in(prng.prng_key(_lane(seeds, np.int64, 0, B, dev)),
                        _lane(counters, np.int64, 0, B, dev))
-    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
-    lg = logits / torch.maximum(t, torch.tensor(1e-6, dtype=torch.float32, device=dev))[:, None]
+    lg = logits / torch.clamp(t, min=1e-6)[:, None]
     # one descending sort serves both truncations: top-k only sends entries
     # below the threshold to -inf, so the order stays a valid descending one
     order = torch.argsort(-lg, dim=-1, stable=True)
     kth = lg.gather(1, order.gather(1, torch.clamp(k - 1, 0, V - 1)[:, None]))
-    lg = torch.where((k[:, None] > 0) & (lg < kth), neg_inf, lg)
+    lg = lg.masked_fill((k[:, None] > 0) & (lg < kth), float("-inf"))
     e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
     sp = (e / e.sum(dim=-1, keepdim=True)).gather(1, order)
     keep = torch.zeros_like(lg, dtype=torch.bool).scatter(
         1, order, (torch.cumsum(sp, dim=-1) - sp) < p[:, None])
-    lg = torch.where(keep, lg, neg_inf)
-    sampled = prng.categorical(key, lg).to(torch.int32)
-    return torch.where(t > 0, sampled, greedy)
+    lg = lg.masked_fill(~keep, float("-inf"))
+    sampled_toks = prng.categorical(key, lg).to(torch.int32)
+    return torch.where(t > 0, sampled_toks, greedy)
 
 
 def prefill_chunk(params: dict, tokens: torch.Tensor, pos, caches: list, cfg: ArchConfig,
@@ -416,3 +432,78 @@ def prefill_into_pages(params: dict, tokens: torch.Tensor, block_row: torch.Tens
         for k, a in layer.items():
             a[idx] = rlayer[k].reshape(nb, page_size, *a.shape[2:])
     return logits
+
+
+def mixed_step(params: dict, tokens: torch.Tensor, pos, n_real, caches: list, cfg: ArchConfig,
+               policy: PrecisionPolicy, *, impl: ops.Impl = "auto",
+               block_tables: Optional[torch.Tensor] = None,
+               page_size: Optional[int] = None) -> torch.Tensor:
+    """One continuous-batching step (the reference's ``mixed_step``): each
+    lane of the (B, W) token batch is a decode lane (``n_real[b] == 1``),
+    a prefill lane (a right-padded chunk of up to W prompt tokens) or idle
+    (``n_real[b] == 0``), all in ONE forward through the cache
+    (``attend_cached``, the branch chunked prefill takes). ``pos`` and
+    ``n_real`` are (B,) int32 (on the device on the hot path: nothing here
+    waits for the card). The caches are written in place.
+
+    Returns logits (B, 1, V): lane b's are taken at its last real position
+    (``n_real[b] - 1``) before the final norm and the head, so the head runs
+    at M = B; idle lanes return values the caller discards. Each lane's
+    padded tail (chunk positions >= ``n_real[b]``) is then scrubbed to zero,
+    so the cache holds what the serialized engine writes: dense leaves in
+    place (rows past s_max dropped), paged leaves through ``block_tables``
+    (``page_size`` required), on allocated pages only; rows past a lane's
+    table or on the scratch page 0 are left alone (trash by contract).
+
+    No ``fused_attn`` parameter: the fused decode kernel takes S == 1 and a
+    mixed step is S == W, so it always reads the cache unfused."""
+    if cfg.family not in PREFILL_CHUNKABLE_FAMILIES:
+        raise NotImplementedError(
+            f"mixed prefill+decode steps unsupported for family {cfg.family!r} "
+            f"(supported: {PREFILL_CHUNKABLE_FAMILIES}); serve serialized")
+    if block_tables is not None and page_size is None:
+        raise ValueError("page_size is required with block_tables")
+    _, nfn = NORMS[cfg.norm]
+    x = embed_apply(params["embed"], tokens).to(torch.bfloat16)
+    B, W = tokens.shape
+    dev = x.device
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(B)
+    n_real = torch.as_tensor(n_real, dtype=torch.int32, device=dev).reshape(B)
+    x = _run_stack(params, x, _positions(pos, B, W, dev), cfg, policy, impl=impl, caches=caches,
+                   cache_pos=pos, attend_cached=True, block_tables=block_tables)
+    last = torch.clamp(n_real.long() - 1, min=0)[:, None, None].expand(B, 1, x.shape[-1])
+    x_last = nfn(params["final_norm"], x.gather(1, last))
+    logits = linear_apply(params["head"], x_last, policy.of("head"), impl=impl)
+    _scrub_lanes(caches, pos, n_real, W, block_tables, page_size)
+    return logits
+
+
+def _scrub_lanes(caches: list, pos: torch.Tensor, n_real: torch.Tensor, W: int,
+                 block_tables: Optional[torch.Tensor], page_size: Optional[int]) -> None:
+    """Zero every row a mixed step wrote past each lane's real tokens, in
+    place and without waiting for the card: a row that must keep its bytes
+    is written back with its own value (one value per index, so the
+    ``index_put_`` is deterministic)."""
+    dev = pos.device
+    if block_tables is None:
+        rows, idx, src = row_window(pos, W, next(iter(caches[0].values())).shape[1])
+        pad = src >= n_real.long()[:, None]
+        for layer in caches:
+            for a in layer.values():
+                m = pad.reshape(*pad.shape, *([1] * (a.dim() - 2)))
+                old = a[rows, idx]
+                a[rows, idx] = old.masked_fill(m, 0)
+        return
+    nb = block_tables.shape[1]
+    row_idx = pos.long()[:, None] + torch.arange(W, device=dev)[None]  # (B, W)
+    pad = torch.arange(W, device=dev)[None] >= n_real.long()[:, None]
+    blk, off = row_idx // page_size, row_idx % page_size
+    page = block_tables.long().gather(1, blk.clamp(max=nb - 1))
+    scrub = pad & (blk < nb) & (page != 0)
+    # a row that keeps its bytes is sent to the scratch page and written
+    # back there with its own value; no scrubbed row touches that page
+    page = torch.where(scrub, page, torch.zeros_like(page))
+    for layer in caches:
+        for a in layer.values():
+            m = scrub.reshape(*scrub.shape, *([1] * (a.dim() - 2)))
+            a[page, off] = a[page, off].masked_fill(m, 0)

@@ -1,9 +1,9 @@
-"""Serving subsystem, serialized mode: cache managers (slot, paged and
-prefix-sharing), scheduler, chunked prefill and the engine facade
-(counterpart of ``repro.serve``)."""
+"""Serving subsystem: cache managers (slot, paged and prefix-sharing),
+scheduler, chunked prefill, the snapshot ring and the engine facade,
+serialized or continuous (counterpart of ``repro.serve``)."""
 
 from repro_torch.serve.api import Request, RequestHandle, SamplingParams
-from repro_torch.serve.boundary import host_copy
+from repro_torch.serve.boundary import SnapshotRing, host_copy
 from repro_torch.serve.cache import (
     CACHE_BACKENDS,
     CapacityError,
@@ -12,7 +12,7 @@ from repro_torch.serve.cache import (
     make_cache,
 )
 from repro_torch.serve.engine import KernelStatsAccumulator, ServeEngine, StepMonitor
-from repro_torch.serve.prefill import ChunkedPrefill, make_prefiller
+from repro_torch.serve.prefill import ChunkedPrefill, PrefillCursor, make_prefiller
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.scheduler import (
     SCHEDULERS,
@@ -28,7 +28,8 @@ from repro_torch.serve.stats import LatencyHistogram
 __all__ = [
     "CACHE_BACKENDS", "CapacityError", "PagedKVCache", "PrefixCache", "SlotCache", "make_cache",
     "LatencyHistogram", "host_copy", "KernelStatsAccumulator", "Request", "RequestHandle",
-    "SamplingParams", "ServeEngine", "StepMonitor", "ChunkedPrefill", "make_prefiller",
+    "SamplingParams", "ServeEngine", "StepMonitor", "ChunkedPrefill", "PrefillCursor",
+    "make_prefiller", "SnapshotRing",
     "SCHEDULERS", "BestFitScheduler", "FCFSScheduler", "PriorityScheduler", "Scheduler",
     "ShortestPromptFirstScheduler", "make_scheduler",
 ]

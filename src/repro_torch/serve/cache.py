@@ -24,9 +24,8 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import numpy as np
-import torch
 
-from repro_torch import resolve_device
+from repro_torch import host_copy, resolve_device
 from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import model as M
 from repro_torch.models.model import ArchConfig
@@ -223,10 +222,11 @@ class PagedKVCache:
                 raise RuntimeError(
                     f"page {p} released below zero references — cache manager accounting bug")
         if dead:
-            idx = torch.tensor(dead, dtype=torch.long, device=self.device)
+            # neither the ids' upload nor the fill waits for the card
+            idx = host_copy(np.asarray(dead, np.int64), self.device)
             for layer in self.caches:
                 for a in layer.values():
-                    a[idx] = 0
+                    a.index_fill_(0, idx, 0)
         self._free.extend(dead)
 
     # --- occupancy ---------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Serving facade, serialized loop (counterpart of ``repro.serve.engine``).
+"""Serving facade (counterpart of ``repro.serve.engine``).
 
 The engine composes the cache manager (:mod:`repro_torch.serve.cache`),
 the admission scheduler (:mod:`repro_torch.serve.scheduler`) and the
@@ -6,22 +6,47 @@ chunked prefill (:mod:`repro_torch.serve.prefill`), and owns the decode
 loop and the request lifecycle: ``submit()`` returns a handle, the caller
 drives ``step()`` / ``drain()`` (``run()`` is the batch wrapper), every
 request exit goes through ``_release``, and ``metrics()`` snapshots the
-same keys as the reference's serialized mode.
+same keys as the reference.
 
-Each step admits waiting requests (blocking chunked prefill; the first
-token comes from the prefill's last-token logits) and then runs ONE decode
-step for every active slot: ``models.model.decode_step`` over ``n_slots``
-static slots with per-slot positions, followed by the batched sampler
-(``models.model.sample_tokens``): per-slot temperature / top-k / top-p /
-seed lanes, token ``i`` of a request drawn from ``fold_in(PRNGKey(seed),
-i)``, greedy lanes (temperature 0) an argmax.
+Serialized mode (the default): each step admits waiting requests (blocking
+chunked prefill; the first token comes from the prefill's last-token
+logits) and then runs ONE decode step for every active slot:
+``models.model.decode_step`` over ``n_slots`` static slots with per-slot
+positions, followed by the batched sampler (``models.model.sample_tokens``):
+per-slot temperature / top-k / top-p / seed lanes, token ``i`` of a request
+drawn from ``fold_in(PRNGKey(seed), i)``, greedy lanes (temperature 0) an
+argmax.
+
+``mixed=True`` (chunkable families) is CONTINUOUS batching:
+
+  * **Mixed steps** (``models.model.mixed_step``): prefill chunks ride the
+    decode batch under a per-step token budget (``mixed_budget``), so a long
+    prompt no longer holds the card between decode steps; a step with no
+    prompt token is a plain decode step (fused attention eligible).
+  * **Ahead-of-time dispatch**: up to ``inflight`` steps are issued before
+    the first result is read. Each step's decode input is the previous
+    step's sampled tokens on the device (``_chain``), host bookkeeping
+    crosses through a :class:`~repro_torch.serve.boundary.SnapshotRing`
+    (uploads that do not wait), and each step's tokens are copied into
+    pinned host memory behind a CUDA event: retiring the oldest ticket waits
+    on that event alone, the only host sync of the loop. Nothing in
+    ``_admit`` or ``_dispatch`` waits for the card. Sampling counters and
+    budgets advance speculatively at dispatch; a release (stop hit, cancel)
+    drops the slot's tickets still in flight, by request identity.
+
+Mixed-step lanes are row-independent and pad-scrubbed, and the
+counter-based sampler makes each stream a function of (params, prompt,
+sampling params): on the CPU the streams are the serialized engine's on
+every cache. On the card a mixed step reduces its norms and attention over
+other shapes than the serialized steps, so a stream may part from the
+serialized one where two logits tie.
 
 The cache is ``"slot"``, ``"paged"`` or ``"prefix"`` (prefix sharing: the
 admission verbs get the prompt, prefill skips the matched rows and
 ``commit`` publishes the prompt's pages). The engine runs on CUDA unless
 the caller passes ``device="cpu"``; ``device=None`` means CUDA and raises
-where CUDA is absent. Not ported yet: continuous batching (``mixed=True``),
-speculative decoding (``spec``) and tracing (``trace``).
+where CUDA is absent. Not ported yet: speculative decoding (``spec``) and
+tracing (``trace``).
 """
 
 from __future__ import annotations
@@ -31,6 +56,7 @@ import time
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.policy import PrecisionPolicy
@@ -49,9 +75,9 @@ from repro_torch.serve.api import (
     as_params,
     check_stop,
 )
-from repro_torch.serve.boundary import host_copy
+from repro_torch.serve.boundary import SnapshotRing, host_copy
 from repro_torch.serve.cache import PagedKVCache, SlotCache, make_cache
-from repro_torch.serve.prefill import make_prefiller
+from repro_torch.serve.prefill import ChunkedPrefill, PrefillCursor, make_prefiller
 from repro_torch.serve.scheduler import Scheduler, make_scheduler
 from repro_torch.serve.stats import LatencyHistogram
 
@@ -104,7 +130,7 @@ class KernelStatsAccumulator:
 
 
 class ServeEngine:
-    """Serialized serving over ``n_slots`` static cache slots."""
+    """Serialized or continuous batching over ``n_slots`` static cache slots."""
 
     def __init__(self, params, cfg: ArchConfig, policy: PrecisionPolicy, *,
                  n_slots: int = 4, s_max: int = 64, impl="auto",
@@ -113,9 +139,8 @@ class ServeEngine:
                  cache: Union[str, SlotCache, PagedKVCache, None] = "slot",
                  page_size: Optional[int] = None, n_pages: Optional[int] = None,
                  fused_attn: Optional[bool] = None, mixed: bool = False,
+                 mixed_budget: Optional[int] = None, inflight: int = 2,
                  spec=None, trace=None, device=None):
-        if mixed:
-            raise NotImplementedError("continuous batching (mixed=True) is not ported yet")
         if spec is not None:
             raise NotImplementedError("speculative decoding is not ported yet")
         if trace is not None:
@@ -126,6 +151,11 @@ class ServeEngine:
             fused_attn = cfg.family in M.PREFILL_CHUNKABLE_FAMILIES
         self.fused_attn = bool(fused_attn)
         dispatch.ensure_policy_supported(policy)
+        self.mixed = bool(mixed)
+        if self.mixed and (prefill == "stepwise" or not ChunkedPrefill.supports(cfg)):
+            raise ValueError(
+                f"mixed=True needs the chunked prefill path; family {cfg.family!r} "
+                f"(prefill={prefill!r}) serves serialized only")
         self.n_slots, self.s_max = n_slots, s_max
         self.impl = impl
         self.cache = make_cache(cache, cfg, policy, n_slots, s_max, page_size=page_size,
@@ -145,6 +175,29 @@ class ServeEngine:
         self.prefiller = make_prefiller(
             prefill, params, cfg, policy, impl=impl, chunk=prefill_chunk,
             page_size=self.cache.page_size if self.cache.paged else None, device=self.device)
+        # --- continuous batching (mixed steps + ahead-of-time dispatch) ----
+        self.mixed_budget = int(prefill_chunk if mixed_budget is None else mixed_budget)
+        if self.mixed_budget < 1:
+            raise ValueError(f"mixed_budget must be >= 1, got {mixed_budget}")
+        self.inflight_depth = int(inflight)
+        if self.inflight_depth < 1:
+            raise ValueError(f"inflight must be >= 1, got {inflight}")
+        #: slot -> PrefillCursor: admitted requests whose prompts are still
+        #: entering the cache, chunk by budget-allotted chunk
+        self._prefilling: dict[int, PrefillCursor] = {}
+        self._admit_seq = 0  # cursor ordering for Scheduler.allot
+        #: dispatched-but-not-retired steps, oldest first: (host tokens,
+        #: event or None, [(slot, request, emits), ...]); at most ``inflight``
+        self._tickets: collections.deque = collections.deque()
+        self._ticket_bufs: list = []  # pinned (n_slots,) int32 buffers, free
+        #: the previous dispatch's sampled tokens on the device: the next
+        #: step's decode-lane input, chained without a host round trip
+        self._chain = torch.zeros((n_slots,), dtype=torch.int32, device=self.device)
+        #: dispatch-owned speculative token budget per slot (the retire-side
+        #: twin is slot_remaining, owned by _emit)
+        self._spec_remaining = np.zeros(n_slots, np.int32)
+        self._ring = SnapshotRing(self.inflight_depth + 2, self.device)
+        self._mixed_steps = 0
         self._progress = 0
         self._decode_steps = 0
         self._tokens_out = 0
@@ -217,6 +270,7 @@ class ServeEngine:
         for s, r in enumerate(self.slot_req):
             if r is not None:
                 self._release(s, CANCELLED)
+        self._tickets.clear()  # in-flight steps: nobody left to emit for
         self._closed = True
 
     # --- request lifecycle: the loop ----------------------------------------
@@ -253,6 +307,11 @@ class ServeEngine:
         self._top_ps[slot] = 1.0
         self._seeds[slot] = 0
         self._counters[slot] = 0
+        # continuous mode: drop the slot's prefill cursor and speculative
+        # budget; its tickets still in flight retire as no-ops (the retire
+        # checks request identity before emitting)
+        self._prefilling.pop(slot, None)
+        self._spec_remaining[slot] = 0
         self._progress += 1
         self.cache.release(slot)
         if status == CANCELLED:
@@ -270,7 +329,11 @@ class ServeEngine:
         tok = int(tok)
         r.out.append(tok)
         self.slot_remaining[slot] -= 1
-        self._counters[slot] = len(r.out)  # the PRNG counter of the next token
+        if not self.mixed:
+            # the PRNG counter of the next token; in continuous mode the
+            # dispatch side owns it (steps in flight have consumed counters
+            # past len(r.out))
+            self._counters[slot] = len(r.out)
         self._tokens_out += 1
         now = time.perf_counter()
         if len(r.out) == 1:
@@ -317,6 +380,16 @@ class ServeEngine:
             self.slot_req[slot] = req
             self.slot_remaining[slot] = req.max_new
             self._progress += 1
+            if self.mixed:
+                # no blocking prefill: park a cursor; the mixed steps carry
+                # the prompt in under the token budget, and the dispatch
+                # carrying the final chunk samples the first token
+                self._admit_seq += 1
+                self._spec_remaining[slot] = req.max_new
+                self._prefilling[slot] = PrefillCursor(
+                    req, req.prompt, slot=slot, order=self._admit_seq,
+                    off=int(self.cache.pos[slot]))
+                continue
             logits = self.prefiller.prefill(self.cache, slot, req.prompt, rid=req.rid)
             self.cache.commit(slot, req.prompt)
             first = M.sample_tokens(logits[:, -1], [p.temperature], [p.top_k], [p.top_p],
@@ -326,41 +399,198 @@ class ServeEngine:
     def _active(self) -> bool:
         return any(r is not None for r in self.slot_req)
 
+    # --- continuous mode: ahead-of-time dispatch ----------------------------
+
+    def _samp_snapshot(self):
+        """Ring snapshots of the per-slot sampling lanes on the device, and
+        whether any lane samples (read from the host's temperatures)."""
+        ring = self._ring
+        return (ring.take("temps", self._temps),
+                ring.take("top_ks", self._top_ks.astype(np.int64)),
+                ring.take("top_ps", self._top_ps),
+                ring.take("seeds", self._seeds.astype(np.int64)),
+                ring.take("counters", self._counters.astype(np.int64))), bool(
+                    np.any(self._temps > 0))
+
+    def _dispatch(self) -> bool:
+        """Issue ONE step without waiting for its result (continuous mode).
+
+        Decode lanes feed on ``_chain`` (the previous dispatch's sampled
+        tokens, on the device); prefill lanes carry their allotted chunk of
+        prompt tokens. Host bookkeeping crosses through the snapshot ring.
+        PRNG counters and per-slot budgets advance speculatively here; the
+        retire side only materializes tokens. Returns False when no lane
+        had work."""
+        decode_lanes = [s for s, r in enumerate(self.slot_req)
+                        if r is not None and s not in self._prefilling
+                        and self._spec_remaining[s] > 0]
+        allot = (self.scheduler.allot(list(self._prefilling.values()), self.mixed_budget)
+                 if self._prefilling else [])
+        if not decode_lanes and not allot:
+            return False
+        t0 = time.perf_counter()
+        ring, paged = self._ring, self.cache.paged
+        #: (slot, request, emits): emits=False for non-final prefill chunks
+        lanes: list[tuple[int, Request, bool]] = []
+        writes: list[tuple[int, int]] = []
+        commits: list[tuple[int, Request]] = []
+        if allot:
+            # a mixed step: prefill chunks ride the decode batch, width W =
+            # the token budget
+            W = self.mixed_budget
+            host_toks = np.zeros((self.n_slots, W), np.int32)
+            n_real = np.zeros(self.n_slots, np.int32)
+            use_chain = np.zeros(self.n_slots, bool)
+            for cur, n in allot:
+                s = cur.slot
+                chunk = cur.take(n)
+                host_toks[s, :len(chunk)] = chunk
+                n_real[s] = len(chunk)
+                self.cache.prepare(s, len(chunk))  # paged: draw pages
+                writes.append((s, len(chunk)))
+                # the final chunk's lane emits the request's FIRST token
+                lanes.append((s, cur.req, cur.done))
+                if cur.done:
+                    commits.append((s, cur.req))
+            for s in decode_lanes:
+                n_real[s] = 1
+                use_chain[s] = True
+                self.cache.prepare(s, 1)
+                writes.append((s, 1))
+                lanes.append((s, self.slot_req[s], True))
+            # snapshots AFTER every prepare (prepare mutates block tables),
+            # BEFORE the speculative counter bump below
+            samp, sampled = self._samp_snapshot()
+            toks = ring.take("toks", host_toks)
+            # decode lanes take their input from the device chain
+            first = torch.where(ring.take("use_chain", use_chain), self._chain, toks[:, 0])
+            toks = torch.cat([first[:, None], toks[:, 1:]], dim=1)
+            logits = M.mixed_step(
+                self.params, toks, ring.take("pos", self.cache.pos),
+                ring.take("n_real", n_real), self.cache.caches, self.cfg, self.policy,
+                impl=self.impl,
+                block_tables=ring.take("bt", self.cache.block_tables) if paged else None,
+                page_size=self.cache.page_size if paged else None)
+            nxt = M.sample_tokens(logits[:, 0], *samp, sampled=sampled)
+            self._mixed_steps += 1
+        else:
+            # a pure-decode step: S = 1, fused attention eligible
+            for s in decode_lanes:
+                self.cache.prepare(s, 1)
+                writes.append((s, 1))
+                lanes.append((s, self.slot_req[s], True))
+            samp, sampled = self._samp_snapshot()
+            logits = M.decode_step(
+                self.params, self._chain[:, None], ring.take("pos", self.cache.pos),
+                self.cache.caches, self.cfg, self.policy, impl=self.impl,
+                block_tables=ring.take("bt", self.cache.block_tables) if paged else None,
+                fused_attn=self.fused_attn)
+            nxt = M.sample_tokens(logits[:, -1], *samp, sampled=sampled)
+        for s, n in writes:
+            self.cache.advance(s, n)
+        for s, req in commits:
+            # prompt fully in flight: the lane decodes from the next step,
+            # and its pages are published to the prefix index (any later
+            # reader is issued after these writes, on the same stream)
+            del self._prefilling[s]
+            self.cache.commit(s, req.prompt)
+        self._decode_steps += 1
+        # speculative state: steps in flight have consumed these counter
+        # values; the retire side never rewrites them
+        for s, req, emits in lanes:
+            if emits:
+                self._counters[s] += 1
+                self._spec_remaining[s] -= 1
+        self._chain = nxt
+        self._tickets.append(self._ticket(nxt) + (lanes,))
+        self._progress += 1
+        self.monitor.observe(time.perf_counter() - t0)
+        return True
+
+    def _ticket(self, nxt: torch.Tensor) -> tuple:
+        """(host tokens, event): on CUDA the sampled tokens are copied into a
+        pinned buffer without waiting, and an event recorded after the copy
+        is what the retire waits on; on the CPU they are ready now."""
+        if nxt.device.type != "cuda":
+            return nxt, None
+        buf = (self._ticket_bufs.pop() if self._ticket_bufs else
+               torch.empty(self.n_slots, dtype=torch.int32, pin_memory=True))
+        buf.copy_(nxt, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return buf, ev
+
+    def _retire_one(self) -> None:
+        """Materialize the OLDEST in-flight step: wait on its event (the hot
+        loop's one host sync), then emit. Lanes whose request turned over
+        since dispatch (stop hit, cancel, slot reuse) are dropped by
+        identity."""
+        buf, ev, lanes = self._tickets.popleft()
+        if ev is not None:
+            ev.synchronize()
+        nxt = buf.tolist()
+        if ev is not None:
+            self._ticket_bufs.append(buf)
+        self._progress += 1
+        for s, req, emits in lanes:
+            if not emits:
+                continue
+            if self.slot_req[s] is not req or req.status != ACTIVE:
+                continue  # released after this step was issued
+            self._emit(s, nxt[s])
+
     def step(self) -> bool:
-        """One engine iteration: admit (blocking prefill), then one decode
-        step for every active slot, read back at once. Returns True while
-        work remains."""
+        """One engine iteration. Returns True while work remains.
+
+        Serialized mode: admit (blocking prefill), then one decode step for
+        every active slot, read back at once. Continuous mode: retire the
+        oldest ticket once ``inflight`` are in flight, admit (no prefill),
+        dispatch one mixed or pure-decode step ahead of time; when nothing
+        is dispatchable, retire a ticket instead, so the pipeline always
+        moves."""
         if self._closed:
             raise RuntimeError("engine is closed")
         t0 = time.perf_counter()
         self._run_t0 = t0
         try:
-            self._admit()
-            if self._active():
-                # feed each slot's last generated token (prefill already
-                # sampled the first token from its own logits)
-                toks = np.zeros((self.n_slots, 1), np.int32)
-                for s, r in enumerate(self.slot_req):
-                    if r is not None:
-                        toks[s, 0] = r.out[-1]
-                        self.cache.prepare(s, 1)  # paged: draw a page
-                nxt, _ = self._step(toks)
-                self._decode_steps += 1
-                nxt = nxt.cpu().numpy()
-                for s in range(self.n_slots):
-                    if self.slot_req[s] is None:
-                        continue
-                    self.cache.advance(s, 1)
-                    self._emit(s, int(nxt[s]))
-                    self._progress += 1
+            if self.mixed:
+                if len(self._tickets) >= self.inflight_depth:
+                    self._retire_one()
+                self._admit()
+                if not self._dispatch() and self._tickets:
+                    self._retire_one()
+            else:
+                self._admit()
+                if self._active():
+                    self._decode_all()
         finally:
             self._serve_seconds += time.perf_counter() - t0
             self._run_t0 = None
-        return bool(self.scheduler.pending() or self._active())
+        return bool(self.scheduler.pending() or self._active() or self._tickets)
+
+    def _decode_all(self) -> None:
+        """The serialized decode step: feed each slot's last generated token
+        (prefill already sampled the first token from its own logits) and
+        read the sampled tokens back at once."""
+        toks = np.zeros((self.n_slots, 1), np.int32)
+        for s, r in enumerate(self.slot_req):
+            if r is not None:
+                toks[s, 0] = r.out[-1]
+                self.cache.prepare(s, 1)  # paged: draw a page
+        nxt, _ = self._step(toks)
+        self._decode_steps += 1
+        nxt = nxt.cpu().numpy()
+        for s in range(self.n_slots):
+            if self.slot_req[s] is None:
+                continue
+            self.cache.advance(s, 1)
+            self._emit(s, int(nxt[s]))
+            self._progress += 1
 
     def drain(self) -> None:
-        """Step until no queued or active work remains; raises instead of
-        spinning when queued requests can never be admitted."""
+        """Step until no queued, active or in-flight work remains; raises
+        instead of spinning when queued requests can never be admitted
+        (dispatches and retires count as progress)."""
         idle = 0
         while True:
             before = self._progress
@@ -392,9 +622,8 @@ class ServeEngine:
     # --- observability ------------------------------------------------------
 
     def metrics(self) -> dict:
-        """Serving metrics snapshot, with the reference's serialized-mode
-        key names (the continuous-batching and speculative keys report
-        their off values)."""
+        """Serving metrics snapshot, with the reference's key names (the
+        speculative keys report their off values)."""
         elapsed = self._serve_seconds
         if self._run_t0 is not None:
             elapsed += time.perf_counter() - self._run_t0
@@ -408,11 +637,11 @@ class ServeEngine:
             "tokens_generated": self._tokens_out,
             "tokens_per_s": self._tokens_out / elapsed,
             "decode_steps": self._decode_steps,
-            "mode": "serialized",
-            "mixed_steps": 0,
-            "mixed_budget": 0,
-            "inflight_depth": 0,
-            "inflight": 0,
+            "mode": "continuous" if self.mixed else "serialized",
+            "mixed_steps": self._mixed_steps,
+            "mixed_budget": self.mixed_budget if self.mixed else 0,
+            "inflight_depth": self.inflight_depth if self.mixed else 0,
+            "inflight": len(self._tickets),
             "fused_attn": self.fused_attn,
             "spec/enabled": False,
             "spec/policy": "off",

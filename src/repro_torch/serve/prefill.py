@@ -9,8 +9,11 @@ right-padded to the chunk size and ``last_idx`` selects the real last-token
 logits, exactly as in the reference. Tokens the cache already holds
 (``cache.pos[slot]``) are skipped.
 
-Not ported yet: the token-by-token ``StepwisePrefill`` (recurrent families)
-and the continuous-batching ``PrefillCursor``.
+:class:`PrefillCursor` is the continuous-batching form: the engine keeps one
+per admitted request whose prompt is still entering the cache, and each
+mixed step carries the chunk the scheduler allots it.
+
+Not ported yet: the token-by-token ``StepwisePrefill`` (recurrent families).
 """
 
 from __future__ import annotations
@@ -24,6 +27,48 @@ from repro_torch.core.policy import PrecisionPolicy
 from repro_torch.models import model as M
 from repro_torch.models.model import ArchConfig
 from repro_torch.serve.boundary import host_copy
+
+
+class PrefillCursor:
+    """One request's in-progress prompt, chunked into mixed steps.
+
+    The continuous-batching engine does not run ``ChunkedPrefill.prefill``'s
+    blocking loop: it keeps a cursor per admitted request and each step asks
+    the scheduler to split the mixed step's token budget across the live
+    cursors (``Scheduler.allot``). ``take(n)`` hands out the next ``n``
+    prompt tokens; once ``done``, the slot is a decode lane, and the
+    request's first token was sampled from the final chunk's last-token
+    logits, as the serialized prefill returns them.
+
+    ``off`` starts at the slot's resident position (a matched shared prefix
+    on the prefix backend is skipped, as in ``ChunkedPrefill``); ``order``
+    is the admission sequence number FCFS allotment sorts by."""
+
+    __slots__ = ("req", "prompt", "slot", "order", "off", "chunks")
+
+    def __init__(self, req, prompt: np.ndarray, *, slot: int, order: int, off: int = 0):
+        self.req = req
+        self.prompt = np.asarray(prompt, np.int32)
+        self.slot = slot
+        self.order = order
+        self.off = int(off)
+        self.chunks = 0  # chunks taken so far
+
+    @property
+    def remaining(self) -> int:
+        return len(self.prompt) - self.off
+
+    @property
+    def done(self) -> bool:
+        return self.off >= len(self.prompt)
+
+    def take(self, n: int) -> np.ndarray:
+        """Consume and return the next ``min(n, remaining)`` prompt tokens."""
+        n = min(int(n), self.remaining)
+        chunk = self.prompt[self.off:self.off + n]
+        self.off += n
+        self.chunks += 1
+        return chunk
 
 
 class ChunkedPrefill:

@@ -1414,3 +1414,125 @@ def test_sampled_engine_on_cuda_streams_across_caches(dev, monkeypatch):
     topk1 = run(engine("paged"),
                 lambda i: SamplingParams(temperature=0.8, top_k=1, seed=i, max_new=6))
     assert _parts_only_at_ties(topk1, greedy, ties)
+
+
+# ------------------------------------------------------ continuous batching
+
+
+def _no_syncs(fn):
+    """The synchronising calls ``fn()`` makes (``serve.boundary.counting_syncs``)."""
+    from repro_torch.serve.boundary import counting_syncs
+
+    with counting_syncs() as got:
+        fn()
+    return got
+
+
+def test_counting_syncs_sees_a_sync(dev):
+    """The control: a window around one ``.item()`` counts one sync, a
+    window around an event wait none."""
+    x = torch.ones(3, device=dev)
+    assert len(_no_syncs(lambda: x.sum().item())) == 1
+    ev = torch.cuda.Event()
+    ev.record()
+    assert _no_syncs(ev.synchronize) == []
+
+
+def test_host_copy_uploads_without_a_sync(dev):
+    """``host_copy`` onto the card waits for nothing and snapshots its
+    input: the caller's buffer, rewritten right after the call, does not
+    reach the card."""
+    from repro_torch import host_copy
+
+    a = np.arange(4096, dtype=np.int64)
+    got = []
+    assert _no_syncs(lambda: got.append(host_copy(a, dev))) == []
+    a[:] = -1
+    assert got[0].device.type == "cuda"
+    assert torch.equal(got[0].cpu(), torch.arange(4096))
+
+
+def test_dense_write_and_mixed_step_make_no_host_sync(dev):
+    """One dense cache write (rows past s_max dropped) and one mixed step,
+    dense and paged, make zero host syncs; the write equals the plain
+    version's on the CPU."""
+    g = torch.Generator().manual_seed(5)
+    buf = torch.randint(-100, 100, (4, 32, 2, 8), generator=g, dtype=torch.int32).to(torch.int8)
+    new = torch.randint(-100, 100, (4, 6, 2, 8), generator=g, dtype=torch.int32).to(torch.int8)
+    pos = torch.tensor([0, 29, 13, 32], dtype=torch.int32)
+    want = buf.clone()
+    A.seq_insert([want], [new], pos)
+    got, new_d, pos_d = buf.to(dev), new.to(dev), pos.to(dev)
+    torch.cuda.synchronize()
+    assert _no_syncs(lambda: A.seq_insert([got], [new_d], pos_d)) == []
+    assert torch.equal(got.cpu(), want)
+
+    cfg = configs.reduced(configs.get_arch("internlm2-1.8b"))
+    policy = get_policy("w4a8")
+    params = _to(M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu"), dev)
+    B, W_ = 4, 4
+    toks = torch.randint(1, cfg.vocab, (B, W_), generator=g, dtype=torch.int32).to(dev)
+    lane_pos = torch.tensor([5, 0, 4, 30], dtype=torch.int32, device=dev)
+    n_real = torch.tensor([1, 3, 0, 1], dtype=torch.int32, device=dev)
+    dense = M.init_cache(cfg, policy, B, 32, device=dev)
+    paged = M.init_paged_cache(cfg, policy, 9, 16, device=dev)
+    bt = torch.tensor([[3, 0], [1, 2], [5, 0], [7, 8]], dtype=torch.int32, device=dev)
+    for kw, caches in ((dict(), dense), (dict(block_tables=bt, page_size=16), paged)):
+        M.mixed_step(params, toks, lane_pos, n_real, caches, cfg, policy, **kw)  # warm-up
+        torch.cuda.synchronize()
+        launched = dict(build.LAUNCHES)
+        assert _no_syncs(lambda kw=kw, caches=caches: M.mixed_step(
+            params, toks, lane_pos, n_real, caches, cfg, policy, **kw)) == []
+        assert build.LAUNCHES["mpmm"] > launched.get("mpmm", 0)
+        if kw:
+            L = cfg.n_layers
+            assert build.LAUNCHES["paged_scatter"] - launched.get("paged_scatter", 0) == L
+            assert build.LAUNCHES["paged_gather"] - launched.get("paged_gather", 0) == L
+
+
+def test_continuous_engine_dispatches_without_host_sync(dev):
+    """Every dispatch of a continuous engine on the card (mixed and
+    pure-decode) and every admission make zero host syncs; its greedy
+    streams equal the same engine's on the CPU (the plain versions; on the
+    CPU they equal the serialized engine's, tests/test_torch_continuous.py),
+    and the in-flight depth stays within ``inflight``. Against the
+    serialized engine on the card a stream may part at a tie: a mixed step
+    sums its attention over other shapes."""
+    cfg = configs.reduced(configs.get_arch("internlm2-1.8b"))
+    policy = get_policy("w4a8")
+    cparams = M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu")
+    params = _to(cparams, dev)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=n).astype(np.int32) for n in (3, 9, 5, 2, 7)]
+
+    def reqs():
+        return [Request(rid=i, prompt=pr, max_new=6) for i, pr in enumerate(prompts)]
+
+    for cache in ("slot", "paged"):
+        kw = dict(n_slots=2, s_max=32, prefill_chunk=4, cache=cache, mixed=True, mixed_budget=4,
+                  inflight=2, page_size=16 if cache == "paged" else None)
+        want = ServeEngine(cparams, cfg, policy, device="cpu", **kw).run(reqs())
+        eng = ServeEngine(params, cfg, policy, device=dev, **kw)
+        syncs: dict = {"mixed": [], "decode": [], "admit": []}
+        dispatch, admit = eng._dispatch, eng._admit
+
+        def counted_dispatch():
+            before = eng.metrics()["mixed_steps"]
+            out = []
+            got = _no_syncs(lambda: out.append(dispatch()))
+            if out[0]:
+                syncs["mixed" if eng.metrics()["mixed_steps"] > before else "decode"].append(got)
+            return out[0]
+
+        def counted_admit():
+            syncs["admit"].append(_no_syncs(admit))
+
+        eng._dispatch, eng._admit = counted_dispatch, counted_admit
+        depth = []
+        rs = reqs()
+        for r in rs:
+            r.on_token = lambda rid, tok: depth.append(eng.metrics()["inflight"])
+        assert eng.run(rs) == want, cache
+        assert syncs["mixed"] and syncs["decode"]
+        assert all(s == [] for v in syncs.values() for s in v), syncs
+        assert depth and max(depth) <= 2 and eng.metrics()["inflight"] == 0

@@ -155,10 +155,11 @@ def test_engine_without_device_needs_cuda(params):
 def test_unported_modes_raise(params):
     tp = params[1]
     kw = dict(n_slots=1, s_max=16, device="cpu")
-    for extra in (dict(mixed=True), dict(spec="self"), dict(trace=object()),
-                  dict(prefill="stepwise")):
+    for extra in (dict(spec="self"), dict(trace=object()), dict(prefill="stepwise")):
         with pytest.raises(NotImplementedError):
             ServeEngine(tp, TTINY, TPOLICY, **kw, **extra)
+    # continuous batching is ported (tests/test_torch_continuous.py)
+    assert ServeEngine(tp, TTINY, TPOLICY, mixed=True, **kw).metrics()["mode"] == "continuous"
 
 
 def test_paged_cache_reserves_and_conserves_pages():
