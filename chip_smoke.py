@@ -106,7 +106,8 @@ Phases, in order (any failure ends the run with a nonzero exit):
      activations, 8-bit KV cache) over the w4a8 packed weights with each
      ``beta`` dropped, the 4 requests of phase 3 on the slot and then the
      paged cache, then phase 9's five requests on a cold paged and a prefix
-     engine. Slot and paged streams identical, prefix streams identical to
+     engine (the model cut to CUT_LAYERS (8) layers at full width). Slot and
+     paged streams identical, prefix streams identical to
      the cold paged ones; wdqmm, paged_attn, paged_scatter and paged_copy
      launched, mpmm not. Then a teacher-forced step (kernel vs plain), the
      step breakdown, and wdqmm's time per decode step (169 calls at M = 4)
@@ -169,7 +170,7 @@ Phases, in order (any failure ends the run with a nonzero exit):
      w4a8 weights): phase 3's four requests at temperature 0.8, top-k 40,
      top-p 0.95, request i with seed 1000 + i, on the slot and the paged
      cache; phase 9's five requests sampled the same way on a cold paged
-     and a prefix engine; the four with request 0 greedy beside three
+     and a prefix engine (CUT_LAYERS layers); the four with request 0 greedy beside three
      sampled; the four at top-k 1. Gates: slot and paged streams identical,
      prefix identical to cold paged; the mixed batch's sampled streams equal
      their first run's and its greedy one phase 3's; top-k 1 equal to phase
@@ -187,7 +188,7 @@ Phases, in order (any failure ends the run with a nonzero exit):
      unfused in every step and are held to serialized runs that read it
      unfused too: phase 3's four greedy requests on slot and paged against
      phase 5's runs, phase 9's five on prefix and phase 13's sampled four on
-     paged against serialized runs made here, DeepSeek-V3's three MLA
+     paged (CUT_LAYERS layers) against serialized runs made here, DeepSeek-V3's three MLA
      layers on phase 3's four (paged) against phase 8's unfused paged run
      (those serialized runs keep each draw's logits row). Held
      (``held_to_serial``): each stream equals the serialized one, or, where
@@ -221,13 +222,34 @@ Phases, in order (any failure ends the run with a nonzero exit):
      mixed steps and its last pure-decode steps), mpmm's time per mixed
      step (168 calls at M = 64) beside its bound, its plain version and
      ``torch._int_mm``, and the phase's own seconds.
+ 15. checkpoints (run right after phase 14, on phase 3's internlm2 weights;
+     its DeepSeek-V3 round trip right after phase 14's MLA run, on phase
+     8's weights): ``checkpoint.store.save`` of ``{"params":
+     bridge.params_to_reference(params, cfg)}`` under a fresh temporary
+     directory (deleted after), ``store.load`` into a meta-device template
+     (``init_params(..., device="meta")``) onto the card, every leaf
+     bit-equal to the saved params (keys, dtypes, shapes, bytes); printed:
+     the bytes on disk, the save and load seconds and the load's GB/s,
+     beside the card's name and power limit. internlm2 at full depth,
+     serve mode: phase 3's four requests served from the loaded params on
+     the slot and the paged cache, the streams equal to phase 3's, mpmm,
+     paged_attn and paged_scatter launched (paged_scatter once a layer and
+     decode step). internlm2 at full width cut to 4 layers, train mode (a
+     float ``w`` a linear): saved, loaded and converted by
+     ``convert_model_to_serving``, every packed linear bit-equal to
+     ``convert_linear_to_serving`` of the same ``w``, and the converted
+     tree's greedy streams (slot) equal to the unconverted tree's, which
+     converts on the fly. DeepSeek-V3's three MLA layers and MTP params,
+     serve mode: the round trip alone.
 
-Phases 3, 4, 5, 8, 9, 10, 11, 12 and 13 each start with every launch count
+Phases 3, 4, 5, 8, 9, 10, 11, 12, 13 and 15 each start with every launch count
 at 0 (phase 8 once for its fused runs, once for its unfused runs, once for
 its weight-only runs and once for its prefix run; phase 10 once for its slot
 and paged runs and once for its prefix run; phase 11 once for prefill_step
 and its decode steps and once for forward; phase 13 once for its slot and
-paged runs and once for its prefix run) and read the counts at their end;
+paged runs and once for its prefix run; phase 15 once for its runs served
+from disk and once for its train-to-serve runs) and read the counts at
+their end;
 the kernels line gives each kernel the count of its own path (paged_copy:
 phase 9's prefix run; wdqmm: phase 10's slot and paged runs; flash_mha:
 phase 11's prefill_step; qkv_decode: phase 12). Each of phase 14's
@@ -299,6 +321,19 @@ MIXED_BUDGET, INFLIGHT = 16, 2
 #: a tie that the two engines, summing in other orders, break apart (the
 #: witness: ``mixed_witness``)
 TIE_STEPS = 1
+#: the depth (at full width) of the runs that are held only to another run
+#: of the same model: phase 10's weight-only and phase 13's sampled prefix
+#: runs against their cold paged runs, and phase 14's sampled continuous run
+#: against its serialized one. Every gate on them holds at any depth; the
+#: cut keeps the script within its time limit as phases are added
+CUT_LAYERS = 8
+
+
+def cut(cfg, params):
+    """``cfg`` and ``params`` cut to their first CUT_LAYERS layers at full
+    width (the same tensors, no copy)."""
+    return (dataclasses.replace(cfg, n_layers=CUT_LAYERS),
+            dict(params, layers=params["layers"][:CUT_LAYERS]))
 
 
 def wo_policy():
@@ -1538,7 +1573,7 @@ def kernel_table(torch, dev, cfg, params, launches, report):
                         for q, k, ks, v, vs, pos, bt in cases]
 
     t, tw, how = device_ms(attn_step("cuda"))
-    tp, tpw, _ = device_ms(attn_step("torch"), reps=3, warmup=1)
+    tp, tpw, _ = device_ms(attn_step("torch"), reps=1, warmup=0)  # ~2 s a step
     pos = cases[0][5]
     valid = sum(int(p) + 1 for p in pos.tolist())
     q, bt = cases[0][0], cases[0][6]
@@ -1982,7 +2017,7 @@ def wdqmm_step_row(torch, dev, cfg, params) -> dict:
 def weight_only_path(torch, dev, cfg, params, report) -> tuple[dict, dict]:
     """Phase 10: internlm2 at full width served weight-only w4 over the
     w4a8 packed weights (each ``beta`` dropped): slot, paged, then the
-    prefix path; the teacher-forced step, the step breakdown and wdqmm's
+    prefix path (cut to CUT_LAYERS layers); the teacher-forced step, the step breakdown and wdqmm's
     timing row. Returns (the raw kernel row, wdqmm's launches on the slot
     and paged runs)."""
     from repro_torch.kernels import build
@@ -2000,7 +2035,9 @@ def weight_only_path(torch, dev, cfg, params, report) -> tuple[dict, dict]:
         raise AssertionError(f"weight-only serving path: wdqmm, paged_attn and paged_scatter "
                              f"must run, mpmm not: {launches}")
     log("weight-only slot and paged token streams identical")
-    prefix_launches, _ = prefix_path(torch, dev, cfg, policy, wparams, key="weight-only ")
+    ccfg, cwparams = cut(cfg, wparams)
+    prefix_launches, _ = prefix_path(torch, dev, ccfg, policy, cwparams,
+                                     key=f"weight-only ({CUT_LAYERS} layers) ")
     if prefix_launches.get("mpmm", 0) or not prefix_launches.get("wdqmm", 0):
         raise AssertionError(f"weight-only prefix path: wdqmm must run, mpmm not: "
                              f"{prefix_launches}")
@@ -2411,7 +2448,8 @@ def sampled_path(torch, dev, cfg, policy, params, greedy_out) -> dict:
     """Phase 13: the serving path with seeded sampling (SAMPLING, request i
     with seed 1000 + i), internlm2 w4a8 kv8 at full width. Phase 3's four
     requests on the slot and the paged cache; phase 9's five on a cold
-    paged and a prefix engine; the four again with request 0 greedy beside
+    paged and a prefix engine (cut to CUT_LAYERS layers); the four again
+    with request 0 greedy beside
     three sampled; the four at top-k 1. Gates: slot and paged streams
     identical, prefix identical to cold paged; in the mixed batch the
     sampled requests repeat their first run's streams (run to run, and
@@ -2443,7 +2481,9 @@ def sampled_path(torch, dev, cfg, policy, params, greedy_out) -> dict:
     same = sum(a == b for rid in out_slot for a, b in zip(out_slot[rid], greedy_out[rid]))
     log(f"sampled slot and paged token streams identical; {same} of "
         f"{sum(len(t) for t in out_slot.values())} tokens equal the greedy streams")
-    prefix_path(torch, dev, cfg, policy, params, key="sampled ", sampled=True)
+    ccfg, cparams = cut(cfg, params)
+    prefix_path(torch, dev, ccfg, policy, cparams, key=f"sampled ({CUT_LAYERS} layers) ",
+                sampled=True)
 
     mixed, _ = serve(torch, dev, cfg, policy, params, "slot",
                      reqs=sampled_requests(requests(cfg, Request), greedy=(0,)))
@@ -2945,8 +2985,8 @@ def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict
     ``held_to_serial``) to serialized runs that read it unfused too: phase
     3's four greedy requests on slot and paged against phase 5's runs
     (``serial``: cache -> (streams, metrics, rows)), phase 9's five on
-    prefix and phase 13's sampled four on paged against serialized runs
-    made here. One more continuous run, fused (its pure-decode steps
+    prefix and phase 13's sampled four on paged (cut to CUT_LAYERS layers)
+    against serialized runs made here. One more continuous run, fused (its pure-decode steps
     through paged_attn), on phase 3's requests on paged: its launches and
     syncs are gated, its streams printed against phase 3's fused ones
     (``serial["paged fused"]``: (streams, metrics)). A window around one
@@ -3014,13 +3054,14 @@ def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict
 
     sreqs = lambda: sampled_requests(requests(cfg, Request))  # noqa: E731
     ser_rows: dict = {}
-    ser_s, _ = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False, reqs=sreqs(),
+    ccfg, cparams = cut(cfg, params)
+    ser_s, _ = serve(torch, dev, ccfg, policy, cparams, "paged", fused_attn=False, reqs=sreqs(),
                      rows=ser_rows)
     build.reset_launches()
-    out, ms, info_s = continuous_serve(torch, dev, cfg, policy, params, "paged", sreqs(),
+    out, ms, info_s = continuous_serve(torch, dev, ccfg, policy, cparams, "paged", sreqs(),
                                        fused_attn=False)
-    gate_continuous("continuous paged, unfused, sampled", sreqs(), out, ms, info_s,
-                    dict(build.LAUNCHES), cfg, "paged", fused_attn=False, serial=(
+    gate_continuous(f"continuous paged, unfused, sampled ({CUT_LAYERS} layers)", sreqs(), out,
+                    ms, info_s, dict(build.LAUNCHES), ccfg, "paged", fused_attn=False, serial=(
                         ser_s, ser_rows, None))  # a sampled parting raises before a replay
     del ser_rows, info_s
 
@@ -3156,6 +3197,12 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
     prefix_path(torch, dev, cfg, policy, params, key="MLA ")
     continuous_mla(torch, dev, cfg, policy, params, unf_paged, unf_rows, out_paged)  # phase 14's
     del unf_rows
+    t0 = time.perf_counter()  # phase 15's round trip of the MLA layers and the MTP params
+    round_trip(torch, dev, cfg, policy, params, "serve",
+               f"{cfg.name} cut to {cfg.n_layers} layers with MTP, w4a8, serve", gpu_line())
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 15 (DeepSeek-V3): {time.perf_counter() - t0:.1f} s")
 
     teacher_forced(torch, dev, cfg, policy, params, report, key="teacher_forced_mla")
     step_breakdown(torch, dev, cfg, policy, params)
@@ -3241,6 +3288,162 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
                replaces="src/repro/kernels/paged_attn.py:299", ms=t, plain_ms=tp,
                bytes=nbytes, work=[(3 * nops, BF16_FLOPS_PER_S)], library_ms=lib_ms[8])
     return row, {"paged_mla_attn": fused_launches["paged_mla_attn"]}
+
+
+# --------------------------------------------------------------- phase 15
+
+
+def disk_bytes(root) -> int:
+    return sum(f.stat().st_size for f in pathlib.Path(root).rglob("*") if f.is_file())
+
+
+def bit_equal(torch, got, want, what) -> int:
+    """Gate two port trees leaf by leaf: the same keys, dtypes, shapes and
+    bytes. Returns the number of leaves."""
+    from repro_torch.checkpoint import store
+
+    a = {store._leaf_key(p): x for p, x in store._flatten(got)}
+    b = {store._leaf_key(p): x for p, x in store._flatten(want)}
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: leaf keys differ: {sorted(set(a) ^ set(b))[:8]}")
+    for k, w in b.items():
+        g = a[k]
+        if g.dtype != w.dtype or g.shape != w.shape or g.device != w.device or not same_bytes(
+                torch, g, w):
+            raise AssertionError(f"{what}: leaf {k} differs ({g.dtype} {tuple(g.shape)} on "
+                                 f"{g.device} vs {w.dtype} {tuple(w.shape)} on {w.device})")
+    return len(b)
+
+
+def round_trip(torch, dev, cfg, policy, params, mode, what, card) -> dict:
+    """Save ``params`` as ``{"params": <the reference's layout>}`` under a
+    fresh temporary directory (deleted after), load it into a meta-device
+    template onto the card, and gate every leaf bit-equal to ``params``.
+    Prints the bytes on disk and the save and load times. Returns the loaded
+    port tree."""
+    import shutil
+    import tempfile
+
+    from repro_torch import bridge
+    from repro_torch.checkpoint import store
+    from repro_torch.models import model as M
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = {"params": bridge.params_to_reference(params, cfg)}
+        store.save(root, 1, tree)
+        t_save = time.perf_counter() - t0
+        arrays = len(list(store._flatten(tree)))
+        del tree
+        nbytes = disk_bytes(root)
+        meta = M.init_params(torch.Generator().manual_seed(SEED), cfg, policy, mode=mode,
+                             device="meta")
+        t0 = time.perf_counter()
+        loaded, _ = store.load(root, {"params": bridge.params_to_reference(meta, cfg)},
+                               device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    got = bridge.params_from_reference(loaded["params"], device=dev)
+    n = bit_equal(torch, got, params, what)
+    log(f"checkpoint[{what}]: {arrays} arrays ({n} leaves of the port's per-layer tree), "
+        f"{nbytes} bytes on disk ({nbytes / 1e9:.3f} GB); "
+        f"save {t_save:.3f} s ({nbytes / t_save / 1e9:.3f} GB/s), load onto the card "
+        f"{t_load:.3f} s ({nbytes / t_load / 1e9:.3f} GB/s); every leaf bit-equal to the "
+        f"saved params; {card}")
+    return got
+
+
+def packed_pairs(conv, train, parent=""):
+    """(layer name, converted linear, train-mode linear) of every linear
+    that ``convert_model_to_serving`` packed."""
+    if isinstance(conv, dict):
+        if "w_packed" in conv:
+            yield parent, conv, train
+        else:
+            for k in conv:
+                yield from packed_pairs(conv[k], train[k], k)
+    elif isinstance(conv, list):
+        for a, b in zip(conv, train, strict=True):
+            yield from packed_pairs(a, b, parent)
+
+
+def checkpoint_path(torch, dev, cfg, policy, params, out_slot, out_paged) -> None:
+    """Phase 15 (right after phase 14, on phase 3's internlm2 w4a8 weights):
+    the full-depth serve-mode round trip and the streams served from it
+    (slot and paged, equal to phase 3's; mpmm, paged_attn and paged_scatter
+    launched), then train to serve at full width and 4 layers: a train-mode
+    tree saved, loaded and converted, every packed leaf bit-equal to
+    ``convert_linear_to_serving`` of the same ``w``, and its greedy streams
+    equal to the unconverted tree's (converted on the fly to the same
+    codes)."""
+    from repro_torch.core.linear import (
+        _NAME_TO_CLASS,
+        convert_linear_to_serving,
+        convert_model_to_serving,
+    )
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    loaded = round_trip(torch, dev, cfg, policy, params, "serve", f"{cfg.name} w4a8, serve",
+                        card)
+    build.reset_launches()  # the path served from disk starts here
+    got_slot, _ = serve(torch, dev, cfg, policy, loaded, "slot")
+    slot_launches = dict(build.LAUNCHES)
+    got_paged, m_paged = serve(torch, dev, cfg, policy, loaded, "paged")
+    launched = dict(build.LAUNCHES)  # the path served from disk ends here
+    log(f"launches served from disk: slot {slot_launches}, slot + paged {launched}")
+    if got_slot != out_slot or got_paged != out_paged:
+        raise AssertionError("streams served from the checkpoint differ from phase 3's")
+    for name in ("mpmm", "paged_attn", "paged_scatter"):
+        if launched.get(name, 0) == 0:
+            raise AssertionError(f"kernel {name} was not launched on the path served from disk")
+    once_a_layer("paged_scatter", launched["paged_scatter"] - slot_launches.get("paged_scatter", 0),
+                 m_paged, cfg, "the paged path served from disk")
+    log("served from disk: slot and paged streams equal phase 3's")
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg4 = dataclasses.replace(cfg, n_layers=4)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    train = M.init_params(gen, cfg4, policy, mode="train", device=dev)
+    loaded = round_trip(torch, dev, cfg4, policy, train, "train",
+                        f"{cfg4.name} cut to 4 layers, train mode", card)
+    del train
+    t0 = time.perf_counter()
+    conv = convert_model_to_serving(loaded, policy)
+    torch.cuda.synchronize()
+    t_conv = time.perf_counter() - t0
+    n = 0
+    for name, c, tr in packed_pairs(conv, loaded):
+        one = convert_linear_to_serving({"w": tr["w"]}, policy.of(_NAME_TO_CLASS[name]))
+        if not (same_bytes(torch, c["w_packed"], one["w_packed"])
+                and same_bytes(torch, c["eps_w"], one["eps_w"])):
+            raise AssertionError(f"convert_model_to_serving: {name} differs from "
+                                 "convert_linear_to_serving of the same w")
+        n += 1
+    if n != 7 * cfg4.n_layers + 1:
+        raise AssertionError(f"{n} linears packed, want 7 a layer and the head")
+    log(f"convert_model_to_serving: {n} linears packed in {t_conv:.3f} s, each bit-equal to "
+        "convert_linear_to_serving of the same w")
+    build.reset_launches()
+    want, _ = serve(torch, dev, cfg4, policy, loaded, "slot")
+    got, _ = serve(torch, dev, cfg4, policy, conv, "slot")
+    if got != want:
+        raise AssertionError("streams of the converted tree differ from the unconverted tree's")
+    if build.LAUNCHES.get("mpmm", 0) == 0:
+        raise AssertionError("kernel mpmm was not launched serving the train-mode trees")
+    log("train to serve: the converted tree's greedy streams equal the unconverted tree's "
+        f"(converted on the fly); phase 15 (internlm2): {time.perf_counter() - t_phase:.1f} s")
+    del loaded, conv
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -3365,6 +3568,7 @@ def main() -> int:
               "paged fused": (out_paged, m_paged)}
     cont_launches, mixed_row = continuous_path(torch, dev, cfg, policy, params, serial)
     rows.insert(2, kernel_row(mixed_row, cont_launches, report))
+    checkpoint_path(torch, dev, cfg, policy, params, out_slot, out_paged)
     del params, serial, drawn
     gc.collect()
     torch.cuda.empty_cache()

@@ -1,4 +1,11 @@
-"""QuantizedLinear, serve mode (counterpart of ``repro.core.linear``).
+"""QuantizedLinear (counterpart of ``repro.core.linear``).
+
+Params come in two modes, as in the reference: ``train`` params hold a
+float ``w`` (what QAT trains), ``serve`` params hold the packed ``w_packed``
+and its scale ``eps_w`` (what a converted checkpoint holds).
+``convert_model_to_serving`` folds a train-mode tree into the serve-mode
+one; ``linear_apply`` also serves a train-mode ``w`` by converting it on the
+fly, to the same codes.
 
 The integer serving path: weights live PACKED sub-byte in device memory. A
 fully quantized layer quantizes its activations (signed, offset-binary
@@ -10,7 +17,7 @@ is the packed axis.
 
 Cast points mirror the reference exactly: the input is cast to f32 before
 quantizing, the bias is added in f32, then the result is cast to the input
-dtype. The QAT training branch is not ported yet.
+dtype. The QAT training branch of ``linear_apply`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,13 +31,18 @@ from repro_torch.kernels import ops
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, lp: LayerPrecision, *,
-                bias: bool = False, device, dtype=torch.float32) -> dict:
-    """Serve-mode params for one linear: packed placeholder weights drawn
-    from ``gen`` (what a converted checkpoint holds), or float weights for
-    an unquantized layer."""
+                bias: bool = False, mode: str = "serve", device,
+                dtype=torch.float32) -> dict:
+    """Params for one linear, drawn from ``gen``. ``serve`` mode gives a
+    quantized layer packed placeholder weights (what a converted checkpoint
+    holds); ``train`` mode, and any unquantized layer, a float ``w`` in
+    ``dtype``. The default is ``serve`` (the reference's is ``train``):
+    every serving caller wants the packed form."""
+    if mode not in ("serve", "train"):
+        raise ValueError(f"mode must be 'serve' or 'train', got {mode!r}")
     std = 1.0 / (d_in**0.5)
     p: dict = {}
-    if lp.quantized:
+    if mode == "serve" and lp.quantized:
         rw = P.pack_ratio(lp.w_bits)
         if d_in % rw:
             raise ValueError(f"d_in={d_in} not divisible by pack ratio {rw}")
@@ -87,3 +99,56 @@ def convert_linear_to_serving(params: dict, lp: LayerPrecision) -> dict:
     out["w_packed"] = P.pack(wq, lp.w_bits)
     out["eps_w"] = eps_w.to(torch.float32)
     return out
+
+
+#: path-name -> policy layer class (the reference's table)
+_NAME_TO_CLASS = {
+    "wq": "attn_qkv", "wk": "attn_qkv", "wv": "attn_qkv",
+    "wq_a": "attn_qkv", "wq_b": "attn_qkv", "wkv_a": "attn_qkv",
+    "wkv_b": "attn_qkv", "wr": "attn_qkv", "wg": "attn_qkv",
+    "wo": "attn_out",
+    "up": "ffn_in", "gate": "ffn_in", "ck": "ffn_in", "cr": "ffn_in",
+    "down": "ffn_out", "cv": "ffn_out",
+    "in_proj": "ssm_proj", "out_proj": "ssm_proj",
+    "router": "router", "head": "head", "patch_proj": "embed",
+    "mtp_proj": "head",
+}
+
+
+def _convert_stacked(w: torch.Tensor, lp: LayerPrecision) -> dict:
+    """``convert_linear_to_serving`` of each (d_out, d_in) matrix of ``w``,
+    stacked back on ``w``'s leading axes (scan-stacked layers, experts)."""
+    lead = w.shape[:-2]
+    if not lead:
+        return convert_linear_to_serving({"w": w}, lp)
+    parts = [convert_linear_to_serving({"w": m}, lp) for m in w.reshape(-1, *w.shape[-2:])]
+    return {k: torch.stack([p[k] for p in parts]).reshape(*lead, *parts[0][k].shape)
+            for k in parts[0]}
+
+
+def convert_model_to_serving(params: dict, policy) -> dict:
+    """Checkpoint conversion: fold every QAT-trained linear of a model's
+    param tree into its packed integer form under ``policy``. A linear is a
+    dict holding ``w`` under a name of ``_NAME_TO_CLASS``; its ``b`` and
+    ``beta`` are kept. A ``w`` with leading axes (stacked layers, experts)
+    converts matrix by matrix. Everything else (norms, embeddings) passes
+    through unchanged."""
+
+    def walk(node, parent=""):
+        if isinstance(node, dict):
+            if "w" in node and parent in _NAME_TO_CLASS:
+                lp = policy.of(_NAME_TO_CLASS[parent])
+                if not lp.quantized:
+                    return node
+                keep = {k: v for k, v in node.items() if k not in ("w", "b", "beta")}
+                out = {**keep, **_convert_stacked(node["w"], lp)}
+                for k in ("b", "beta"):
+                    if k in node:
+                        out[k] = node[k]
+                return out
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, parent) for v in node]
+        return node
+
+    return walk(params)

@@ -215,9 +215,9 @@ def cache_read(cache: dict, bits: Optional[int], *,
 
 
 def attn_init(gen: torch.Generator, cfg: AttnCfg, policy: PrecisionPolicy, *,
-              device, dtype=torch.float32) -> dict:
+              mode: str = "serve", device, dtype=torch.float32) -> dict:
     lp_qkv, lp_out = policy.of("attn_qkv"), policy.of("attn_out")
-    kw = dict(device=device, dtype=dtype)
+    kw = dict(mode=mode, device=device, dtype=dtype)
     return {
         "wq": linear_init(gen, cfg.d_model, cfg.q_dim, lp_qkv, bias=cfg.qkv_bias, **kw),
         "wk": linear_init(gen, cfg.d_model, cfg.kv_dim, lp_qkv, bias=cfg.qkv_bias, **kw),
@@ -315,10 +315,10 @@ class MLACfg:
 
 
 def mla_init(gen: torch.Generator, cfg: MLACfg, policy: PrecisionPolicy, *,
-             device, dtype=torch.float32) -> dict:
+             mode: str = "serve", device, dtype=torch.float32) -> dict:
     lp, lp_out = policy.of("attn_qkv"), policy.of("attn_out")
     H = cfg.n_heads
-    kw = dict(device=device, dtype=dtype)
+    kw = dict(mode=mode, device=device, dtype=dtype)
     return {
         "wq_a": linear_init(gen, cfg.d_model, cfg.q_lora, lp, **kw),
         "q_norm": rms_norm_init(cfg.q_lora, device),

@@ -22,9 +22,9 @@ class MLPCfg:
 
 
 def mlp_init(gen: torch.Generator, cfg: MLPCfg, policy: PrecisionPolicy, *,
-             device, dtype=torch.float32) -> dict:
+             mode: str = "serve", device, dtype=torch.float32) -> dict:
     lp_in, lp_out = policy.of("ffn_in"), policy.of("ffn_out")
-    kw = dict(device=device, dtype=dtype)
+    kw = dict(mode=mode, device=device, dtype=dtype)
     p = {"up": linear_init(gen, cfg.d_model, cfg.d_ff, lp_in, **kw),
          "down": linear_init(gen, cfg.d_ff, cfg.d_model, lp_out, **kw)}
     if cfg.gated:

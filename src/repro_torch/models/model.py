@@ -14,7 +14,7 @@ page_size, ...) pool addressed by block tables. Caches are written in
 place.
 
 Every projection routes through ``core.linear`` under the active
-PrecisionPolicy. Ported: serve-mode ``init_params``, ``init_cache``,
+PrecisionPolicy. Ported: ``init_params`` (serve and train mode), ``init_cache``,
 ``init_paged_cache``, ``forward`` (serve mode, dense family),
 ``prefill_step``, ``decode_step``, ``prefill_chunk``,
 ``prefill_into_slot``, ``prefill_into_pages``, ``mixed_step`` (continuous
@@ -147,9 +147,22 @@ def _mlp_cfg(cfg: ArchConfig, kind: str) -> MLPCfg:
     return cfg.mlp_cfg
 
 
-def _block_init(gen, cfg: ArchConfig, policy, kind: str, device, dtype) -> dict:
+def _scan_groups(cfg: ArchConfig) -> list[tuple[str, int]]:
+    """Contiguous (kind, count) runs of ``_layer_kinds``: the reference
+    stacks each run's layers on a leading axis (one scan per group), which
+    is the layout of its checkpoints."""
+    groups: list[tuple[str, int]] = []
+    for kd in _layer_kinds(cfg):
+        if groups and groups[-1][0] == kd:
+            groups[-1] = (kd, groups[-1][1] + 1)
+        else:
+            groups.append((kd, 1))
+    return groups
+
+
+def _block_init(gen, cfg: ArchConfig, policy, kind: str, mode: str, device, dtype) -> dict:
     ninit, _ = NORMS[cfg.norm]
-    kw = dict(device=device, dtype=dtype)
+    kw = dict(mode=mode, device=device, dtype=dtype)
     attn = (mla_init(gen, cfg.mla_cfg, policy, **kw) if kind == "mla_dense"
             else attn_init(gen, cfg.attn_cfg, policy, **kw))
     return {
@@ -161,24 +174,30 @@ def _block_init(gen, cfg: ArchConfig, policy, kind: str, device, dtype) -> dict:
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, policy: PrecisionPolicy, *,
-                device=None, dtype=torch.bfloat16) -> dict:
-    """Serve-mode params with placeholder weights drawn from ``gen`` (a
-    ``torch.Generator`` on ``device``; None means CUDA)."""
+                mode: str = "serve", device=None, dtype=torch.bfloat16) -> dict:
+    """Params with placeholder weights drawn from ``gen`` (a
+    ``torch.Generator`` on ``device``; None means CUDA). ``serve`` mode (the
+    port's default; the reference's is ``train``) packs every quantized
+    linear; ``train`` mode gives it a float ``w`` in ``dtype``, the tree QAT
+    trains and ``core.linear.convert_model_to_serving`` converts. On
+    ``device="meta"`` the tree holds shapes and dtypes only: a template for
+    ``checkpoint.load``."""
     kinds = _check_family(cfg)
     device = resolve_device(device)
-    dispatch.ensure_policy_supported(policy)
+    if mode == "serve":
+        dispatch.ensure_policy_supported(policy)
     ninit, _ = NORMS[cfg.norm]
     params: dict = {
         "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, device=device, dtype=dtype),
         "final_norm": ninit(cfg.d_model, device=device),
         "head": linear_init(gen, cfg.d_model, cfg.vocab_padded, policy.of("head"),
-                            device=device, dtype=dtype),
-        "layers": [_block_init(gen, cfg, policy, kind, device, dtype) for kind in kinds],
+                            mode=mode, device=device, dtype=dtype),
+        "layers": [_block_init(gen, cfg, policy, kind, mode, device, dtype) for kind in kinds],
     }
     if cfg.mtp:
-        params["mtp_block"] = _block_init(gen, cfg, policy, "mla_dense", device, dtype)
+        params["mtp_block"] = _block_init(gen, cfg, policy, "mla_dense", mode, device, dtype)
         params["mtp_proj"] = linear_init(gen, 2 * cfg.d_model, cfg.d_model, policy.of("head"),
-                                         device=device, dtype=dtype)
+                                         mode=mode, device=device, dtype=dtype)
         params["mtp_norm"] = ninit(cfg.d_model, device=device)
     return params
 

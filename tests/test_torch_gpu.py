@@ -1536,3 +1536,47 @@ def test_continuous_engine_dispatches_without_host_sync(dev):
         assert syncs["mixed"] and syncs["decode"]
         assert all(s == [] for v in syncs.values() for s in v), syncs
         assert depth and max(depth) <= 2 and eng.metrics()["inflight"] == 0
+
+
+def test_checkpoint_round_trip_lands_on_cuda(dev, tmp_path):
+    """``checkpoint.store.load(..., device=None)`` puts every leaf on the
+    card, bit-equal to the params saved (reduced internlm2-1.8b, w4a8, serve
+    and train mode), and the streams served from them equal the live
+    params'; the converted train-mode tree serves the unconverted one's."""
+    from repro_torch import bridge
+    from repro_torch.checkpoint import store
+    from repro_torch.core.linear import convert_model_to_serving
+
+    cfg = configs.reduced(configs.get_arch("internlm2-1.8b"))
+    policy = get_policy("w4a8")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=n).astype(np.int32) for n in (3, 9, 5, 2, 7)]
+
+    def streams(params):
+        eng = ServeEngine(params, cfg, policy, n_slots=2, s_max=32, prefill_chunk=4,
+                          cache="paged", page_size=16, device=dev)
+        return eng.run([Request(rid=i, prompt=pr, max_new=6) for i, pr in enumerate(prompts)])
+
+    def leaves(tree):
+        return {store._leaf_key(p): a for p, a in store._flatten(tree)}
+
+    for mode in ("serve", "train"):
+        params = M.init_params(torch.Generator(device=dev).manual_seed(3), cfg, policy,
+                               mode=mode, device=dev)
+        root = str(tmp_path / mode)
+        store.save(root, 1, {"params": bridge.params_to_reference(params, cfg)})
+        meta = M.init_params(torch.Generator().manual_seed(0), cfg, policy, mode=mode,
+                             device="meta")
+        loaded, step = store.load(root, {"params": bridge.params_to_reference(meta, cfg)})
+        got = bridge.params_from_reference(loaded["params"])
+        want, have = leaves(params), leaves(got)
+        assert step == 1 and sorted(have) == sorted(want)
+        for k, w in want.items():
+            a = have[k]
+            assert a.device.type == "cuda" and a.dtype == w.dtype and a.shape == w.shape, k
+            assert torch.equal(a.reshape(-1).view(torch.uint8), w.reshape(-1).view(torch.uint8)), k
+        build.reset_launches()
+        assert streams(got) == streams(params)
+        assert build.LAUNCHES["mpmm"] > 0 and build.LAUNCHES["paged_scatter"] > 0
+        if mode == "train":
+            assert streams(convert_model_to_serving(got, policy)) == streams(got)
