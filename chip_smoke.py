@@ -8,10 +8,13 @@ Phases, in order (any failure ends the run with a nonzero exit):
      ``src/repro_torch/csrc/`` with nvcc (sm_90a) and report the build time;
   2. hold each kernel against its plain PyTorch version on the card:
      mpmm on all 27 cells x 3 output kinds at a small shape and on the five
-     main-path (N, K) at M = 4, 16, 64 (a continuous mixed step) and 2048
-     (bit-exact); paged_scatter (bit-exact, scratch page excluded; S_new 1
-     and 16, a mixed step's rows, at ragged per-slot positions, one slot's
-     rows past its table) one leaf at a time and one launch a group on
+     main-path (N, K) at M = 4, 16, 20 (a speculative verify), 64 (a
+     continuous mixed step) and 2048, and mixed_paper's 8-bit cell at its
+     attn_out and head shapes at M = 4 and 20 (bit-exact); paged_scatter
+     (bit-exact, scratch page excluded; S_new 1, 5 (a speculative verify's
+     rows) and 16 (a mixed step's), at ragged per-slot positions, one
+     slot's rows past its table, and again with one lane at the speculative
+     sentinel 2**30) one leaf at a time and one launch a group on
      every internlm2 and DeepSeek-V3 leaf set at kv8 / kv4 / bf16 (the
      layer's k, v, k_s, v_s or c, c_s, r); paged_attn on bf16 / kv8 / kv4, with and without
      a window (tolerance ATTN_TOL), each call twice bit-identical and each
@@ -167,18 +170,19 @@ Phases, in order (any failure ends the run with a nonzero exit):
      its edges (-1, 0, block ends), at internlm2's full shape (kv8 and
      kv4, pos 0, 511, 900, 1023) and on one run of keys;
  13. the sampled serving path (run right after phase 12, on internlm2's
-     w4a8 weights): phase 3's four requests at temperature 0.8, top-k 40,
-     top-p 0.95, request i with seed 1000 + i, on the slot and the paged
+     w4a8 weights cut to CUT_LAYERS layers): phase 3's four requests greedy
+     (the reference of this phase's gates), then at temperature 0.8, top-k
+     40, top-p 0.95, request i with seed 1000 + i, on the slot and the paged
      cache; phase 9's five requests sampled the same way on a cold paged
-     and a prefix engine (CUT_LAYERS layers); the four with request 0 greedy beside three
+     and a prefix engine; the four with request 0 greedy beside three
      sampled; the four at top-k 1. Gates: slot and paged streams identical,
      prefix identical to cold paged; the mixed batch's sampled streams equal
-     their first run's and its greedy one phase 3's; top-k 1 equal to phase
-     3's greedy streams or first parting at a token whose two best logits
+     their first run's and its greedy one the greedy run's; top-k 1 equal to
+     the greedy streams or first parting at a token whose two best logits
      tie (read from the logits the engine sampled); mpmm, paged_attn and
-     paged_scatter launched. Printed: a sampled decode step's device and
-     wall time beside a greedy step's from the same cache, and the
-     sampler's own device time.
+     paged_scatter launched. Printed (at full depth): a sampled decode
+     step's device and wall time beside a greedy step's from the same
+     cache, and the sampler's own device time.
  14. continuous batching (run right after phase 13, on phase 3's internlm2
      w4a8 kv8 weights at full width and depth; its DeepSeek-V3 runs right
      after phase 8's prefix run, on phase 8's weights): ``ServeEngine(...,
@@ -222,7 +226,7 @@ Phases, in order (any failure ends the run with a nonzero exit):
      mixed steps and its last pure-decode steps), mpmm's time per mixed
      step (168 calls at M = 64) beside its bound, its plain version and
      ``torch._int_mm``, and the phase's own seconds.
- 15. checkpoints (run right after phase 14, on phase 3's internlm2 weights;
+ 15. checkpoints (run right after phase 16, on phase 3's internlm2 weights;
      its DeepSeek-V3 round trip right after phase 14's MLA run, on phase
      8's weights): ``checkpoint.store.save`` of ``{"params":
      bridge.params_to_reference(params, cfg)}`` under a fresh temporary
@@ -231,16 +235,42 @@ Phases, in order (any failure ends the run with a nonzero exit):
      bit-equal to the saved params (keys, dtypes, shapes, bytes); printed:
      the bytes on disk, the save and load seconds and the load's GB/s,
      beside the card's name and power limit. internlm2 at full depth,
-     serve mode: phase 3's four requests served from the loaded params on
-     the slot and the paged cache, the streams equal to phase 3's, mpmm,
-     paged_attn and paged_scatter launched (paged_scatter once a layer and
-     decode step). internlm2 at full width cut to 4 layers, train mode (a
+     serve mode, round-tripped whole; phase 3's four requests served from
+     the loaded params on the slot and the paged cache, the streams equal
+     to phase 3's, mpmm, paged_attn and paged_scatter launched
+     (paged_scatter once a layer and decode step). internlm2 at full width cut to 4 layers, train mode (a
      float ``w`` a linear): saved, loaded and converted by
      ``convert_model_to_serving``, every packed linear bit-equal to
      ``convert_linear_to_serving`` of the same ``w``, and the converted
      tree's greedy streams (slot) equal to the unconverted tree's, which
      converts on the fly. DeepSeek-V3's three MLA layers and MTP params,
      serve mode: the round trip alone.
+ 16. speculative decoding (run right after phase 14, on phase 3's internlm2
+     w4a8 kv8 weights; its DeepSeek-V3 run right after phase 14's MLA run):
+     ``ServeEngine(..., spec=..., spec_k=SPEC_K (4))``, 4 slots, s_max 1024,
+     pages of 16. A round drafts SPEC_K tokens (chained unfused decode
+     steps) and verifies the k+1 positions in one ``spec_verify_step``;
+     both read the cache unfused, so every run is held (``held_to_serial``)
+     to a serialized unfused run: self4 at full depth on slot and paged
+     (phase 3's four, against phase 5's runs); ``mixed_paper`` at CUT_LAYERS,
+     self4 on paged and on prefix (phase 9's five), against serialized runs
+     made here (truncates > 0, the page pool conserved after every step);
+     phase 13's sampled four at CUT_LAYERS, self4 on paged, equal to phase
+     14's sampled serialized run; ``DraftModel()`` (its reduced draft at the
+     full vocab) on paged at CUT_LAYERS, phase 3's two shortest requests
+     with their prompts cut to 40 and 56 tokens; DeepSeek-V3's three MLA layers,
+     self4 on paged, against phase 8's unfused run. Gates on every run
+     (``gate_spec``): rounds ran; each round makes at most one host sync
+     (``serve.boundary.counting_syncs``, with its ``.item()`` control);
+     each draft step and each verify launches mpmm 7 L + 1 times (169 at
+     full depth; a DraftModel step its own model's count), paged_scatter
+     and paged_gather once a layer on a paged cache; paged_attn and
+     paged_mla_attn never. Printed: acceptance, mean accepted length,
+     truncates, step EMA, TPOT / TTFT p50 and tokens/s beside the
+     serialized fused and unfused runs, the device ms of one round's draft
+     steps and of its verify, mpmm per verify (169 calls at M = 20) beside
+     its bound, its plain version and ``torch._int_mm``, the phase's
+     seconds and the card.
 
 Phases 3, 4, 5, 8, 9, 10, 11, 12, 13 and 15 each start with every launch count
 at 0 (phase 8 once for its fused runs, once for its unfused runs, once for
@@ -253,10 +283,12 @@ their end;
 the kernels line gives each kernel the count of its own path (paged_copy:
 phase 9's prefix run; wdqmm: phase 10's slot and paged runs; flash_mha:
 phase 11's prefill_step; qkv_decode: phase 12). Each of phase 14's
-continuous runs starts at 0 too. mpmm has three rows, told apart by their
-"at": per decode step (phase 3's launches), per prefill_step (phase 11's
-prefill_step launches) and per mixed step (the launches of phase 14's four
-greedy internlm2 runs).
+continuous runs starts at 0 too, and so does each of phase 16's two
+full-depth runs. mpmm has four rows, told apart by their "at": per decode
+step (phase 3's launches), per prefill_step (phase 11's prefill_step
+launches), per mixed step (the launches of phase 14's four greedy internlm2
+runs) and per verify step (the launches of phase 16's two full-depth
+runs).
 
 The line before the last is the kernels JSON, the last line the result
 JSON.
@@ -315,6 +347,12 @@ STEP_PAIRS = 10
 #: phase 14: the continuous engine's token budget a mixed step and its
 #: steps in flight
 MIXED_BUDGET, INFLIGHT = 16, 2
+#: phase 16: draft tokens a speculation round; a verify scores SPEC_K + 1
+#: positions a slot, so its projections run at M = N_SLOTS * (SPEC_K + 1)
+SPEC_K = 4
+#: phase 16's DraftModel run: its two prompts' lengths (the draft enters a
+#: prompt one token a step; off the page grid, so rounds cross page ends)
+DRAFT_PROMPTS = (40, 56)
 #: phase 14: where a greedy continuous stream parts from the serialized one
 #: of the same attention, the serialized engine's logits of the two tokens
 #: drawn there lie within this many bf16 steps at the row's largest |logit|:
@@ -322,11 +360,14 @@ MIXED_BUDGET, INFLIGHT = 16, 2
 #: witness: ``mixed_witness``)
 TIE_STEPS = 1
 #: the depth (at full width) of the runs that are held only to another run
-#: of the same model: phase 10's weight-only and phase 13's sampled prefix
-#: runs against their cold paged runs, and phase 14's sampled continuous run
-#: against its serialized one. Every gate on them holds at any depth; the
-#: cut keeps the script within its time limit as phases are added
-CUT_LAYERS = 8
+#: of the same model: phase 10's weight-only prefix run against its cold
+#: paged run, phase 13's serving runs against its own greedy run (and
+#: prefix against cold paged), phase 14's sampled continuous run against its
+#: serialized one, and phase 16's mixed_paper, sampled and DraftModel runs
+#: against serialized runs made at this depth. Every gate on them
+#: holds at any depth; the cut keeps the script within its time limit as
+#: phases are added
+CUT_LAYERS = 4
 
 
 def cut(cfg, params):
@@ -435,25 +476,33 @@ def check_mpmm(torch, dev, cfg, report):
                                              f"signed={signed} shape {(M, N, K)}")
                     n += 1
     # the main path's cell (8, 4, 8), signed, f32 out, at its shapes: a
-    # decode step, a prefill chunk, a continuous mixed step and a
-    # whole-prompt prefill_step
-    for M in (4, 16, N_SLOTS * MIXED_BUDGET, N_SLOTS * PREFILL_LEN):
-        for N, K, _ in main_path_mm_shapes(cfg):
-            x_p, w_p = operands(M, N, K, 8, 4)
-            kw = dict(x_bits=8, w_bits=4, y_bits=8, x_signed=True, out_kind="f32",
-                      out_scale=torch.tensor(3.1e-4, device=dev))
-            a = ops.mpmm(x_p, w_p, None, impl="cuda", **kw)
-            b = ops.mpmm(x_p, w_p, None, impl="torch", **kw)
-            torch.cuda.synchronize()
-            worst = max(worst, float((a - b).abs().max()))
-            if not torch.equal(a, b):
-                raise AssertionError(f"mpmm mismatch at main-path shape M={M} N={N} K={K}")
-            n += 1
-            del a, b
+    # decode step, a prefill chunk, a speculative verify, a continuous mixed
+    # step and a whole-prompt prefill_step; then mixed_paper's 8-bit cell
+    # (8, 8, 8) at its attn_out and head shapes, a decode step and a verify
+    M_verify = N_SLOTS * (SPEC_K + 1)
+    d = cfg.d_model
+    cases = [(M, N, K, 4) for M in (4, 16, M_verify, N_SLOTS * MIXED_BUDGET,
+                                    N_SLOTS * PREFILL_LEN)
+             for N, K, _ in main_path_mm_shapes(cfg)]
+    cases += [(M, N, K, 8) for M in (4, M_verify)
+              for N, K in ((d, cfg.n_heads * cfg.head_dim), (cfg.vocab_padded, d))]
+    for M, N, K, wb in cases:
+        x_p, w_p = operands(M, N, K, 8, wb)
+        kw = dict(x_bits=8, w_bits=wb, y_bits=8, x_signed=True, out_kind="f32",
+                  out_scale=torch.tensor(3.1e-4, device=dev))
+        a = ops.mpmm(x_p, w_p, None, impl="cuda", **kw)
+        b = ops.mpmm(x_p, w_p, None, impl="torch", **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.equal(a, b):
+            raise AssertionError(f"mpmm mismatch at main-path shape M={M} N={N} K={K} w{wb}")
+        n += 1
+        del a, b
     report["mpmm"] = {"max_abs_err": worst, "checks": n}
     log(f"mpmm: {n} comparisons bit-exact (27 cells x 3 kinds x signedness at (37, 40, 96), "
-        f"(3, 24, 44) and (150, 72, 200); main-path shapes at M = 4, 16, "
-        f"{N_SLOTS * MIXED_BUDGET} and {N_SLOTS * PREFILL_LEN})")
+        f"(3, 24, 44) and (150, 72, 200); main-path shapes at M = 4, 16, {M_verify}, "
+        f"{N_SLOTS * MIXED_BUDGET} and {N_SLOTS * PREFILL_LEN}; mixed_paper's 8-bit attn_out "
+        f"and head at M = 4 and {M_verify})")
     imma = {fn: c["IMMA"] for fn, c in sass_counts(build.library_path("mpmm"),
                                                     "mpmm_kernel").items()}
     log(f"  sass: {len(imma)} mpmm kernels, {min(imma.values())}-{max(imma.values())} IMMA each")
@@ -738,7 +787,11 @@ def check_paged_scatter(torch, dev, cfg, mcfg, report):
     launch a group on every internlm2 and DeepSeek-V3 leaf set; unallocated
     entries and rows past the table included. S_new 16 at ragged per-slot
     positions is a continuous mixed step's write (MIXED_BUDGET rows a
-    lane)."""
+    lane), S_new SPEC_K + 1 a speculative verify's; the second position set
+    holds a lane at the speculative sentinel OUT_OF_RANGE (a draft step's
+    lane that takes no part, whose rows go past the table) and a lane whose
+    last rows run past its table."""
+    from repro_torch.serve.spec import OUT_OF_RANGE
     from repro_torch.kernels import build, ops
 
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -751,14 +804,18 @@ def check_paged_scatter(torch, dev, cfg, mcfg, report):
         bt[0, 5:] = 0  # unallocated entries land in the scratch page
         return bt
 
-    # slot 2's rows run past its table
-    pos = torch.tensor([0, 37, S_MAX - 8, 70], dtype=torch.int32, device=dev)
+    # slot 2's rows run past its table; in the second set slot 2 sits at the
+    # sentinel and slot 3's last rows run past
+    positions = [torch.tensor(p, dtype=torch.int32, device=dev)
+                 for p in ([0, 37, S_MAX - 8, 70], [0, 37, OUT_OF_RANGE, S_MAX - 3])]
+    widths = (1, SPEC_K + 1, MIXED_BUDGET)
+    cases = [(pos, S_new) for pos in positions for S_new in widths]
     leaves = ((torch.int8, (cfg.kv_heads, cfg.head_dim)), (torch.float32, (cfg.kv_heads,)),
               (torch.bfloat16, (cfg.kv_heads, cfg.head_dim)))
     for dtype, tail in leaves:
         pool = torch.randn((P_, PAGE_SIZE, *tail), generator=g, device=dev).mul(40)
         pool = pool.clamp(-100, 100).to(dtype)
-        for S_new in (1, MIXED_BUDGET):
+        for pos, S_new in cases:
             new = torch.randn((N_SLOTS, S_new, *tail), generator=g, device=dev).mul(40)
             new = new.clamp(-100, 100).to(dtype)
             bt = table()
@@ -766,9 +823,10 @@ def check_paged_scatter(torch, dev, cfg, mcfg, report):
             b = ops.paged_scatter(pool.clone(), new, pos, bt, impl="torch")
             torch.cuda.synchronize()
             if not torch.equal(a[1:], b[1:]):
-                raise AssertionError(f"paged_scatter mismatch dtype={dtype} S_new={S_new}")
+                raise AssertionError(f"paged_scatter mismatch dtype={dtype} S_new={S_new} "
+                                     f"pos={pos.tolist()}")
     for name, pools in leaf_sets(torch, g, dev, cfg, mcfg, P_).items():
-        for S_new in (1, MIXED_BUDGET):
+        for pos, S_new in cases:
             news = [seeded(torch, g, torch.empty((N_SLOTS, S_new, *a.shape[2:]), dtype=a.dtype,
                                                  device=dev)) for a in pools]
             bt = table()
@@ -781,11 +839,13 @@ def check_paged_scatter(torch, dev, cfg, mcfg, report):
                                             impl="torch")
             torch.cuda.synchronize()
             if not all(same_bytes(torch, x[1:], y[1:]) for x, y in zip(got, want)):
-                raise AssertionError(f"paged_scatter group mismatch on {name} S_new={S_new}")
+                raise AssertionError(f"paged_scatter group mismatch on {name} S_new={S_new} "
+                                     f"pos={pos.tolist()}")
     report["paged_scatter"] = {"max_abs_err": 0.0}
     log("paged_scatter: bit-exact on int8 / f32 / bf16 leaves, and one launch a group on the "
         "internlm2 and DeepSeek-V3 leaf sets at kv8 / kv4 / bf16 (scratch page excluded), "
-        f"S_new 1 and {MIXED_BUDGET} at per-slot positions {pos.tolist()}")
+        f"S_new {', '.join(map(str, widths))} at per-slot positions "
+        f"{' and '.join(str(p.tolist()) for p in positions)}")
 
 
 def ref_layer() -> tuple:
@@ -1493,12 +1553,21 @@ def _htod_events(torch, dev, fn) -> int:
 
 def htod_copies(torch, dev, fn) -> int:
     """Host-to-device copies (the profiler's ``Memcpy HtoD`` device events)
-    in the second of two calls of ``fn()``. Raises where a window around
-    one upload shows none: the count could not be read."""
-    if _htod_events(torch, dev, lambda: torch.ones(4).to(dev)) == 0:
-        raise AssertionError("the profiler shows no Memcpy HtoD for an upload: host-to-device "
-                             "copies cannot be counted here")
-    return _htod_events(torch, dev, fn)
+    in the second of two calls of ``fn()``. Each call follows one upload of
+    its own in the same window, the control, which the count leaves out: a
+    window that shows no upload lost its events (seen once in a run of
+    ``chip_smoke.py``, with the control in a window of its own). Up to three
+    windows are read; then it raises: the count could not be read."""
+    def behind_control():
+        torch.ones(4).to(dev)
+        fn()
+
+    for _ in range(3):
+        n = _htod_events(torch, dev, behind_control)
+        if n:
+            return n - 1
+    raise AssertionError("the profiler shows no Memcpy HtoD for an upload in three windows: "
+                         "host-to-device copies cannot be counted here")
 
 
 def linears(params):
@@ -2444,32 +2513,34 @@ def qkv_decode_row(torch, dev, cfg) -> dict:
     return out[8]
 
 
-def sampled_path(torch, dev, cfg, policy, params, greedy_out) -> dict:
+def sampled_path(torch, dev, cfg, policy, params) -> dict:
     """Phase 13: the serving path with seeded sampling (SAMPLING, request i
-    with seed 1000 + i), internlm2 w4a8 kv8 at full width. Phase 3's four
-    requests on the slot and the paged cache; phase 9's five on a cold
-    paged and a prefix engine (cut to CUT_LAYERS layers); the four again
-    with request 0 greedy beside
+    with seed 1000 + i), internlm2 w4a8 kv8 at full width, its serving runs
+    cut to CUT_LAYERS layers. Phase 3's four requests greedy on the slot
+    cache (``greedy_out``), then sampled on the slot and the paged cache;
+    phase 9's five on a cold paged and a prefix engine; the four again with
+    request 0 greedy beside
     three sampled; the four at top-k 1. Gates: slot and paged streams
     identical, prefix identical to cold paged; in the mixed batch the
     sampled requests repeat their first run's streams (run to run, and
     whatever their neighbours) and the greedy one equals its stream in
-    phase 3's all-greedy batch (``greedy_out``); top-k 1 equals phase 3's
-    greedy streams, or first differs at a token whose two best logits tie
+    the all-greedy batch (``greedy_out``); top-k 1 equals the greedy
+    streams, or first differs at a token whose two best logits tie
     (top-k 1 keeps ties, greedy takes the first; the tie is read from the
     logits the engine sampled); mpmm, paged_attn and paged_scatter launched.
-    Printed: a sampled decode step's wall and device time beside a greedy
-    step's from the same cache (walls: medians of STEP_PAIRS steps of each,
-    taken in turns), and the sampler's device time. Returns the launches of
-    the slot and paged runs."""
+    Printed: a full-depth sampled decode step's wall and device time beside
+    a greedy step's from the same cache (walls: medians of STEP_PAIRS steps of each,
+    taken in turns), and the sampler's device time."""
     from repro_torch.kernels import build
     from repro_torch.models import model as M
     from repro_torch.serve import Request
 
+    ccfg, cparams = cut(cfg, params)
+    greedy_out, _ = serve(torch, dev, ccfg, policy, cparams, "slot")
     build.reset_launches()  # the sampled serving path starts here
-    out_slot, _ = serve(torch, dev, cfg, policy, params, "slot",
+    out_slot, _ = serve(torch, dev, ccfg, policy, cparams, "slot",
                         reqs=sampled_requests(requests(cfg, Request)))
-    out_paged, _ = serve(torch, dev, cfg, policy, params, "paged",
+    out_paged, _ = serve(torch, dev, ccfg, policy, cparams, "paged",
                          reqs=sampled_requests(requests(cfg, Request)))
     launches = dict(build.LAUNCHES)  # the sampled serving path ends here
     log(f"launches on the sampled serving path: {launches}")
@@ -2481,20 +2552,19 @@ def sampled_path(torch, dev, cfg, policy, params, greedy_out) -> dict:
     same = sum(a == b for rid in out_slot for a, b in zip(out_slot[rid], greedy_out[rid]))
     log(f"sampled slot and paged token streams identical; {same} of "
         f"{sum(len(t) for t in out_slot.values())} tokens equal the greedy streams")
-    ccfg, cparams = cut(cfg, params)
     prefix_path(torch, dev, ccfg, policy, cparams, key=f"sampled ({CUT_LAYERS} layers) ",
                 sampled=True)
 
-    mixed, _ = serve(torch, dev, cfg, policy, params, "slot",
+    mixed, _ = serve(torch, dev, ccfg, policy, cparams, "slot",
                      reqs=sampled_requests(requests(cfg, Request), greedy=(0,)))
     if mixed[0] != greedy_out[0]:
         raise AssertionError("a greedy request beside sampled ones left its greedy stream")
     if any(mixed[r] != out_slot[r] for r in (1, 2, 3)):
         raise AssertionError("sampled streams changed from run to run or with their neighbours")
-    log("mixed batch (request 0 greedy, 1-3 sampled): the greedy stream equals phase 3's, the "
-        "sampled ones their first run's")
+    log("mixed batch (request 0 greedy, 1-3 sampled): the greedy stream equals the greedy "
+        "run's, the sampled ones their first run's")
     ties: dict = {}
-    top1, _ = serve(torch, dev, cfg, policy, params, "paged", ties=ties,
+    top1, _ = serve(torch, dev, ccfg, policy, cparams, "paged", ties=ties,
                     reqs=sampled_requests(requests(cfg, Request), top_k=1))
     parts = {}
     for rid, (a, b) in enumerate(zip(top1.values(), greedy_out.values())):
@@ -2540,7 +2610,6 @@ def sampled_path(torch, dev, cfg, policy, params, greedy_out) -> dict:
         f"{SAMPLING['top_p']}) {ts:.3f} ms device, {tsw:.3f} ms wall; the sampler alone over "
         f"(4, {logits.shape[-1]}) logits: {tsamp:.4f} ms device, {tsampw:.3f} ms wall "
         f"(greedy argmax {tgreedy:.4f} ms device)")
-    return launches
 
 
 # --------------------------------------------------------------- phase 14
@@ -2937,17 +3006,15 @@ def window_idle(torch, eng, reqs, skip: int, steps: int) -> tuple[float, float, 
     return (sum(e.self_device_time_total for e in seen) / 1e3, wall, sum(e.count for e in seen))
 
 
-def mpmm_mixed_row(torch, dev, cfg, params) -> dict:
-    """mpmm per continuous mixed step: the 168 projections at M = N_SLOTS x
-    MIXED_BUDGET = 64 (cell (8, 4, 8), f32 out; the head's call runs at M =
-    N_SLOTS, row 1's shape) over every layer's own weights, beside its
-    bound, its plain version and one ``torch._int_mm`` a projection over
-    the weights unpacked to int8 ahead of time (M = 64 > 16: allowed)."""
+def mpmm_step_row(torch, dev, lin, M, what, at, seed) -> dict:
+    """mpmm over the projections ``lin`` (every layer's own weights, cell
+    (8, 4, 8), f32 out) at M rows each: device ms beside its bound, its
+    plain version and one ``torch._int_mm`` a projection over the weights
+    unpacked to int8 ahead of time (M > 16: allowed)."""
     from repro_torch.core import pack as P
     from repro_torch.kernels import ops
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 15)
-    M, lin = N_SLOTS * MIXED_BUDGET, linears(params)[:-1]
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def K_of(p):
         return p["w_packed"].shape[1] * 2
@@ -2968,14 +3035,23 @@ def mpmm_mixed_row(torch, dev, cfg, params) -> dict:
     nops = sum(2 * M * p["w_packed"].shape[0] * K_of(p) for p in lin)
     nbytes = sum(p["w_packed"].numel() + M * K_of(p) + 4 * M * p["w_packed"].shape[0] + 4
                  for p in lin)
-    log(f"  mpmm, one mixed step ({len(lin)} calls, M={M}, cell (8, 4, 8), f32 out): {t:.4f} ms "
+    log(f"  mpmm, {what} ({len(lin)} calls, M={M}, cell (8, 4, 8), f32 out): {t:.4f} ms "
         f"device ({how}), {tw:.3f} ms wall; plain {tp:.3f} ms device, {tpw:.3f} ms wall; "
         f"torch._int_mm over the weights unpacked to int8 ahead of time {tl:.4f} ms device, "
         f"{tlw:.3f} ms wall; bound {max(nbytes / HBM_BYTES_PER_S, nops / INT8_OPS_PER_S) * 1e3:.4f}"
         f" ms ({nbytes / 1e6:.1f} MB, {nops / 1e9:.2f} G int8 operations)")
-    return dict(name="mpmm", at=f"mixed step, M = {M} ({len(lin)} projections)", route="cuda",
-                source="src/repro_torch/csrc/mpmm.cu", replaces="src/repro/kernels/mpmm.py:122",
-                ms=t, plain_ms=tp, bytes=nbytes, work=[(nops, INT8_OPS_PER_S)], library_ms=tl)
+    return dict(name="mpmm", at=at, route="cuda", source="src/repro_torch/csrc/mpmm.cu",
+                replaces="src/repro/kernels/mpmm.py:122", ms=t, plain_ms=tp, bytes=nbytes,
+                work=[(nops, INT8_OPS_PER_S)], library_ms=tl)
+
+
+def mpmm_mixed_row(torch, dev, cfg, params) -> dict:
+    """mpmm per continuous mixed step: the 168 projections at M = N_SLOTS x
+    MIXED_BUDGET = 64 (the head's call runs at M = N_SLOTS, row 1's
+    shape)."""
+    M, lin = N_SLOTS * MIXED_BUDGET, linears(params)[:-1]
+    return mpmm_step_row(torch, dev, lin, M, "one mixed step",
+                         f"mixed step, M = {M} ({len(lin)} projections)", SEED + 15)
 
 
 def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict, dict]:
@@ -2995,8 +3071,10 @@ def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict
     TTFT p50 and tokens/s; the device-idle share of 8 profiled steps of
     each engine on the paged cache, fused (the serialized engine's decode
     steps after its prefills; the continuous engine's mixed steps and its
-    last pure-decode steps). Returns the launches of the four greedy runs
-    and mpmm's per-mixed-step row."""
+    last pure-decode steps). Returns the launches of the four greedy runs,
+    mpmm's per-mixed-step row and the sampled serialized run (its streams
+    and draws' logits, CUT_LAYERS layers), which phase 16 holds its sampled
+    speculative run to."""
     from collections import Counter
 
     from repro_torch.kernels import build
@@ -3063,7 +3141,7 @@ def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict
     gate_continuous(f"continuous paged, unfused, sampled ({CUT_LAYERS} layers)", sreqs(), out,
                     ms, info_s, dict(build.LAUNCHES), ccfg, "paged", fused_attn=False, serial=(
                         ser_s, ser_rows, None))  # a sampled parting raises before a replay
-    del ser_rows, info_s
+    del info_s
 
     card = gpu_line()
     for key, label, src in (("slot", "slot, unfused", "phase 5"),
@@ -3095,7 +3173,7 @@ def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict
         f"{cont['paged fused']['decode_steps']})")
     row = mpmm_mixed_row(torch, dev, cfg, params)
     log(f"phase 14 (continuous batching): {time.perf_counter() - t_phase:.1f} s")
-    return dict(launches), row
+    return dict(launches), row, (ser_s, ser_rows)
 
 
 def continuous_mla(torch, dev, cfg, policy, params, unfused, unfused_rows, fused) -> None:
@@ -3196,6 +3274,7 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
 
     prefix_path(torch, dev, cfg, policy, params, key="MLA ")
     continuous_mla(torch, dev, cfg, policy, params, unf_paged, unf_rows, out_paged)  # phase 14's
+    spec_mla(torch, dev, cfg, policy, params, unf_paged, unf_rows)  # phase 16's
     del unf_rows
     t0 = time.perf_counter()  # phase 15's round trip of the MLA layers and the MTP params
     round_trip(torch, dev, cfg, policy, params, "serve",
@@ -3290,6 +3369,308 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
     return row, {"paged_mla_attn": fused_launches["paged_mla_attn"]}
 
 
+# --------------------------------------------------------------- phase 16
+
+
+def spec_serve(torch, dev, cfg, policy, params, cache, reqs, spec="self4"):
+    """Serve ``reqs`` on a speculative engine (``spec``, SPEC_K drafts a
+    round; 4 slots, s_max 1024, pages of 16), keeping each draw's logits
+    row: a verify's offset j of slot s draws token ``_counters[s] + j`` of
+    its request (a later draw of the same token, after a rejection,
+    overwrites the row); the drafts' draws are not kept. Records each
+    round's host syncs (``serve.boundary.counting_syncs``), its launches by
+    kernel and whether it drafted, and on a paged cache checks the pool
+    after every step. Returns (streams, metrics, info)."""
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.boundary import counting_syncs
+
+    eng = ServeEngine(params, cfg, policy, n_slots=N_SLOTS, s_max=S_MAX, cache=cache,
+                      page_size=PAGE_SIZE if cache != "slot" else None, spec=spec,
+                      spec_k=SPEC_K, device=dev)
+    W = SPEC_K + 1
+    info: dict = {"rounds": [], "rows": {}, "steps": 0}
+    rows, sample_tokens, spec_round, step = info["rows"], M.sample_tokens, eng._spec_round, eng.step
+
+    def recording(logits, *lanes, **kw):
+        f = logits.float()
+        if logits.shape[0] == 1:  # admission: the request that has no token yet
+            r = next(r for r in eng.slot_req if r is not None and not r.out)
+            rows[r.rid, 0] = f[0].clone()
+        elif logits.shape[0] == N_SLOTS * W:  # a verify
+            for s_, r in enumerate(eng.slot_req):
+                if r is not None:
+                    for j in range(W):
+                        rows[r.rid, int(eng._counters[s_]) + j] = f[s_ * W + j].clone()
+        return sample_tokens(logits, *lanes, **kw)
+
+    def counted_round():
+        drafted = any(r is not None and eng.slot_remaining[s_] >= W
+                      for s_, r in enumerate(eng.slot_req))
+        before = dict(build.LAUNCHES)
+        with counting_syncs() as got:
+            spec_round()
+        info["rounds"].append((got, {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()},
+                               drafted))
+
+    def checked_step():
+        more = step()
+        if eng.cache.paged:
+            eng.cache.check_conserved()
+        info["steps"] += 1
+        return more
+
+    eng._spec_round, eng.step = counted_round, checked_step
+    M.sample_tokens = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        out = eng.run(reqs)
+    finally:
+        M.sample_tokens = sample_tokens
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    m = eng.metrics()
+    mode = "" if all(r.params is None or r.params.greedy for r in reqs) else ", sampled"
+    log(f"spec[{cfg.name}, {policy.name}, {cache}, {m['spec/policy']}, k={SPEC_K}{mode}]: "
+        f"{m['tokens_generated']} tokens in {dt:.3f} s ({m['tokens_generated'] / dt:.2f} "
+        f"tokens/s end to end), {m['spec/rounds']} rounds, acceptance "
+        f"{m['spec/acceptance_rate']:.4f} ({m['spec/accepted']} of {m['spec/proposed']}), mean "
+        f"accepted length {spec_mean_len(m):.3f}, {m['cache/truncates']} truncates, step EMA "
+        f"{m['step_ema_s'] * 1e3:.2f} ms, TTFT p50 {m['slo/ttft_p50_s']:.3f} s, TPOT p50 "
+        f"{m['slo/tpot_p50_s'] * 1e3:.2f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, each draw's logits kept")
+    want_len = {r.rid: r.max_new for r in reqs}
+    for rid, t in out.items():
+        if len(t) != want_len[rid] or not all(0 <= x < cfg.vocab_padded for x in t):
+            raise AssertionError(f"spec request {rid}: bad output {t}")
+    return out, m, info
+
+
+def spec_mean_len(m) -> float:
+    """Tokens a speculating lane emits a round: each such round observes its
+    accepted drafts plus the target's own token."""
+    n = m["spec/accepted_len_count"]
+    return (m["spec/accepted"] + n) / n if n else 0.0
+
+
+def gate_spec(what, cfg, cache, m, info, draft_cfg=None) -> None:
+    """Phase 16's gates on one speculative run: rounds ran, each made at
+    most one host sync, and each launched, for each of its draft steps
+    (SPEC_K when a lane speculated) and for its verify: mpmm seven times a
+    layer and once for the head (a draft model of its own: its own layers),
+    paged_scatter and paged_gather once a layer on a paged cache (a draft
+    model's dense cache: none), paged_attn and paged_mla_attn never (the
+    drafts and the verify read the cache unfused)."""
+    rounds = info["rounds"]
+    if not rounds or len(rounds) != m["spec/rounds"]:
+        raise AssertionError(f"{what}: {len(rounds)} rounds counted, {m['spec/rounds']} in the "
+                             f"metrics")
+    syncs = [len(got) for got, _, _ in rounds]
+    if max(syncs) > 1:
+        bad = next(got for got, _, _ in rounds if len(got) > 1)
+        raise AssertionError(f"{what}: a round made {len(bad)} host syncs: {bad}")
+    L = cfg.n_layers
+    Ld = L if draft_cfg is None else draft_cfg.n_layers
+    movers = L if cache != "slot" else 0
+    draft_movers = movers if draft_cfg is None else 0
+    for i, (_, got, drafted) in enumerate(rounds):
+        k = SPEC_K if drafted else 0
+        want = {"mpmm": 7 * L + 1 + k * (7 * Ld + 1), "paged_attn": 0, "paged_mla_attn": 0,
+                "paged_scatter": movers + k * draft_movers,
+                "paged_gather": movers + k * draft_movers}
+        have = {n: got.get(n, 0) for n in want}
+        if have != want:
+            raise AssertionError(f"{what}: round {i} ({'drafted' if drafted else 'no drafts'}) "
+                                 f"launched {have}, want {want}")
+    drafted = sum(d for _, _, d in rounds)
+    log(f"{what}: {len(rounds)} rounds ({drafted} with {SPEC_K} draft steps), host syncs a round "
+        f"{min(syncs)}-{max(syncs)} ({sum(syncs)} in all); launches a draft step: mpmm "
+        f"{7 * Ld + 1}, paged_scatter / paged_gather {draft_movers}; a verify: mpmm {7 * L + 1}, "
+        f"paged_scatter / paged_gather {movers}; paged_attn and paged_mla_attn none")
+
+
+def spec_line(what, m, beside, card) -> None:
+    """A speculative run's walls beside serialized runs' (label -> metrics)."""
+    parts = [f"spec {m['step_ema_s'] * 1e3:.2f} ms a round, TPOT p50 "
+             f"{m['slo/tpot_p50_s'] * 1e3:.2f} ms, TTFT p50 {m['slo/ttft_p50_s']:.3f} s, "
+             f"{m['tokens_per_s']:.2f} tokens/s, {m['decode_steps']} rounds"]
+    parts += [f"{label} {ms['step_ema_s'] * 1e3:.2f} ms a step, TPOT p50 "
+              f"{ms['slo/tpot_p50_s'] * 1e3:.2f} ms, TTFT p50 {ms['slo/ttft_p50_s']:.3f} s, "
+              f"{ms['tokens_per_s']:.2f} tokens/s, {ms['decode_steps']} steps"
+              for label, ms in beside.items()]
+    log(f"{what} ({card}): " + "; ".join(parts))
+
+
+def spec_round_ms(torch, dev, cfg, policy, params) -> None:
+    """The device time of one round's SPEC_K draft steps and of its verify
+    (self4, paged, full depth), from phase 3's four requests admitted (in
+    chunks of 128: the state, not the prefill, is what is timed) and one
+    round served: each timed alone over that state (its rows rewritten in
+    place)."""
+    import numpy as np
+
+    from repro_torch import host_copy
+    from repro_torch.models import model as M
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    t0 = time.perf_counter()
+    eng = ServeEngine(params, cfg, policy, n_slots=N_SLOTS, s_max=S_MAX, cache="paged",
+                      page_size=PAGE_SIZE, prefill_chunk=128, spec="self4", spec_k=SPEC_K,
+                      device=dev)
+    for r in requests(cfg, Request):
+        eng.submit(r.prompt, SamplingParams(max_new=r.max_new), rid=r.rid)
+    eng.step()
+    W = SPEC_K + 1
+    for s_ in range(N_SLOTS):
+        eng.cache.prepare(s_, W)
+    tok0 = host_copy(np.array([[r.out[-1]] for r in eng.slot_req], np.int32), dev)
+    pos = eng.cache.pos.copy()
+    window = torch.cat([tok0, eng._draft(tok0, pos)], dim=1)
+    lanes = (eng._temps, eng._top_ks, eng._top_ps, eng._seeds, eng._counters)
+    bt, pos_d = host_copy(eng.cache.block_tables, dev), host_copy(pos, dev)
+    n_real = host_copy(np.full(N_SLOTS, W, np.int32), dev)
+    # medians of 2 and 3 (the draft, 4 full-depth steps, ~0.7 s a call, was
+    # warmed by the window's own draft)
+    td, tdw, how_d = device_ms(lambda: eng._draft(tok0, pos), reps=2, warmup=0)
+    tv, tvw, how_v = device_ms(lambda: M.spec_verify_step(
+        params, window, pos_d, n_real, *lanes, eng.cache.caches, cfg, policy, block_tables=bt,
+        page_size=PAGE_SIZE), reps=3, warmup=1)
+    eng.close()
+    log(f"  one round (self4, paged, {cfg.n_layers} layers, 4 lanes at {pos.min()}..{pos.max()} "
+        f"cached rows; {gpu_line()}): {SPEC_K} draft steps {td:.4f} ms device ({how_d}), "
+        f"{tdw:.3f} ms wall; the verify of {W} positions {tv:.4f} ms device ({how_v}), "
+        f"{tvw:.3f} ms wall; {time.perf_counter() - t0:.1f} s")
+
+
+def spec_path(torch, dev, cfg, policy, params, serial, sampled_serial):
+    """Phase 16 (right after phase 14, on phase 3's internlm2 w4a8 kv8
+    weights): speculative decoding, ``ServeEngine(..., spec=..., spec_k=
+    SPEC_K)``. Every draft step and every verify reads the cache unfused,
+    so each run is held (``held_to_serial``) to a serialized run that reads
+    it unfused: (a) self4 at full depth on slot and paged, phase 3's four
+    greedy requests, against phase 5's runs; (b) ``mixed_paper`` (its
+    8-bit ``attn_out`` and head requantized to 4 bits: real rejections) at
+    CUT_LAYERS, self4 on paged (phase 3's four) and on prefix (phase 9's
+    five), against serialized runs made here, with truncates > 0 and the
+    page pool conserved after every step; (c) phase 13's sampled four at
+    CUT_LAYERS, self4 on paged, equal to phase 14's sampled serialized run
+    (``sampled_serial``: streams, rows); (d) ``DraftModel()`` (its reduced
+    draft at the full vocab) on paged at CUT_LAYERS, phase 3's two shortest
+    requests, their prompts cut to DRAFT_PROMPTS tokens (the draft enters
+    each prompt token by token). ``gate_spec`` on every
+    run. Printed: acceptance, mean accepted length, truncates, walls beside
+    the serialized fused and unfused runs, one round's device ms. Returns
+    the launches of (a) and mpmm's per-verify row."""
+    from collections import Counter
+
+    from repro_torch.core.policy import get_policy
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.serve import DraftModel, Request
+    from repro_torch.serve.boundary import counting_syncs
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    x = torch.ones(4, device=dev)
+    with counting_syncs() as ctl:
+        x.sum().item()
+    if len(ctl) != 1:
+        raise AssertionError(f"host syncs cannot be counted here: a window around one .item() "
+                             f"counted {len(ctl)}")
+    launches: Counter = Counter()
+    for cache in ("slot", "paged"):
+        build.reset_launches()  # this speculative run starts here
+        out, m, info = spec_serve(torch, dev, cfg, policy, params, cache, requests(cfg, Request))
+        launches.update(build.LAUNCHES)  # this speculative run ends here
+        want, m_unf, rows_w = serial[cache]
+        what = f"spec {cache}, self4 ({cfg.name}, {policy.name})"
+        n = held_to_serial(what, requests(cfg, Request), want, out, rows_w, info["rows"],
+                           replayer(torch, dev, cfg, policy, params, cache, False))
+        gate_spec(what, cfg, cache, m, info)
+        log(f"{what}: {n} partings from phase 5's unfused serialized streams (each at a tie, "
+            f"every tail held to a serialized replay)")
+        spec_line(what, m, {"serialized fused (phase 3)": serial[f"{cache} fused"][1],
+                            "serialized unfused (phase 5)": m_unf}, card)
+        del info
+
+    ccfg, cparams = cut(cfg, params)
+    mp = get_policy("mixed_paper")
+    mparams = M.init_params(torch.Generator(device=dev).manual_seed(SEED + 16), ccfg, mp,
+                            device=dev)
+    for cache, reqs in (("paged", requests), ("prefix", prefix_requests)):
+        rows_w: dict = {}
+        want, m_w = serve(torch, dev, ccfg, mp, mparams, cache, fused_attn=False,
+                          reqs=reqs(ccfg, Request), rows=rows_w)
+        out, m, info = spec_serve(torch, dev, ccfg, mp, mparams, cache, reqs(ccfg, Request))
+        what = f"spec {cache}, self4 ({ccfg.name} cut to {CUT_LAYERS} layers, {mp.name})"
+        n = held_to_serial(what, reqs(ccfg, Request), want, out, rows_w, info["rows"],
+                           replayer(torch, dev, ccfg, mp, mparams, cache, False))
+        gate_spec(what, ccfg, cache, m, info)
+        if m["cache/truncates"] == 0:
+            raise AssertionError(f"{what}: no truncate (lossy drafts must be rejected)")
+        log(f"{what}: {n} partings from the serialized streams; the pool conserved after each of "
+            f"{info['steps']} steps; {m['cache/truncates']} truncates")
+        spec_line(what, m, {"serialized unfused": m_w}, card)
+        del rows_w, info
+    del mparams
+
+    ser_s, ser_rows = sampled_serial
+    sreqs = lambda: sampled_requests(requests(ccfg, Request))  # noqa: E731
+    out, m, info = spec_serve(torch, dev, ccfg, policy, cparams, "paged", sreqs())
+    what = f"spec paged, self4, sampled ({CUT_LAYERS} layers)"
+    held_to_serial(what, sreqs(), ser_s, out, ser_rows, info["rows"], None)
+    gate_spec(what, ccfg, "paged", m, info)
+    log(f"{what}: streams equal phase 14's sampled serialized ones")
+    del info
+
+    # the draft enters each prompt token by token: phase 3's two shortest
+    # requests, their prompts cut to DRAFT_PROMPTS tokens
+    dreqs = lambda: [Request(rid=r.rid, prompt=r.prompt[:n], max_new=r.max_new)  # noqa: E731
+                     for r, n in zip(requests(ccfg, Request), DRAFT_PROMPTS)]
+    rows_w = {}
+    want, m_w = serve(torch, dev, ccfg, policy, cparams, "paged", fused_attn=False, reqs=dreqs(),
+                      rows=rows_w)
+    draft = DraftModel()
+    out, m, info = spec_serve(torch, dev, ccfg, policy, cparams, "paged", dreqs(), spec=draft)
+    what = (f"spec paged, DraftModel ({draft.cfg.name}: {draft.cfg.n_layers} layers, d_model "
+            f"{draft.cfg.d_model}, vocab {draft.cfg.vocab}; target {CUT_LAYERS} layers; phase "
+            f"3's two shortest requests, prompts cut to {DRAFT_PROMPTS} tokens)")
+    n = held_to_serial(what, dreqs(), want, out, rows_w, info["rows"],
+                       replayer(torch, dev, ccfg, policy, cparams, "paged", False))
+    gate_spec(what, ccfg, "paged", m, info, draft_cfg=draft.cfg)
+    log(f"{what}: {n} partings from the serialized streams")
+    spec_line(what, m, {"serialized unfused": m_w}, card)
+    del rows_w, info, draft
+
+    spec_round_ms(torch, dev, cfg, policy, params)
+    M_ = N_SLOTS * (SPEC_K + 1)
+    lin = linears(params)
+    row = mpmm_step_row(torch, dev, lin, M_, "one verify",
+                        f"verify step, M = {M_} ({len(lin)} projections)", SEED + 16)
+    log(f"phase 16 (speculative decoding): {time.perf_counter() - t_phase:.1f} s; {card}")
+    return dict(launches), row
+
+
+def spec_mla(torch, dev, cfg, policy, params, unfused, unfused_rows) -> None:
+    """Phase 16's DeepSeek-V3 run (three MLA-dense layers, full width, right
+    after phase 14's): self4 on paged, phase 3's four greedy requests held
+    to phase 8's unfused paged run (``unfused``, its draws' logits
+    ``unfused_rows``), ``gate_spec``."""
+    from repro_torch.serve import Request
+
+    t0 = time.perf_counter()
+    out, m, info = spec_serve(torch, dev, cfg, policy, params, "paged", requests(cfg, Request))
+    what = f"spec MLA paged, self4 ({cfg.name} cut to {cfg.n_layers} layers)"
+    n = held_to_serial(what, requests(cfg, Request), unfused, out, unfused_rows, info["rows"],
+                       replayer(torch, dev, cfg, policy, params, "paged", False))
+    gate_spec(what, cfg, "paged", m, info)
+    log(f"{what}: {n} partings from phase 8's unfused streams; phase 16 (DeepSeek-V3): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 # --------------------------------------------------------------- phase 15
 
 
@@ -3372,7 +3753,7 @@ def packed_pairs(conv, train, parent=""):
 
 
 def checkpoint_path(torch, dev, cfg, policy, params, out_slot, out_paged) -> None:
-    """Phase 15 (right after phase 14, on phase 3's internlm2 w4a8 weights):
+    """Phase 15 (right after phase 16, on phase 3's internlm2 w4a8 weights):
     the full-depth serve-mode round trip and the streams served from it
     (slot and paged, equal to phase 3's; mpmm, paged_attn and paged_scatter
     launched), then train to serve at full width and 4 layers: a train-mode
@@ -3562,12 +3943,16 @@ def main() -> int:
     rows.insert(1, kernel_row(mm_row, prefill_launches, report))
     rows.insert(4, kernel_row(flash_row, prefill_launches, report))
     qkv_row, qkv_launches = dense_cache_path(torch, dev, cfg, policy, params, report)
-    sampled_path(torch, dev, cfg, policy, params, out_slot)
+    sampled_path(torch, dev, cfg, policy, params)
     serial = {"slot": (unf_slot, m_unf_slot, drawn["slot"]),
               "paged": (unf_paged, m_unf, drawn["paged"]),
-              "paged fused": (out_paged, m_paged)}
-    cont_launches, mixed_row = continuous_path(torch, dev, cfg, policy, params, serial)
+              "slot fused": (out_slot, m_slot), "paged fused": (out_paged, m_paged)}
+    cont_launches, mixed_row, sampled_serial = continuous_path(torch, dev, cfg, policy, params,
+                                                               serial)
     rows.insert(2, kernel_row(mixed_row, cont_launches, report))
+    spec_launches, verify_row = spec_path(torch, dev, cfg, policy, params, serial, sampled_serial)
+    rows.insert(3, kernel_row(verify_row, spec_launches, report))
+    del sampled_serial
     checkpoint_path(torch, dev, cfg, policy, params, out_slot, out_paged)
     del params, serial, drawn
     gc.collect()

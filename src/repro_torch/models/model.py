@@ -18,7 +18,7 @@ PrecisionPolicy. Ported: ``init_params`` (serve and train mode), ``init_cache``,
 ``init_paged_cache``, ``forward`` (serve mode, dense family),
 ``prefill_step``, ``decode_step``, ``prefill_chunk``,
 ``prefill_into_slot``, ``prefill_into_pages``, ``mixed_step`` (continuous
-batching) and ``sample_tokens``.
+batching), ``spec_verify_step`` (speculative decoding) and ``sample_tokens``.
 Mixture-of-Experts layers (``mla_moe``, the moe family) are not ported:
 a config that has one raises at ``init_params`` / ``init_cache``.
 """
@@ -203,12 +203,12 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, policy: PrecisionPolicy, 
 
 
 def _run_stack(params, x, pos, cfg: ArchConfig, policy, *, impl, caches=None, cache_pos=None,
-               attend_cached=False, block_tables=None, fused_attn=False):
+               attend_cached=False, block_tables=None, fused_attn=False, rowwise=False):
     """The layer stack; ``caches`` None runs it without a cache (the
-    whole-sequence forward)."""
+    whole-sequence forward). ``rowwise``: see ``attention.attn_apply``."""
     _, nfn = NORMS[cfg.norm]
     kw = dict(impl=impl, cache_pos=cache_pos, attend_cached=attend_cached,
-              block_table=block_tables, fused=fused_attn)
+              block_table=block_tables, fused=fused_attn, _rowwise=rowwise)
     if caches is None:
         caches = [None] * len(params["layers"])
     for lp, cache, kind in zip(params["layers"], caches, _layer_kinds(cfg), strict=True):
@@ -476,25 +476,81 @@ def mixed_step(params: dict, tokens: torch.Tensor, pos, n_real, caches: list, cf
 
     No ``fused_attn`` parameter: the fused decode kernel takes S == 1 and a
     mixed step is S == W, so it always reads the cache unfused."""
+    x, n_real = _window_stack(params, tokens, pos, n_real, caches, cfg, policy, impl=impl,
+                              block_tables=block_tables, page_size=page_size,
+                              refusal="mixed prefill+decode steps unsupported for family "
+                                      "{family!r} (supported: {supported}); serve serialized")
+    B = tokens.shape[0]
+    _, nfn = NORMS[cfg.norm]
+    last = torch.clamp(n_real.long() - 1, min=0)[:, None, None].expand(B, 1, x.shape[-1])
+    x_last = nfn(params["final_norm"], x.gather(1, last))
+    return linear_apply(params["head"], x_last, policy.of("head"), impl=impl)
+
+
+def spec_verify_step(params: dict, tokens: torch.Tensor, pos, n_real, temps, top_ks, top_ps,
+                     seeds, counters, caches: list, cfg: ArchConfig, policy: PrecisionPolicy,
+                     *, impl: ops.Impl = "auto", block_tables: Optional[torch.Tensor] = None,
+                     page_size: Optional[int] = None) -> torch.Tensor:
+    """Speculative decoding's verify (the reference's ``spec_verify_step``):
+    the target scores a drafted window in one forward. Lane b of ``tokens``
+    (B, W = k+1) is ``[last emitted, draft_0, .., draft_{k-1}]`` for a
+    speculating lane (``n_real[b] == W``), a right-padded decode lane
+    (``n_real[b] == 1``) or idle (0). The forward and the per-lane pad scrub
+    are :func:`mixed_step`'s, with the softmax over the cache run one query
+    row at a time (``rowwise``): each accepted row then has the bits a
+    serialized decode step gives it, on the card too, so the cache rows a
+    round keeps and the tokens it emits are the serialized engine's. The
+    head runs over all W positions, and every
+    offset is sampled in the same call through :func:`sample_tokens`: offset
+    j of lane b draws at counter ``counters[b] + j``, the emission index the
+    serialized engine would use there, on the flattened (B * W) lanes. The
+    sampling lanes (``temps``, ``top_ks``, ``top_ps``, ``seeds``,
+    ``counters``) are (B,) host vectors. The caches are written in place.
+
+    Returns the targets (B, W) int32 on the device; offsets past a lane's
+    ``n_real`` hold tokens the caller never reads."""
+    x, _ = _window_stack(params, tokens, pos, n_real, caches, cfg, policy, impl=impl,
+                         block_tables=block_tables, page_size=page_size, rowwise=True,
+                         refusal="speculative verify unsupported for family {family!r} "
+                                 "(supported: {supported}); these families lack the "
+                                 "position-indexed cache the multi-token write needs")
+    B, W = tokens.shape
+    _, nfn = NORMS[cfg.norm]
+    logits = linear_apply(params["head"], nfn(params["final_norm"], x), policy.of("head"),
+                          impl=impl)  # (B, W, V)
+
+    def per_offset(a, dtype):
+        return np.repeat(np.asarray(a, dtype=dtype), W)
+
+    ctr = np.asarray(counters, np.int64)[:, None] + np.arange(W, dtype=np.int64)[None]
+    return sample_tokens(logits.reshape(B * W, -1), per_offset(temps, np.float32),
+                         per_offset(top_ks, np.int64), per_offset(top_ps, np.float32),
+                         per_offset(seeds, np.int64), ctr.reshape(-1)).reshape(B, W)
+
+
+def _window_stack(params: dict, tokens: torch.Tensor, pos, n_real, caches: list,
+                  cfg: ArchConfig, policy: PrecisionPolicy, *, impl, block_tables, page_size,
+                  refusal: str, rowwise: bool = False):
+    """The forward :func:`mixed_step` and :func:`spec_verify_step` share:
+    embed the (B, W) window, run the stack through the cache at ``pos``
+    (``attend_cached``; ``rowwise``: the softmax one query row at a time),
+    then scrub each lane's rows past ``n_real`` (the caches are written in
+    place). Returns (hidden rows (B, W, d) before the final norm,
+    ``n_real`` as a (B,) int32 tensor on the device)."""
     if cfg.family not in PREFILL_CHUNKABLE_FAMILIES:
-        raise NotImplementedError(
-            f"mixed prefill+decode steps unsupported for family {cfg.family!r} "
-            f"(supported: {PREFILL_CHUNKABLE_FAMILIES}); serve serialized")
+        raise NotImplementedError(refusal.format(family=cfg.family,
+                                                 supported=PREFILL_CHUNKABLE_FAMILIES))
     if block_tables is not None and page_size is None:
         raise ValueError("page_size is required with block_tables")
-    _, nfn = NORMS[cfg.norm]
     x = embed_apply(params["embed"], tokens).to(torch.bfloat16)
     B, W = tokens.shape
     dev = x.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(B)
     n_real = torch.as_tensor(n_real, dtype=torch.int32, device=dev).reshape(B)
     x = _run_stack(params, x, _positions(pos, B, W, dev), cfg, policy, impl=impl, caches=caches,
-                   cache_pos=pos, attend_cached=True, block_tables=block_tables)
-    last = torch.clamp(n_real.long() - 1, min=0)[:, None, None].expand(B, 1, x.shape[-1])
-    x_last = nfn(params["final_norm"], x.gather(1, last))
-    logits = linear_apply(params["head"], x_last, policy.of("head"), impl=impl)
+                   cache_pos=pos, attend_cached=True, block_tables=block_tables, rowwise=rowwise)
     _scrub_lanes(caches, pos, n_real, W, block_tables, page_size)
-    return logits
+    return x, n_real
 
 
 def _scrub_lanes(caches: list, pos: torch.Tensor, n_real: torch.Tensor, W: int,

@@ -1,6 +1,7 @@
 """Serving subsystem: cache managers (slot, paged and prefix-sharing),
-scheduler, chunked prefill, the snapshot ring and the engine facade,
-serialized or continuous (counterpart of ``repro.serve``)."""
+scheduler, chunked prefill, the snapshot ring, the draft policies of
+speculative decoding and the engine facade, serialized, speculative or
+continuous (counterpart of ``repro.serve``)."""
 
 from repro_torch.serve.api import Request, RequestHandle, SamplingParams
 from repro_torch.serve.boundary import SnapshotRing, host_copy
@@ -23,6 +24,7 @@ from repro_torch.serve.scheduler import (
     ShortestPromptFirstScheduler,
     make_scheduler,
 )
+from repro_torch.serve.spec import SPEC_POLICIES, DraftModel, DraftPolicy, SelfDraft, make_spec
 from repro_torch.serve.stats import LatencyHistogram
 
 __all__ = [
@@ -32,4 +34,5 @@ __all__ = [
     "make_prefiller", "SnapshotRing",
     "SCHEDULERS", "BestFitScheduler", "FCFSScheduler", "PriorityScheduler", "Scheduler",
     "ShortestPromptFirstScheduler", "make_scheduler",
+    "DraftModel", "DraftPolicy", "SPEC_POLICIES", "SelfDraft", "make_spec",
 ]

@@ -15,8 +15,10 @@ reader leaves, which is what the prefix-sharing backend
 reserved scratch page: unallocated block-table entries point at it. Cache
 tensors are zeroed in place.
 
-Not ported yet: the speculative ``truncate`` verb (the ``truncates`` counter
-stays 0).
+``truncate`` is the speculative-decoding rollback verb: it rewinds a slot's
+write frontier and zeroes the abandoned rows (a paged slot also releases
+the pages its new frontier no longer touches). Every write goes in place
+with host-side indices, so nothing here waits for the card.
 """
 
 from __future__ import annotations
@@ -42,6 +44,13 @@ class CapacityError(ValueError):
 
 def _tree_bytes(caches) -> int:
     return sum(a.numel() * a.element_size() for layer in caches for a in layer.values())
+
+
+def zero_slot(caches: list, slot: int) -> None:
+    """Zero every row of dense-cache slot ``slot``, in place."""
+    for layer in caches:
+        for a in layer.values():
+            a[slot] = 0
 
 
 def _check_s_max(need: int, s_max: int) -> None:
@@ -103,14 +112,28 @@ class SlotCache:
     def advance(self, slot: int, n: int) -> None:
         self.pos[slot] += n
 
+    def truncate(self, slot: int, n: int) -> None:
+        """Rewind the write frontier by ``n`` rows and zero the abandoned
+        rows ``[pos - n, pos)`` of the slot, in place (rejected draft tokens
+        leave no stale K/V). ``n <= 0`` is a no-op."""
+        if n <= 0:
+            return
+        pos = int(self.pos[slot])
+        new_pos = pos - n
+        if new_pos < 0:
+            raise ValueError(f"slot {slot}: cannot truncate {n} rows below position {pos}")
+        for layer in self.caches:
+            for a in layer.values():
+                a[slot, new_pos:pos] = 0
+        self.pos[slot] = new_pos
+        self.truncates += 1
+
     def commit(self, slot: int, prompt) -> None:
         """Prefix-index publication hook; a no-op on this backend."""
 
     def reset_slot(self, slot: int) -> None:
         """Zero the slot's cache rows and rewind its write position."""
-        for layer in self.caches:
-            for a in layer.values():
-                a[slot] = 0
+        zero_slot(self.caches, slot)
         self.pos[slot] = 0
         self.resets += 1
 
@@ -287,6 +310,41 @@ class PagedKVCache:
     def advance(self, slot: int, n: int) -> None:
         self.pos[slot] += n
 
+    def truncate(self, slot: int, n: int) -> None:
+        """Page-aligned rollback: rewind the write frontier by ``n`` rows,
+        release the pages the new frontier no longer touches (a page another
+        reader holds stays resident) and zero the abandoned tail of the last
+        kept page in place. That scrub needs sole ownership: speculative
+        rows never land on a shared page, so a shared last page raises.
+        ``n <= 0`` is a no-op; the reservation is untouched, so the slot
+        re-draws within its admission promise."""
+        if n <= 0:
+            return
+        pos = int(self.pos[slot])
+        new_pos = pos - n
+        if new_pos < 0:
+            raise ValueError(f"slot {slot}: cannot truncate {n} rows below position {pos}")
+        keep = self.pages_for(new_pos)
+        n_alloc = int(self._alloc[slot])
+        if keep < n_alloc:
+            self._release_pages(self.block_tables[slot, keep:n_alloc])
+            self.block_tables[slot, keep:n_alloc] = 0
+            self._alloc[slot] = keep
+        if keep:
+            rem = new_pos - (keep - 1) * self.page_size
+            if rem < self.page_size:
+                page = int(self.block_tables[slot, keep - 1])
+                if self._ref[page] > 1:
+                    raise RuntimeError(
+                        f"truncate would scrub page {page} with {int(self._ref[page])} readers "
+                        f"— speculative rows must never land on shared pages")
+                if page != 0:
+                    for layer in self.caches:
+                        for a in layer.values():
+                            a[page, rem:] = 0
+        self.pos[slot] = new_pos
+        self.truncates += 1
+
     def commit(self, slot: int, prompt) -> None:
         """Prefix-index publication hook; a no-op on this backend."""
 
@@ -303,6 +361,22 @@ class PagedKVCache:
         self.resets += 1
 
     # --- observability ------------------------------------------------------
+
+    def live_pages(self) -> set:
+        """The pages something maps: each slot's block table up to its
+        allocation (the scratch page excluded)."""
+        return {int(p) for s in range(self.n_slots)
+                for p in self.block_tables[s, :int(self._alloc[s])]} - {0}
+
+    def check_conserved(self) -> None:
+        """Raise RuntimeError unless the pool is conserved: free + distinct
+        live pages + the scratch page == n_pages, no page both free and
+        live."""
+        live = self.live_pages()
+        if len(self._free) + len(live) + 1 != self.n_pages or live.intersection(self._free):
+            raise RuntimeError(
+                f"page pool not conserved: {len(self._free)} free, {len(live)} live, "
+                f"{len(live.intersection(self._free))} both, {self.n_pages} pages")
 
     def stats(self) -> dict:
         total = _tree_bytes(self.caches)

@@ -41,12 +41,24 @@ every cache. On the card a mixed step reduces its norms and attention over
 other shapes than the serialized steps, so a stream may part from the
 serialized one where two logits tie.
 
+``spec=`` (``"self4"``, ``"draft"`` or a :class:`~repro_torch.serve.spec.
+DraftPolicy`; serialized mode only) is SPECULATIVE decoding: each step is a
+round (``_spec_round``) of ``spec_k`` chained draft steps (``decode_step``
+unfused, each sampled at the lane's counter + j) and one
+``models.model.spec_verify_step`` of the target over the k+1 window; the
+longest agreeing prefix and the target's token at the first mismatch are
+emitted, and the rejected rows roll back through the cache's ``truncate``.
+The drafts stay on the device: drafts and targets come back to the host
+together, in one copy a round, the round's one host sync. The streams are
+those of the serialized engine that reads the cache unfused, on the card
+too: the verify runs its softmax one query row at a time, as a decode step
+does.
+
 The cache is ``"slot"``, ``"paged"`` or ``"prefix"`` (prefix sharing: the
 admission verbs get the prompt, prefill skips the matched rows and
 ``commit`` publishes the prompt's pages). The engine runs on CUDA unless
 the caller passes ``device="cpu"``; ``device=None`` means CUDA and raises
-where CUDA is absent. Not ported yet: speculative decoding (``spec``) and
-tracing (``trace``).
+where CUDA is absent. Not ported yet: tracing (``trace``).
 """
 
 from __future__ import annotations
@@ -79,6 +91,7 @@ from repro_torch.serve.boundary import SnapshotRing, host_copy
 from repro_torch.serve.cache import PagedKVCache, SlotCache, make_cache
 from repro_torch.serve.prefill import ChunkedPrefill, PrefillCursor, make_prefiller
 from repro_torch.serve.scheduler import Scheduler, make_scheduler
+from repro_torch.serve.spec import OUT_OF_RANGE, DraftPolicy, make_spec
 from repro_torch.serve.stats import LatencyHistogram
 
 
@@ -140,9 +153,8 @@ class ServeEngine:
                  page_size: Optional[int] = None, n_pages: Optional[int] = None,
                  fused_attn: Optional[bool] = None, mixed: bool = False,
                  mixed_budget: Optional[int] = None, inflight: int = 2,
-                 spec=None, trace=None, device=None):
-        if spec is not None:
-            raise NotImplementedError("speculative decoding is not ported yet")
+                 spec: Union[str, DraftPolicy, None] = None, spec_k: int = 4, trace=None,
+                 device=None):
         if trace is not None:
             raise NotImplementedError("tracing is not ported yet")
         self.device = resolve_device(device)
@@ -209,11 +221,26 @@ class ServeEngine:
         self._h_ttft_queue = LatencyHistogram()
         self._h_ttft_prefill = LatencyHistogram()
         self._h_tpot = LatencyHistogram()
-        self._h_spec_len = LatencyHistogram()
         self._serve_seconds = 0.0
         self._run_t0: Optional[float] = None
         self._next_rid = 0
         self._closed = False
+        # --- speculative decoding (serve/spec.py) --------------------------
+        self.spec = make_spec(spec)
+        self.spec_k = int(spec_k)
+        self._spec_rounds = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._h_spec_len = LatencyHistogram()
+        if self.spec is not None:
+            if self.mixed:
+                raise ValueError(
+                    "spec and mixed are mutually exclusive: acceptance makes the tokens a "
+                    "step retires dynamic (1..k+1), which ahead-of-time dispatch cannot "
+                    "express — its in-flight steps pre-commit counters and chain inputs")
+            if self.spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            self.spec.build(self)
 
     # --- request lifecycle: submission --------------------------------------
 
@@ -314,6 +341,8 @@ class ServeEngine:
         self._spec_remaining[slot] = 0
         self._progress += 1
         self.cache.release(slot)
+        if self.spec is not None:
+            self.spec.on_release(slot, self)
         if status == CANCELLED:
             self._cancelled += 1
         else:
@@ -392,6 +421,10 @@ class ServeEngine:
                 continue
             logits = self.prefiller.prefill(self.cache, slot, req.prompt, rid=req.rid)
             self.cache.commit(slot, req.prompt)
+            if self.spec is not None:
+                # the draft's own admission (DraftModel enters the prompt in
+                # its cache), before the first emit so round one can draft
+                self.spec.on_admit(slot, req.prompt, self)
             first = M.sample_tokens(logits[:, -1], [p.temperature], [p.top_k], [p.top_p],
                                     [p.seed], [0])
             self._emit(slot, int(first.cpu()[0]))
@@ -559,6 +592,10 @@ class ServeEngine:
                 self._admit()
                 if not self._dispatch() and self._tickets:
                     self._retire_one()
+            elif self.spec is not None:
+                self._admit()
+                if self._active():
+                    self._spec_round()
             else:
                 self._admit()
                 if self._active():
@@ -586,6 +623,108 @@ class ServeEngine:
             self.cache.advance(s, 1)
             self._emit(s, int(nxt[s]))
             self._progress += 1
+
+    # --- speculative decoding: the round ------------------------------------
+
+    def _draft(self, tok0: torch.Tensor, pos: np.ndarray) -> torch.Tensor:
+        """``spec_k`` chained draft steps from ``tok0`` ((B, 1) on the device)
+        at ``pos`` (OUT_OF_RANGE for lanes that take no part): step j writes
+        row pos + j (the target's cache, or the draft's own) and samples at
+        counter + j, the cell the verify scores offset j at, so a draft whose
+        logits match the target's is always accepted. Unfused, as the
+        verify reads. Returns the drafts (B, k) int32, on the device."""
+        sp, dev = self.spec, self.device
+        shared = sp.shares_cache
+        caches = self.cache.caches if shared else sp.caches
+        bt = host_copy(self.cache.block_tables, dev) if shared and self.cache.paged else None
+        pos = host_copy(pos, dev)
+        tok, drafts = tok0, []
+        for j in range(self.spec_k):
+            logits = M.decode_step(sp.params, tok, pos + j, caches, sp.cfg, sp.policy,
+                                   impl=self.impl, block_tables=bt, fused_attn=False)
+            nxt = M.sample_tokens(logits[:, -1], self._temps, self._top_ks, self._top_ps,
+                                  self._seeds, self._counters + j)
+            drafts.append(nxt)
+            tok = nxt[:, None]
+        return torch.stack(drafts, dim=1)
+
+    def _spec_round(self) -> None:
+        """One speculation round over every active slot (serialized mode).
+
+        A slot with at least k+1 tokens of budget left takes part: the draft
+        proposes k tokens, the target scores all k+1 positions in one
+        ``spec_verify_step``, and the longest prefix where draft and target
+        agree is accepted on the host; it and the target's token at the
+        first mismatch are emitted together (1..k+1 tokens a round). A slot
+        nearer its budget rides the verify as a plain decode lane
+        (``n_real`` 1). Rejected rows roll back through ``truncate``. Drafts
+        and targets come back in one copy, the round's one host sync."""
+        k = self.spec_k
+        W = k + 1
+        t0 = time.perf_counter()
+        dev = self.device
+        toks = np.zeros((self.n_slots, W), np.int32)
+        n_real = np.zeros(self.n_slots, np.int32)
+        participants: list[int] = []
+        active: list[int] = []
+        for s, r in enumerate(self.slot_req):
+            if r is None:
+                continue
+            active.append(s)
+            toks[s, 0] = r.out[-1]
+            if self.slot_remaining[s] >= W:
+                participants.append(s)
+                n_real[s] = W
+                self.cache.prepare(s, W)  # paged: draw the whole window
+            else:
+                n_real[s] = 1
+                self.cache.prepare(s, 1)
+        if participants:
+            src = self.cache.pos if self.spec.shares_cache else self.spec.pos
+            dpos = np.full(self.n_slots, OUT_OF_RANGE, np.int32)
+            dpos[participants] = src[participants]
+            tok0 = host_copy(toks[:, :1], dev)
+            window = torch.cat([tok0, self._draft(tok0, dpos)], dim=1)
+        else:
+            window = host_copy(toks, dev)
+        paged = self.cache.paged
+        targets = M.spec_verify_step(
+            self.params, window, host_copy(self.cache.pos, dev), host_copy(n_real, dev),
+            self._temps, self._top_ks, self._top_ps, self._seeds, self._counters,
+            self.cache.caches, self.cfg, self.policy, impl=self.impl,
+            block_tables=host_copy(self.cache.block_tables, dev) if paged else None,
+            page_size=self.cache.page_size if paged else None)
+        # the round's one host sync: window (its drafts) and targets together
+        both = torch.cat([window, targets], dim=1).cpu().numpy()
+        drafts, targets = both[:, 1:W], both[:, W:]
+        self._decode_steps += 1
+        self._spec_rounds += 1
+        for s in active:
+            r = self.slot_req[s]
+            if n_real[s] == W:
+                dr, tg = drafts[s], targets[s]
+                m = 0
+                while m < k and dr[m] == tg[m]:
+                    m += 1
+                # cache bookkeeping BEFORE emitting: _emit may release the
+                # slot (budget, stop, a cancelling callback), which resets
+                # its position wholesale
+                self.cache.advance(s, W)
+                self.cache.truncate(s, k - m)
+                if not self.spec.shares_cache:
+                    self.spec.pos[s] = int(self.cache.pos[s])
+                self._spec_proposed += k
+                self._spec_accepted += m
+                self._h_spec_len.observe(m + 1)
+                for j in range(m + 1):
+                    self._emit(s, int(tg[j]))
+                    if self.slot_req[s] is not r or r.status != ACTIVE:
+                        break  # released mid-round: drop the tail
+            else:
+                self.cache.advance(s, 1)
+                self._emit(s, int(targets[s, 0]))
+            self._progress += 1
+        self.monitor.observe(time.perf_counter() - t0)
 
     def drain(self) -> None:
         """Step until no queued, active or in-flight work remains; raises
@@ -622,8 +761,10 @@ class ServeEngine:
     # --- observability ------------------------------------------------------
 
     def metrics(self) -> dict:
-        """Serving metrics snapshot, with the reference's key names (the
-        speculative keys report their off values)."""
+        """Serving metrics snapshot, with the reference's key names; the
+        ``spec/`` keys count speculation rounds, proposed and accepted draft
+        tokens and the accepted length a round (their off values without
+        ``spec``)."""
         elapsed = self._serve_seconds
         if self._run_t0 is not None:
             elapsed += time.perf_counter() - self._run_t0
@@ -643,13 +784,14 @@ class ServeEngine:
             "inflight_depth": self.inflight_depth if self.mixed else 0,
             "inflight": len(self._tickets),
             "fused_attn": self.fused_attn,
-            "spec/enabled": False,
-            "spec/policy": "off",
-            "spec/k": 0,
-            "spec/rounds": 0,
-            "spec/proposed": 0,
-            "spec/accepted": 0,
-            "spec/acceptance_rate": 0.0,
+            "spec/enabled": self.spec is not None,
+            "spec/policy": self.spec.name if self.spec is not None else "off",
+            "spec/k": self.spec_k if self.spec is not None else 0,
+            "spec/rounds": self._spec_rounds,
+            "spec/proposed": self._spec_proposed,
+            "spec/accepted": self._spec_accepted,
+            "spec/acceptance_rate": (self._spec_accepted / self._spec_proposed
+                                     if self._spec_proposed else 0.0),
             **self._h_spec_len.summary("spec/accepted_len"),
             "prefill_mode": self.prefiller.name,
             "prefill_chunk": self.prefiller.chunk,

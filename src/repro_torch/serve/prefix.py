@@ -321,6 +321,16 @@ class PrefixCache(PagedKVCache):
         _, counts = np.unique(pages, return_counts=True)
         return int((counts >= 2).sum())
 
+    def live_pages(self) -> set:
+        """The block tables' pages and the pages the radix index pins."""
+        live = super().live_pages()
+        todo = [self._root]
+        while todo:
+            for ch in todo.pop().children.values():
+                live.add(ch.page)
+                todo.append(ch)
+        return live
+
     def index_pages(self) -> int:
         """Pages pinned by the radix index (one per trie node)."""
         def walk(node):

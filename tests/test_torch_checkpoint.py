@@ -34,6 +34,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import one_torch_thread  # noqa: E402, F401
+
 from repro import configs  # noqa: E402
 from repro.checkpoint import store as RS  # noqa: E402
 from repro.core.linear import convert_model_to_serving as rconvert  # noqa: E402

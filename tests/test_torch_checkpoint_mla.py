@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import one_torch_thread  # noqa: E402, F401
+
 from test_torch_checkpoint import (  # noqa: E402
     ARCHS,
     _numpy,

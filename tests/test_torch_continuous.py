@@ -21,6 +21,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import one_torch_thread  # noqa: E402, F401
+
 from _hypothesis_compat import given, settings, st  # noqa: E402
 from repro import configs  # noqa: E402
 from repro.core.policy import get_policy  # noqa: E402

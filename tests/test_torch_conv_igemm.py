@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import one_torch_thread  # noqa: E402, F401
+
 from repro.core import pack as RP  # noqa: E402
 from repro.core import quant as RQ  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402

@@ -1538,6 +1538,46 @@ def test_continuous_engine_dispatches_without_host_sync(dev):
         assert depth and max(depth) <= 2 and eng.metrics()["inflight"] == 0
 
 
+def test_spec_engine_on_cuda_holds_to_unfused_and_syncs_once_a_round(dev):
+    """Speculative decoding on the card (reduced internlm2-1.8b, self4 under
+    w4a8 and mixed_paper's lossy self-draft, paged, ``spec_k=3``): the
+    greedy streams equal the non-speculative unfused engine's on the card
+    (the verify's softmax runs one query row at a time, as a decode step's,
+    so its rows have the same bits). Each round makes at most one host sync
+    (drafts and targets come back in one copy); the drafts and the verify
+    read the cache unfused (paged_gather, no paged_attn)."""
+    from repro_torch.serve.boundary import counting_syncs
+
+    cfg = configs.reduced(configs.get_arch("internlm2-1.8b"))
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=n).astype(np.int32) for n in (3, 9, 5, 2, 7)]
+
+    def reqs():
+        return [Request(rid=i, prompt=pr, max_new=8) for i, pr in enumerate(prompts)]
+
+    for name in ("w4a8", "mixed_paper"):
+        policy = get_policy(name)
+        params = _to(M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu"),
+                     dev)
+        kw = dict(n_slots=2, s_max=32, prefill_chunk=4, cache="paged", page_size=4, device=dev)
+        want = ServeEngine(params, cfg, policy, fused_attn=False, **kw).run(reqs())
+        eng = ServeEngine(params, cfg, policy, spec="self4", spec_k=3, **kw)
+        syncs, spec_round = [], eng._spec_round
+
+        def counted_round(spec_round=spec_round, syncs=syncs):
+            with counting_syncs() as got:
+                spec_round()
+            syncs.append(got)
+
+        eng._spec_round = counted_round
+        build.reset_launches()
+        assert eng.run(reqs()) == want, name
+        assert syncs and all(len(s) <= 1 for s in syncs), syncs
+        m = eng.metrics()
+        assert m["spec/rounds"] == len(syncs) and m["spec/accepted"] > 0
+        assert build.LAUNCHES["paged_attn"] == 0 and build.LAUNCHES["paged_gather"] > 0
+
+
 def test_checkpoint_round_trip_lands_on_cuda(dev, tmp_path):
     """``checkpoint.store.load(..., device=None)`` puts every leaf on the
     card, bit-equal to the params saved (reduced internlm2-1.8b, w4a8, serve

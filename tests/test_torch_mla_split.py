@@ -34,6 +34,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import one_torch_thread  # noqa: E402, F401
+
 from repro.kernels.paged_attn import paged_mla_attn_ref as jax_mla_ref  # noqa: E402
 from repro.models import attention as RA  # noqa: E402
 from repro_torch import bridge  # noqa: E402

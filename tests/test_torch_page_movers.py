@@ -26,6 +26,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import one_torch_thread  # noqa: E402, F401
+
 from repro.kernels import paged_gather as RPG  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch import configs  # noqa: E402

@@ -22,6 +22,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import one_torch_thread  # noqa: E402, F401
+
 from repro.kernels.qkv_decode import qkv_decode_pallas  # noqa: E402
 from repro.kernels.qkv_decode import qkv_decode_ref as rqkv_decode_ref  # noqa: E402
 from repro.models.attention import kv_quantize as rkv_quantize  # noqa: E402

@@ -24,6 +24,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import one_torch_thread  # noqa: E402, F401
+
 from repro.kernels.qkv_decode import qkv_decode_pallas  # noqa: E402
 from repro.models.attention import kv_quantize as rkv_quantize  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402

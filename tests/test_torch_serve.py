@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import one_torch_thread  # noqa: E402, F401
+
 from repro import configs  # noqa: E402
 from repro.core.policy import get_policy  # noqa: E402
 from repro.models import model as RM  # noqa: E402
@@ -155,11 +157,16 @@ def test_engine_without_device_needs_cuda(params):
 def test_unported_modes_raise(params):
     tp = params[1]
     kw = dict(n_slots=1, s_max=16, device="cpu")
-    for extra in (dict(spec="self"), dict(trace=object()), dict(prefill="stepwise")):
+    for extra in (dict(trace=object()), dict(prefill="stepwise")):
         with pytest.raises(NotImplementedError):
             ServeEngine(tp, TTINY, TPOLICY, **kw, **extra)
-    # continuous batching is ported (tests/test_torch_continuous.py)
+    # continuous batching and speculative decoding are ported
+    # (tests/test_torch_continuous.py, tests/test_torch_spec*.py); an
+    # unknown draft policy is refused as the reference refuses it
     assert ServeEngine(tp, TTINY, TPOLICY, mixed=True, **kw).metrics()["mode"] == "continuous"
+    assert ServeEngine(tp, TTINY, TPOLICY, spec="self4", **kw).metrics()["spec/enabled"]
+    with pytest.raises(KeyError, match="unknown draft policy"):
+        ServeEngine(tp, TTINY, TPOLICY, spec="self", **kw)
 
 
 def test_paged_cache_reserves_and_conserves_pages():

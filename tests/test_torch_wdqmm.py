@@ -37,6 +37,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import one_torch_thread  # noqa: E402, F401
+
 from repro.core import linear as RL  # noqa: E402
 from repro.core import pack as RP  # noqa: E402
 from repro.core.policy import BF16 as RBF16  # noqa: E402

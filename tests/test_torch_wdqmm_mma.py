@@ -32,6 +32,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tests._torch_threads import one_torch_thread  # noqa: E402, F401
+
 from repro_torch import configs  # noqa: E402
 from repro_torch.core import pack as P  # noqa: E402
 from repro_torch.kernels.ref import wdqmm_ref  # noqa: E402
