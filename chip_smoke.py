@@ -41,12 +41,15 @@ Phases, in order (any failure ends the run with a nonzero exit):
   5. the unfused paged read: the serving path again with
      ``fused_attn=False``, slot then paged cache; the two streams must be
      identical, paged_gather and paged_scatter must have launched once a
-     layer and decode step of the paged run (agreement with the fused
-     streams is printed, not gated: the softmax sums in another order);
+     layer and decode step of the paged run, rowinv_bmm (the unfused read's
+     q . k and p . v) twice a layer a decode step or prefill chunk of both
+     runs (agreement with the fused streams is printed, not gated: the
+     softmax sums in another order);
   6. a teacher-forced decode step at full width, kernel path against plain
      path from the same cache (largest logit difference, argmax agreement);
   7. each kernel's time beside its bound and its plain version's time (per
-     decode step for the serving kernels; per call at the paper's shape for
+     decode step for the serving kernels, rowinv_bmm per unfused decode step
+     beside ``torch.bmm`` over its operands laid out ahead of time; per call at the paper's shape for
      conv2d, also at 224 x 224, beside ``F.conv2d`` in f32 over the codes
      unpacked ahead of time (TF32 allowed; whether it is exact is printed),
      and qntpack at the Tab. 1 shape and at the 224 x 224 Reference
@@ -189,24 +192,22 @@ Phases, in order (any failure ends the run with a nonzero exit):
      mixed=True, mixed_budget=MIXED_BUDGET (16), inflight=INFLIGHT (2))``,
      4 slots, s_max 1024, pages of 16. A mixed step reads the cache
      unfused, so the continuous runs whose streams are held read it
-     unfused in every step and are held to serialized runs that read it
-     unfused too: phase 3's four greedy requests on slot and paged against
-     phase 5's runs, phase 9's five on prefix and phase 13's sampled four on
-     paged (CUT_LAYERS layers) against serialized runs made here, DeepSeek-V3's three MLA
-     layers on phase 3's four (paged) against phase 8's unfused paged run
-     (those serialized runs keep each draw's logits row). Held
-     (``held_to_serial``): each stream equals the serialized one, or, where
-     a greedy stream first parts, the serialized engine's logits of the two
-     tokens drawn there lie within one bf16 step at the row's largest
-     |logit| (a tie), and the rest of the continuous stream is held the same
-     way to a serialized run fed the prompt and the continuous tokens up to
-     the parting (a replay); a sampled stream must be equal. The witness
-     for such ties (``mixed_witness``): from one full-width serving state,
-     one unfused decode step and one mixed step of the same four decode
-     lanes; for DeepSeek-V3 the two are bit-equal on the CPU (gated), and
-     printed are how far they part on the card and from the CPU, and which
-     of the unfused read's einsums (and an RMS norm) give one query row
-     other bits alone than among 16. One more continuous run each, fused
+     unfused in every step and each of their streams must equal
+     (``held_equal``) the stream of a serialized run that reads it unfused
+     too: phase 3's four greedy requests on slot and paged against phase
+     5's runs, phase 9's five on prefix and phase 13's sampled four on paged
+     (both at CUT_LAYERS layers) against serialized runs made here,
+     DeepSeek-V3's three MLA layers on phase 3's four (paged) against phase
+     8's unfused paged run. On the card the unfused read's f32 products run
+     through the row-invariant rowinv_bmm kernel, so a query row has the
+     same bits in a decode step (S = 1) as among a mixed step's rows. The
+     witness (``mixed_witness``): from one full-width serving state, one
+     unfused decode step and one mixed step of the same four decode lanes,
+     their logits bit-equal on the card (gated, internlm2 and DeepSeek-V3)
+     and, for DeepSeek-V3, on the CPU (gated; the card's against the CPU's
+     printed); each of the unfused read's products (two GQA, five MLA) for
+     one query row alone and among 16 through rowinv_bmm bit-equal (gated),
+     what ``torch.einsum`` gives there and an RMS norm printed. One more continuous run each, fused
      (pure-decode steps through paged_attn / paged_mla_attn), on phase 3's
      requests on paged: launches and syncs gated, streams printed against
      the fused serialized ones (a mix of unfused mixed and fused
@@ -218,8 +219,9 @@ Phases, in order (any failure ends the run with a nonzero exit):
      (``serve.boundary.counting_syncs``, with a control: a window around one
      ``.item()`` must count one); mpmm launches 169 times a step,
      paged_scatter once a layer a step, paged_gather once a layer a mixed
-     step (a step, unfused), paged_attn / paged_mla_attn once a layer a
-     pure-decode step when fused, paged_copy once a COW clone. Printed: each
+     step (a step, unfused), rowinv_bmm twice (GQA) or five times (MLA) a
+     layer a mixed step (a step, unfused), paged_attn / paged_mla_attn once
+     a layer a pure-decode step when fused, paged_copy once a COW clone. Printed: each
      engine's step EMA, TPOT and TTFT p50 and tokens/s, the syncs of one
      retire beside its event wait, the device-idle share of 8 profiled
      fused paged steps of each engine (serialized decode steps, continuous
@@ -249,9 +251,10 @@ Phases, in order (any failure ends the run with a nonzero exit):
      w4a8 kv8 weights; its DeepSeek-V3 run right after phase 14's MLA run):
      ``ServeEngine(..., spec=..., spec_k=SPEC_K (4))``, 4 slots, s_max 1024,
      pages of 16. A round drafts SPEC_K tokens (chained unfused decode
-     steps) and verifies the k+1 positions in one ``spec_verify_step``;
-     both read the cache unfused, so every run is held (``held_to_serial``)
-     to a serialized unfused run: self4 at full depth on slot and paged
+     steps) and verifies the k+1 positions in one ``spec_verify_step`` (its
+     attention over all k+1 rows in one call a product, through
+     rowinv_bmm); both read the cache unfused, so every run's streams must
+     equal (``held_equal``) a serialized unfused run's: self4 at full depth on slot and paged
      (phase 3's four, against phase 5's runs); ``mixed_paper`` at CUT_LAYERS,
      self4 on paged and on prefix (phase 9's five), against serialized runs
      made here (truncates > 0, the page pool conserved after every step);
@@ -264,13 +267,37 @@ Phases, in order (any failure ends the run with a nonzero exit):
      (``serve.boundary.counting_syncs``, with its ``.item()`` control);
      each draft step and each verify launches mpmm 7 L + 1 times (169 at
      full depth; a DraftModel step its own model's count), paged_scatter
-     and paged_gather once a layer on a paged cache; paged_attn and
-     paged_mla_attn never. Printed: acceptance, mean accepted length,
+     and paged_gather once a layer on a paged cache, rowinv_bmm twice (GQA)
+     or five times (MLA) a layer; paged_attn and paged_mla_attn never. Printed: acceptance, mean accepted length,
      truncates, step EMA, TPOT / TTFT p50 and tokens/s beside the
      serialized fused and unfused runs, the device ms of one round's draft
      steps and of its verify, mpmm per verify (169 calls at M = 20) beside
      its bound, its plain version and ``torch._int_mm``, the phase's
      seconds and the card.
+ 17. the dense variants (run last, after phase 8's MLA path, on weights of
+     their own, norms and biases redrawn from a seed): h2o-danube-1.8b at
+     published widths and full depth (24 layers, 32 / 8 heads of 80, window
+     4096), w4a8 with kv8: phase 3's four requests on slot and paged, fused
+     (streams equal; mpmm at least seven times a layer a decode step,
+     paged_attn once a layer a decode step, paged_scatter once a layer a
+     decode step of the paged run), then unfused (streams equal;
+     paged_gather once a layer a decode step, rowinv_bmm twice a layer a
+     step or prefill chunk); fused against unfused printed, not gated. One
+     whole-prompt ``prefill_step`` of phase 11's four prompts (flash_mha at
+     D 80, once a layer) and ``qkv_decode`` at D 80 on that dense cache
+     (once a layer, within ``row_tol`` of its plain version); flash_mha's
+     time per prefill_step and qkv_decode's per call at danube's heads (the
+     kernels line's D 80 rows). qwen1.5-4b (q / k / v biases, vocab 152064
+     padded) and stablelm-3b (LayerNorm, vocab 50432 padded) at published
+     widths cut to CUT_LAYERS: slot and paged, fused, streams equal. Every
+     run prints its step EMA, TPOT / TTFT p50, tokens/s and peak memory;
+     the phase its seconds and the card. Phase 2 holds flash_mha and
+     qkv_decode at D 80 (kv8 and kv4) within ATTN_TOL of their plain
+     versions and twice bit-identical, paged_attn (kv8, kv4, bf16) and
+     flash_mha at the window of 4096 over WINDOW_KEYS (4608) keys, and the
+     page movers on danube's D 80 leaves at kv8 and kv4; and rowinv_bmm at
+     the seven products' serving shapes with 1, 5, 16 and 64 query rows
+     (the first row bit-identical, within 1e-5 * (1 + max |einsum|)).
 
 Phases 3, 4, 5, 8, 9, 10, 11, 12, 13 and 15 each start with every launch count
 at 0 (phase 8 once for its fused runs, once for its unfused runs, once for
@@ -282,12 +309,14 @@ from disk and once for its train-to-serve runs) and read the counts at
 their end;
 the kernels line gives each kernel the count of its own path (paged_copy:
 phase 9's prefix run; wdqmm: phase 10's slot and paged runs; flash_mha:
-phase 11's prefill_step; qkv_decode: phase 12). Each of phase 14's
+phase 11's prefill_step; qkv_decode: phase 12; rowinv_bmm: phase 5's
+unfused runs, whose count is gated; the D 80 rows of flash_mha and
+qkv_decode: phase 17's prefill_step and qkv_decode calls). Each of phase 14's
 continuous runs starts at 0 too, and so does each of phase 16's two
 full-depth runs. mpmm has four rows, told apart by their "at": per decode
 step (phase 3's launches), per prefill_step (phase 11's prefill_step
-launches), per mixed step (the launches of phase 14's four greedy internlm2
-runs) and per verify step (the launches of phase 16's two full-depth
+launches), per mixed step (the launches of phase 14's three full-depth greedy
+internlm2 runs) and per verify step (the launches of phase 16's two full-depth
 runs).
 
 The line before the last is the kernels JSON, the last line the result
@@ -321,6 +350,12 @@ ATTN_TOL = 1e-5
 #: the MLA path: DeepSeek-V3 at its published widths, cut to its three dense
 #: (MLA) layers; every deeper layer carries the experts the port lacks
 MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 3
+#: phase 17: the dense variants. h2o-danube-1.8b at full depth (head dim 80,
+#: a sliding window of 4096), qwen1.5-4b and stablelm-3b at CUT_LAYERS
+D80_ARCH = "h2o-danube-1.8b"
+VARIANTS = ("h2o-danube-1.8b", "qwen1.5-4b", "stablelm-3b")
+#: phase 2: danube's window exercised over more keys than it covers
+WINDOW_KEYS = 4608
 #: decode steps per timing window over distinct latent pools (8 x 3 pools of
 #: 2.7 MB exceed the card's 50 MB L2), so each call finds its pages cold
 COLD_STEPS = 8
@@ -353,12 +388,6 @@ SPEC_K = 4
 #: phase 16's DraftModel run: its two prompts' lengths (the draft enters a
 #: prompt one token a step; off the page grid, so rounds cross page ends)
 DRAFT_PROMPTS = (40, 56)
-#: phase 14: where a greedy continuous stream parts from the serialized one
-#: of the same attention, the serialized engine's logits of the two tokens
-#: drawn there lie within this many bf16 steps at the row's largest |logit|:
-#: a tie that the two engines, summing in other orders, break apart (the
-#: witness: ``mixed_witness``)
-TIE_STEPS = 1
 #: the depth (at full width) of the runs that are held only to another run
 #: of the same model: phase 10's weight-only prefix run against its cold
 #: paged run, phase 13's serving runs against its own greedy run (and
@@ -650,6 +679,36 @@ def check_paged_attn(torch, dev, cfg, report):
         if err > ATTN_TOL * (1 + float(b.abs().max())):
             raise AssertionError(f"paged_attn dense view bits={bits}: err {err}")
         worst = max(worst, err)
+    # h2o-danube-1.8b (32 / 8 heads of 80) at its published window over more
+    # keys than it covers: slots at the last of WINDOW_KEYS rows, past the
+    # window's first slide and at its edge
+    from repro_torch import configs
+
+    dcfg = configs.get_arch(D80_ARCH)
+    nb = WINDOW_KEYS // PAGE_SIZE
+    P_ = 3 * nb + 1
+    for bits in (8, 4, None):
+        k, ks = make_pool(torch, g, dev, P_, PAGE_SIZE, dcfg.kv_heads, dcfg.head_dim, bits)
+        v, vs = make_pool(torch, g, dev, P_, PAGE_SIZE, dcfg.kv_heads, dcfg.head_dim, bits)
+        q = torch.randn((3, dcfg.n_heads, dcfg.head_dim), generator=g, device=dev)
+        bt = (torch.randperm(P_ - 1, generator=g, device=dev)[: 3 * nb] + 1).reshape(3, nb)
+        bt = bt.to(torch.int32).contiguous()
+        pos = torch.tensor([WINDOW_KEYS - 1, dcfg.window + 4, dcfg.window - 1],
+                           dtype=torch.int32, device=dev)
+        kw = dict(bits=bits, block_table=bt, window=dcfg.window)
+        a = ops.paged_attn(q, k, ks, v, vs, pos, impl="cuda", **kw)
+        again = ops.paged_attn(q, k, ks, v, vs, pos, impl="cuda", **kw)
+        b = ops.paged_attn(q, k, ks, v, vs, pos, impl="torch", **kw)
+        torch.cuda.synchronize()
+        err = float((a - b).abs().max())
+        name = (f"paged_attn {D80_ARCH} D={dcfg.head_dim} bits={bits} window={dcfg.window} over "
+                f"{WINDOW_KEYS} keys, pos {pos.tolist()}")
+        if not torch.equal(a, again):
+            raise AssertionError(f"{name}: two calls differ")
+        if not torch.isfinite(a).all() or err > ATTN_TOL * (1 + float(b.abs().max())):
+            raise AssertionError(f"{name}: err {err}")
+        log(f"{name}: max |kernel - plain| = {err:.3e}, twice bit-identical")
+        worst = max(worst, err)
     report["paged_attn"] = {"max_abs_err": worst, "tol": ATTN_TOL}
     log("paged_attn: each call twice bit-identical; each slot's output the same alone, in the "
         "batch and beside other positions")
@@ -765,15 +824,21 @@ def leaf_sets(torch, g, dev, cfg, mcfg, P_):
     """The leaf sets a layer's cache write and unfused read move as one
     group, as the model lays them out, (P_, PAGE_SIZE, ...) pools filled with
     seeded values: internlm2's K/V leaves and DeepSeek-V3's latent leaves at
-    kv8, kv4 and on the bf16 cell."""
+    kv8, kv4 and on the bf16 cell, h2o-danube-1.8b's (head dim 80: 640-byte
+    K / V rows at kv8, 320 at kv4) at kv8 and kv4."""
+    from repro_torch import configs
     from repro_torch.models import attention as A
 
+    dcfg = configs.get_arch(D80_ARCH)
     out = {}
     for bits in (8, 4, None):
         tag = "bf16" if bits is None else f"kv{bits}"
         out[f"internlm2 {tag}"] = A.cache_init(P_, PAGE_SIZE, cfg.kv_heads, cfg.head_dim, bits,
                                                dev)
         out[f"DeepSeek-V3 {tag}"] = A.mla_cache_init(P_, PAGE_SIZE, mcfg.mla_cfg, bits, dev)
+        if bits is not None:
+            out[f"{D80_ARCH} {tag}"] = A.cache_init(P_, PAGE_SIZE, dcfg.kv_heads, dcfg.head_dim,
+                                                    bits, dev)
     return {k: [seeded(torch, g, a) for a in v.values()] for k, v in out.items()}
 
 
@@ -843,7 +908,8 @@ def check_paged_scatter(torch, dev, cfg, mcfg, report):
                                      f"pos={pos.tolist()}")
     report["paged_scatter"] = {"max_abs_err": 0.0}
     log("paged_scatter: bit-exact on int8 / f32 / bf16 leaves, and one launch a group on the "
-        "internlm2 and DeepSeek-V3 leaf sets at kv8 / kv4 / bf16 (scratch page excluded), "
+        "internlm2 and DeepSeek-V3 leaf sets at kv8 / kv4 / bf16 and h2o-danube-1.8b's (D 80) "
+        "at kv8 / kv4 (scratch page excluded), "
         f"S_new {', '.join(map(str, widths))} at per-slot positions "
         f"{' and '.join(str(p.tolist()) for p in positions)}")
 
@@ -1004,22 +1070,29 @@ def check_paged_gather(torch, dev, cfg, mcfg, report):
     report["paged_gather"] = {"max_abs_err": 0.0}
     log("paged_gather: bit-exact on int8 / packed int4 / bf16 / f32-scale leaves and 15-byte "
         "pages, and one launch a group on the internlm2 and DeepSeek-V3 leaf sets at kv8 / kv4 "
-        "/ bf16; ids past the pool and negative ids included")
+        "/ bf16 and h2o-danube-1.8b's (D 80) at kv8 / kv4; ids past the pool and negative ids "
+        "included")
 
 
 def clone_sets(torch, g, dev, cfg, mcfg, P_):
     """The leaf sets a COW clone moves as one group, as the prefix cache
     passes them (every leaf of every layer, (P_, PAGE_SIZE, ...) pools
     filled with seeded values): internlm2 at full depth and DeepSeek-V3 cut
-    to its MLA_LAYERS dense layers, at kv8, kv4 and on the bf16 cell."""
+    to its MLA_LAYERS dense layers, at kv8, kv4 and on the bf16 cell;
+    h2o-danube-1.8b at full depth (head dim 80) at kv8 and kv4."""
+    from repro_torch import configs
     from repro_torch.models import attention as A
 
+    dcfg = configs.get_arch(D80_ARCH)
     out = {}
     for bits in (8, 4, None):
         tag = "bf16" if bits is None else f"kv{bits}"
-        out[f"internlm2 {tag}"] = [
-            a for _ in range(cfg.n_layers)
-            for a in A.cache_init(P_, PAGE_SIZE, cfg.kv_heads, cfg.head_dim, bits, dev).values()]
+        for name, c in (("internlm2", cfg), (D80_ARCH, dcfg)):
+            if bits is None and c is dcfg:
+                continue
+            out[f"{name} {tag}"] = [
+                a for _ in range(c.n_layers)
+                for a in A.cache_init(P_, PAGE_SIZE, c.kv_heads, c.head_dim, bits, dev).values()]
         out[f"DeepSeek-V3 {tag}"] = [
             a for _ in range(MLA_LAYERS)
             for a in A.mla_cache_init(P_, PAGE_SIZE, mcfg.mla_cfg, bits, dev).values()]
@@ -1125,10 +1198,13 @@ def check_flash_mha(torch, dev, cfg, report):
     ~14), a ragged Sq != Sk, operands read through (B, H, S, D) strides, a
     window whose last row sees one key (Sq = Sk + window - 1), and bf16
     operands 4 bytes past a 16-byte boundary (the 4-byte staging path; also
-    bit-identical to the 16-byte path on the same values). Both refuse a
-    window that leaves a row with no key (Sq 300, Sk 100, window 50). The
+    bit-identical to the 16-byte path on the same values); then
+    h2o-danube-1.8b's heads (D 80) in bf16 and f32, strided, on the 4-byte
+    path and at its window of 4096 over one sequence of WINDOW_KEYS. Both
+    refuse a window that leaves a row with no key (Sq 300, Sk 100, window 50). The
     bf16 kernel's SASS must hold tensor-core (HMMA) instructions, the f32
     kernel's none."""
+    from repro_torch import configs
     from repro_torch.kernels import build, ops
 
     g = torch.Generator(device=dev).manual_seed(SEED + 12)
@@ -1149,6 +1225,17 @@ def check_flash_mha(torch, dev, cfg, report):
               ((N_SLOTS, 512, 512, Hq, Hkv, D, bf16, "bshd"), True, None, model),
               ((2, 150, 150, Hq, Hkv, D, bf16, "bshd"), True, 70, dict(offset=4)),
               ((2, 130, 130, 4, 2, 16, bf16, "bshd"), True, 10, dict(offset=4))]
+    # h2o-danube-1.8b's heads (32 / 8 of 80): a prefill_step's shape, f32,
+    # ragged and strided operands, the 4-byte staging path, and its published
+    # window over one sequence of WINDOW_KEYS
+    dcfg = configs.get_arch(D80_ARCH)
+    dq, dkv, dd, dw = dcfg.n_heads, dcfg.kv_heads, dcfg.head_dim, dcfg.window
+    cases += [((N_SLOTS, 512, 512, dq, dkv, dd, bf16, "bshd"), True, dw, {}),
+              ((N_SLOTS, 512, 512, dq, dkv, dd, bf16, "bshd"), True, None, model),
+              ((2, 100, 100, dq, dkv, dd, f32, "bshd"), True, None, {}),
+              ((2, 100, 300, dq, dkv, dd, bf16, "bhsd"), True, 70, {}),
+              ((2, 150, 150, dq, dkv, dd, bf16, "bshd"), True, 70, dict(offset=4)),
+              ((1, WINDOW_KEYS, WINDOW_KEYS, dq, dkv, dd, bf16, "bshd"), True, dw, {})]
     worst = 0.0
     for (B, Sq, Sk, hq, hkv, d, dtype, layout), causal, window, extra in cases:
         q, k, v = flash_case(torch, g, dev, B, Sq, Sk, hq, hkv, d, dtype, layout, **extra)
@@ -1211,7 +1298,9 @@ def check_qkv_decode(torch, dev, cfg, report):
     v; 0; a block's last and the next block's first key), and internlm2's
     full shape (B 4, S 1024, 16 / 8 heads, D 128, kv8 and kv4, pos 0, 511
     and 1023, and 900: inside the last run of keys); one run of keys (S 100
-    and S = KEYS_PER_SPLIT, kv8 and kv4)."""
+    and S = KEYS_PER_SPLIT, kv8 and kv4); h2o-danube-1.8b's heads (32 / 8 of
+    80: 80-byte rows at kv8, 40 at kv4) at internlm2's positions."""
+    from repro_torch import configs
     from repro_torch.kernels import qkv_decode as QD
 
     g = torch.Generator(device=dev).manual_seed(SEED + 14)
@@ -1223,6 +1312,9 @@ def check_qkv_decode(torch, dev, cfg, report):
               for pos in (0, 511, 900, 1023)]
     kps = QD.KEYS_PER_SPLIT
     cases += [(3, 100, Hq, Hkv, D, 8, 70, 100), (2, kps, Hq, Hkv, D, 4, kps - 1, kps)]
+    dcfg = configs.get_arch(D80_ARCH)  # h2o-danube-1.8b: 32 / 8 heads of 80
+    cases += [(N_SLOTS, S_MAX, dcfg.n_heads, dcfg.kv_heads, dcfg.head_dim, bits, pos, 512)
+              for bits in (8, 4) for pos in (0, 511, 900, 1023)]
     worst = 0.0
     for B, S, hq, hkv, d, bits, pos, bs in cases:
         q, kq, ks, vq, vs = qkv_case(torch, g, dev, B, S, hq, hkv, d, bits)
@@ -1240,6 +1332,77 @@ def check_qkv_decode(torch, dev, cfg, report):
         log(f"{name}: max |kernel - plain| = {float(err.max()):.3e}, twice bit-identical")
         worst = max(worst, float(err.max()))
     report["qkv_decode"] = {"max_abs_err": worst, "tol": QD.TOL, "checks": len(cases)}
+
+
+def rowinv_shapes(cfg, mcfg):
+    """The unfused read's seven f32 products as the model calls them: (spec,
+    letter sizes but the query rows') at internlm2's GQA read (4 slots, its
+    heads, S_MAX cache rows) and DeepSeek-V3's absorbed MLA read."""
+    B, T = N_SLOTS, S_MAX
+    gqa = dict(b=B, h=cfg.n_heads, d=cfg.head_dim, k=T)
+    mla = dict(b=B, h=mcfg.n_heads, c=mcfg.kv_lora, t=T)
+    return [("bqhd,bkhd->bhqk", gqa), ("bhqk,bkhd->bqhd", gqa),
+            ("bshd,hdc->bshc", dict(mla, d=mcfg.d_nope)), ("bshc,btc->bhst", mla),
+            ("bshd,btd->bhst", dict(mla, d=mcfg.d_rope)), ("bhst,btc->bshc", mla),
+            ("bshc,hdc->bshd", dict(mla, d=mcfg.d_v))]
+
+
+def rowinv_operands(torch, g, dev, spec, sizes, rows):
+    """Unit-normal f32 operands of ``spec`` with ``rows`` query rows."""
+    from repro_torch.kernels.rowinv import plan
+
+    p = plan(spec)
+    size = dict(sizes, **{p.m: rows})
+    return [torch.randn([size[c] for c in letters], generator=g, device=dev)
+            for letters in (p.a, p.b)]
+
+
+def check_rowinv(torch, dev, cfg, mcfg, report):
+    """rowinv_bmm (the port's own kernel for the unfused read's f32
+    products) at the seven products' serving shapes (``rowinv_shapes``),
+    with 1, SPEC_K + 1 (a verify's window), MIXED_BUDGET (a mixed step) and
+    64 query rows: the first row's output bit-identical whatever the number
+    of rows beside it, each call within TOL * (1 + max |einsum|) of the
+    plain version (``torch.einsum``) and of the exact (f64) product, the
+    same call twice bit-identical."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rowinv import TOL, plan
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    counts = (1, SPEC_K + 1, MIXED_BUDGET, 64)
+    worst = 0.0
+    for spec, sizes in rowinv_shapes(cfg, mcfg):
+        p = plan(spec)
+        a, b = rowinv_operands(torch, g, dev, spec, sizes, max(counts))
+        ax, ox = p.a.index(p.m), p.out.index(p.m)
+        first, errs = None, []
+        for rows in counts:
+            part = a.narrow(ax, 0, rows).contiguous()
+            got = ops.rowinv_einsum(spec, part, b, impl="cuda")
+            again = ops.rowinv_einsum(spec, part, b, impl="cuda")
+            want = ops.rowinv_einsum(spec, part, b, impl="torch")
+            exact = torch.einsum(spec, part.double(), b.double())
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            bound = TOL * (1 + float(want.abs().max()))
+            name = f"rowinv_bmm {spec} {sizes} at {rows} rows"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two calls differ")
+            if not torch.isfinite(got).all() or err > bound or float(
+                    (got.double() - exact).abs().max()) > bound:
+                raise AssertionError(f"{name}: max |kernel - plain| {err:.3e} (bound {bound:.3e}) "
+                                     f"or off the exact product")
+            row = got.narrow(ox, 0, 1)
+            first = row if first is None else first
+            if not torch.equal(row, first):
+                raise AssertionError(f"{name}: the first row's bits differ from its bits alone")
+            errs.append(err)
+            worst = max(worst, err)
+        log(f"rowinv_bmm {spec} {sizes}: the first query row bit-identical alone and among "
+            f"{', '.join(map(str, counts[1:]))} rows; max |kernel - plain| "
+            f"{', '.join(f'{e:.3e}' for e in errs)} (bound TOL * (1 + max |plain|)); each call "
+            f"twice bit-identical")
+    report["rowinv_bmm"] = {"max_abs_err": worst, "tol": TOL}
 
 
 # ------------------------------------------------------------- phase 3 - 6
@@ -1282,13 +1445,10 @@ def sampled_requests(reqs, greedy=(), **over):
     return reqs
 
 
-def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None, ties=None,
-          rows=None):
+def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None, ties=None):
     """Serve ``reqs`` (default: phase 3's four greedy requests). With a dict
     ``ties``, record in it for each token a request draws whether the two
-    best logits it was drawn from tie: {(rid, index): bool}; with a dict
-    ``rows``, the logits row of each draw (``drawn_rows``; phase 14's
-    references, which the log line marks)."""
+    best logits it was drawn from tie: {(rid, index): bool}."""
     from repro_torch.models import model as M
     from repro_torch.serve import Request, ServeEngine
 
@@ -1315,8 +1475,6 @@ def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None, ti
 
     if ties is not None:
         M.sample_tokens = recording
-    if rows is not None:
-        drawn_rows(eng, rows)  # ``rows`` fills while the engine serves
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1337,8 +1495,6 @@ def serve(torch, dev, cfg, policy, params, cache, fused_attn=True, reqs=None, ti
         pages += (f", at most {shared[0]} pages shared by live requests, hit rate "
                   f"{m['cache/prefix_hit_rate']:.4f}, {m['cache/cow_copies']} COW clones")
     mode = "" if all(r.params is None or r.params.greedy for r in reqs) else ", sampled"
-    if rows is not None:
-        pages += ", each draw's logits kept"
     log(f"serve[{cfg.name}, {policy.name}, {cache}{'' if fused_attn else ', unfused'}{mode}]: {toks} tokens in {dt:.3f} s ({toks / dt:.2f} tokens/s end to end), "
         f"{m['decode_steps']} decode steps, step EMA {m['step_ema_s'] * 1e3:.2f} ms, "
         f"TTFT p50 {m['slo/ttft_p50_s']:.3f} s, TPOT p50 {m['slo/tpot_p50_s'] * 1e3:.2f} ms, "
@@ -1789,8 +1945,59 @@ def kernel_table(torch, dev, cfg, params, launches, report):
                      replaces="src/repro/kernels/paged_gather.py:141", ms=t, plain_ms=tp,
                      bytes=nbytes, work=[], library_ms=tl))
 
+    rows.append(rowinv_row(torch, dev, cfg, g))
     rows += reference_layer_rows(torch, dev, g)
     return [kernel_row(r, launches, report) for r in rows]
+
+
+def rowinv_row(torch, dev, cfg, g) -> dict:
+    """rowinv_bmm per unfused decode step (4 slots at 159..543 cached rows,
+    the read over all S_MAX logical rows, masked): q . k and p . v of every
+    layer, each layer on its own dequantized K / V (f32, kv heads
+    repeated, as ``attn_apply`` passes them), so the 50 MB L2 holds none of
+    them between uses; beside its bound (the operands read once, the
+    outputs written once; the multiply-adds at the f32 rate), its plain
+    version (``torch.einsum``, cuBLAS) and ``torch.bmm`` over the same
+    operands laid out ahead of time in its (batch, rows, k) x (batch, k, n)
+    form."""
+    from repro_torch.kernels import ops
+
+    B, L, H, D, T = N_SLOTS, cfg.n_layers, cfg.n_heads, cfg.head_dim, S_MAX
+    pos = torch.tensor([n + MAX_NEW - 1 for n in PROMPT_LENS], device=dev)
+    valid = torch.arange(T, device=dev)[None] <= pos[:, None]  # (B, T)
+    layers = []
+    for _ in range(L):
+        q = torch.randn((B, 1, H, D), generator=g, device=dev)
+        k, v = (torch.randn((B, T, H, D), generator=g, device=dev) for _ in range(2))
+        s_ = torch.einsum("bqhd,bkhd->bhqk", q, k) / D**0.5
+        p = torch.softmax(s_.masked_fill(~valid[:, None, None], -2.0e9), dim=-1)
+        layers.append((q, k, p, v))
+
+    def step(impl):
+        return lambda: [(ops.rowinv_einsum("bqhd,bkhd->bhqk", q, k, impl=impl),
+                         ops.rowinv_einsum("bhqk,bkhd->bqhd", p, v, impl=impl))
+                        for q, k, p, v in layers]
+
+    t, tw, how = device_ms(step("cuda"))
+    tp, tpw, _ = device_ms(step("torch"))
+    laid = [(q.permute(0, 2, 1, 3).reshape(B * H, 1, D).contiguous(),
+             k.permute(0, 2, 3, 1).reshape(B * H, D, T).contiguous(),
+             p.reshape(B * H, 1, T).contiguous(),
+             v.permute(0, 2, 1, 3).reshape(B * H, T, D).contiguous()) for q, k, p, v in layers]
+    tl, tlw, _ = device_ms(lambda: [(torch.bmm(q, k), torch.bmm(p, v)) for q, k, p, v in laid])
+    del laid, layers
+    nbytes = L * 4 * (2 * B * H * D + 2 * B * T * H * D + 2 * B * H * T)
+    nops = L * 2 * (2 * B * H * T * D)
+    log(f"  rowinv_bmm, one unfused decode step ({2 * L} calls: q . k and p . v at B={B}, "
+        f"H={H}, D={D}, {T} cache rows; L2-cold): {t:.4f} ms device ({how}), {tw:.3f} ms wall; "
+        f"plain (torch.einsum) {tp:.4f} ms device, {tpw:.3f} ms wall; torch.bmm over the "
+        f"operands laid out ahead of time {tl:.4f} ms device, {tlw:.3f} ms wall; bound "
+        f"{max(nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS_PER_S) * 1e3:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} G f32 multiply-adds x 2)")
+    return dict(name="rowinv_bmm", route="cuda", source="src/repro_torch/csrc/rowinv_bmm.cu",
+                replaces="src/repro/models/attention.py:426 (no TPU kernel: the port's own, "
+                         "for the reference's jnp.einsum at :426, :439 and :590-603)",
+                ms=t, plain_ms=tp, bytes=nbytes, work=[(nops, F32_FLOPS_PER_S)], library_ms=tl)
 
 
 def reference_layer_rows(torch, dev, g) -> list:
@@ -1947,7 +2154,7 @@ def kernel_row(r, launches, report) -> dict:
 KERNEL_NAMES = ("mpmm_kernel", "wdqmm_mma_kernel", "wdqmm_kernel", "paged_mla_split_kernel",
                 "paged_attn_kernel", "paged_attn_merge_kernel", "flash_mha_kernel",
                 "paged_scatter_kernel", "paged_gather_kernel", "qkv_split_kernel",
-                "qkv_merge_kernel")
+                "qkv_merge_kernel", "rowinv_bmm_kernel")
 
 
 def step_breakdown(torch, dev, cfg, policy, params):
@@ -2629,30 +2836,6 @@ def engines(dev, cfg, policy, params, cache, fused_attn=True):
     return make
 
 
-def drawn_rows(eng, rows: dict) -> None:
-    """Until ``M.sample_tokens`` is restored, keep in ``rows`` each draw's
-    logits row (f32, on the card, no host sync) under (rid, index of the
-    token drawn): the serialized engine draws token ``len(out)`` of a slot,
-    the continuous one token ``_counters[slot]`` at dispatch (a mid-prompt
-    chunk's row is overwritten by its final chunk's)."""
-    from repro_torch.models import model as M
-
-    orig = M.sample_tokens
-
-    def wrapped(logits, *lanes, **kw):
-        f = logits.float()
-        if logits.shape[0] == 1:  # serialized admission: the request with no token yet
-            r = next(r for r in eng.slot_req if r is not None and not r.out)
-            rows[r.rid, 0] = f[0].clone()
-        else:
-            for s_, r in enumerate(eng.slot_req):
-                if r is not None:
-                    rows[r.rid, int(eng._counters[s_])] = f[s_].clone()
-        return orig(logits, *lanes, **kw)
-
-    M.sample_tokens = wrapped
-
-
 def bf16_step(row) -> float:
     """The spacing of bf16 values at ``row``'s largest magnitude."""
     import math
@@ -2666,96 +2849,38 @@ def first_parting(a, b):
     return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
 
 
-def held_to_serial(what, reqs, want, got, rows_w, rows_g, replay) -> int:
-    """Hold continuous streams ``got`` (their draws' logits ``rows_g``) to
-    the serialized streams ``want`` (``rows_w``) of the same cache and
-    attention. Equal, or: where request r first parts, at draw i, the
-    serialized engine's logits of its token a and of the continuous
-    engine's token b lie within TIE_STEPS bf16 steps at that row's largest
-    |logit| (a tie the two engines break apart: they sum in other orders,
-    see ``mixed_witness``), and the rest of the continuous stream,
-    ``got[r][i + 1:]``, is held the same way to ``replay(request)``: a
-    serialized run of the same cache and attention fed the prompt and
-    ``got[r][:i + 1]``, returning (streams, rows). Greedy only: a sampled
-    stream must be equal (a replay cannot start a request's draws at
-    counter i + 1). Returns the number of partings."""
-    import numpy as np
-
-    from repro_torch.serve import Request
-
-    partings = 0
-    for r in reqs:
-        a_s, b_s = want[r.rid], got[r.rid]
-        if len(a_s) != len(b_s):
-            raise AssertionError(f"{what}: request {r.rid} drew {len(b_s)} tokens, the serialized "
-                                 f"engine {len(a_s)}")
-        i = first_parting(a_s, b_s)
-        if i is None:
-            continue
-        if r.params is not None and not r.params.greedy:
-            raise AssertionError(f"{what}: sampled request {r.rid} parts from the serialized "
-                                 f"stream at token {i}")
-        lw = rows_w[r.rid, i].cpu()
-        a, b = a_s[i], b_s[i]
-        gap, tol = abs(float(lw[a] - lw[b])), TIE_STEPS * bf16_step(lw)
-        log(f"  {what}: request {r.rid} parts at token {i} ({a} serialized, {b} continuous): the "
-            f"serialized logits of the two {gap:.4g} apart (one bf16 step there: {tol:.4g}); the "
-            f"rows part by {float((lw - rows_g[r.rid, i].cpu()).abs().max()):.4g}")
-        if gap > tol:
-            raise AssertionError(f"{what}: request {r.rid} parts from the serialized stream at "
-                                 f"token {i}, not at a tie (gap {gap:.4g} > {tol:.4g})")
-        partings += 1
-        if i + 1 < len(b_s):
-            tail = Request(rid=r.rid, prompt=np.concatenate(
-                [r.prompt, np.asarray(b_s[:i + 1], np.int32)]), max_new=len(b_s) - i - 1)
-            want_t, rows_t = replay(tail)
-            rows_gt = {(rid, j - i - 1): v for (rid, j), v in rows_g.items()
-                       if rid == r.rid and j > i}
-            partings += held_to_serial(f"{what}, request {r.rid} from token {i + 1}", [tail],
-                                       want_t, {r.rid: b_s[i + 1:]}, rows_t, rows_gt, replay)
-    return partings
-
-
-def replayer(torch, dev, cfg, policy, params, cache, fused_attn):
-    """``replay(request)`` for ``held_to_serial``: the request served alone
-    on a serialized engine of ``cache`` and ``fused_attn``, its draws'
-    logits kept: (streams, rows)."""
-    def replay(req):
-        rows: dict = {}
-        out, _ = serve(torch, dev, cfg, policy, params, cache, fused_attn=fused_attn, reqs=[req],
-                       rows=rows)
-        return out, rows
-    return replay
-
-
-def rows_apart(want, got, rows_w, rows_g) -> float:
-    """The largest distance, in bf16 steps at the serialized row's largest
-    |logit|, between the two engines' logits over every draw up to and
-    including each request's first parting."""
-    worst = 0.0
+def held_equal(what, want, got) -> None:
+    """Gate: every stream of ``got`` equals the serialized stream of the
+    same request in ``want`` (rid -> tokens), token for token: the
+    reference's contract for continuous and speculative engines
+    (tests/test_continuous.py). On the card the unfused read's products run
+    through the row-invariant rowinv_bmm kernel, so a query row has the
+    same bits in a decode step, a mixed step and a verify."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: requests {sorted(got)}, the serialized run {sorted(want)}")
     for rid, a_s in want.items():
-        i = first_parting(a_s, got[rid])
-        for j in range(len(a_s) if i is None else i + 1):
-            lw = rows_w[rid, j]
-            worst = max(worst, float((lw - rows_g[rid, j]).abs().max()) / bf16_step(lw))
-    return worst
+        b_s = got[rid]
+        if a_s != b_s:
+            i = first_parting(a_s, b_s)
+            raise AssertionError(
+                f"{what}: request {rid} parts from the serialized stream at token "
+                f"{min(len(a_s), len(b_s)) if i is None else i} ({len(a_s)} serialized tokens, "
+                f"{len(b_s)} here)")
 
 
-def continuous_serve(torch, dev, cfg, policy, params, cache, reqs, fused_attn=True,
-                     keep_rows=True):
+def continuous_serve(torch, dev, cfg, policy, params, cache, reqs, fused_attn=True):
     """Serve ``reqs`` on a continuous engine (``mixed=True``, MIXED_BUDGET
-    prompt tokens a mixed step, INFLIGHT steps in flight), keeping each
-    draw's logits row with ``keep_rows``. Counts the host syncs
+    prompt tokens a mixed step, INFLIGHT steps in flight). Counts the host syncs
     (``serve.boundary.counting_syncs``) of every admission, every dispatch
     (mixed or pure decode) and every retire, the CUDA event waits of the
     retires, and the in-flight depth after every dispatch and at every
-    token. Returns (streams, metrics, info); info["rows"] holds the rows."""
+    token. Returns (streams, metrics, info)."""
     from repro_torch.models import model as M
     from repro_torch.serve.boundary import counting_syncs
 
     eng = engines(dev, cfg, policy, params, cache, fused_attn)(True)
     info: dict = {"mixed": [], "decode": [], "admit": [], "retire": [], "waits": 0, "depth": [],
-                  "peak": 0, "rows": {}}
+                  "peak": 0}
     dispatch, admit, retire = eng._dispatch, eng._admit, eng._retire_one
 
     def counted_dispatch():
@@ -2774,7 +2899,7 @@ def continuous_serve(torch, dev, cfg, policy, params, cache, reqs, fused_attn=Tr
             info[name].append(got)
         return run
 
-    wait, sample_tokens = torch.cuda.Event.synchronize, M.sample_tokens
+    wait = torch.cuda.Event.synchronize
 
     def counting_wait(ev):
         info["waits"] += 1
@@ -2783,8 +2908,6 @@ def continuous_serve(torch, dev, cfg, policy, params, cache, reqs, fused_attn=Tr
     eng._dispatch = counted_dispatch
     eng._admit, eng._retire_one = counted("admit", admit), counted("retire", retire)
     torch.cuda.Event.synchronize = counting_wait
-    if keep_rows:
-        drawn_rows(eng, info["rows"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2793,18 +2916,16 @@ def continuous_serve(torch, dev, cfg, policy, params, cache, reqs, fused_attn=Tr
             eng.metrics()["inflight"]))
     finally:
         torch.cuda.Event.synchronize = wait
-        M.sample_tokens = sample_tokens
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     m = eng.metrics()
     mode = "" if all(r.params is None or r.params.greedy for r in reqs) else ", sampled"
-    kept = ", each draw's logits kept" if keep_rows else ""
     log(f"continuous[{cfg.name}, {policy.name}, {cache}{'' if fused_attn else ', unfused'}{mode}]: "
         f"{m['tokens_generated']} tokens in {dt:.3f} s ({m['tokens_generated'] / dt:.2f} tokens/s "
         f"end to end), {m['decode_steps']} steps ({m['mixed_steps']} mixed), step EMA "
         f"{m['step_ema_s'] * 1e3:.2f} ms, TTFT p50 {m['slo/ttft_p50_s']:.3f} s, TPOT p50 "
         f"{m['slo/tpot_p50_s'] * 1e3:.2f} ms, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{kept}; in flight at most "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; in flight at most "
         f"{info['peak']} after a dispatch, {max(info['depth'], default=0)} at a token; host syncs: "
         f"mixed dispatches {sum(map(len, info['mixed']))} over {len(info['mixed'])}, pure-decode "
         f"dispatches {sum(map(len, info['decode']))} over {len(info['decode'])}, admissions "
@@ -2816,27 +2937,23 @@ def continuous_serve(torch, dev, cfg, policy, params, cache, reqs, fused_attn=Tr
 
 def gate_continuous(what, reqs, out, m, info, launched, cfg, cache, fused_attn=True,
                     serial=None):
-    """Phase 14's gates on one continuous run: with ``serial`` = (streams,
-    rows, replay) of the serialized engine of the same cache and attention,
-    the streams are held to it (``held_to_serial``); mixed steps ran and
+    """Phase 14's gates on one continuous run: with ``serial``, the streams
+    of the serialized engine of the same cache and attention, every stream
+    equals its serialized one (``held_equal``); mixed steps ran and
     the pipeline drained; the in-flight depth never passed INFLIGHT; no
     admission or dispatch made a host sync; every step launched mpmm, a
     paged run paged_scatter once a layer a step and paged_gather once a
-    layer a mixed step (every step unfused), the fused attention kernel once
-    a layer a pure-decode step (none unfused). A fused run (``serial``
+    layer a mixed step (every step unfused), rowinv_bmm (the unfused read's
+    products) ``rowinv_per_layer`` times a layer a mixed step (every step
+    unfused), the fused attention kernel once a layer a pure-decode step
+    (none unfused). A fused run (``serial``
     None) reads the cache unfused in its mixed steps and fused in its
     pure-decode steps, a mix no serialized run computes: its caller prints
     how its streams compare."""
     held = ""
     if serial is not None:
-        want, want_rows, replay = serial
-        apart = rows_apart(want, out, want_rows, info["rows"])
-        n = held_to_serial(what, reqs, want, out, want_rows, info["rows"], replay)
-        held = ("; streams equal the serialized ones" if n == 0 else
-                f"; streams part from the serialized ones {n} times, each at a tie, every tail "
-                f"held to a serialized replay") + (
-            f" (the engines' logits part by at most {apart:.2f} bf16 steps up to each first "
-            f"parting)")
+        held_equal(what, serial, out)
+        held = "; every stream equal to its serialized one"
     if not (m["mixed_steps"] > 0 and m["inflight"] == 0):
         raise AssertionError(f"{what}: {m['mixed_steps']} mixed steps, {m['inflight']} in flight "
                              f"after drain()")
@@ -2852,7 +2969,8 @@ def gate_continuous(what, reqs, out, m, info, launched, cfg, cache, fused_attn=T
         raise AssertionError(f"{what}: no mixed dispatch")
     L, steps, mixed = cfg.n_layers, m["decode_steps"], m["mixed_steps"]
     attn = "paged_mla_attn" if cfg.family == "mla_moe" else "paged_attn"
-    want_n = {attn: L * (steps - mixed) if fused_attn else 0}
+    want_n = {attn: L * (steps - mixed) if fused_attn else 0,
+              "rowinv_bmm": rowinv_per_layer(cfg) * L * (mixed if fused_attn else steps)}
     if cache != "slot":
         want_n["paged_scatter"] = L * steps
         want_n["paged_gather"] = L * (mixed if fused_attn else steps)
@@ -2865,6 +2983,12 @@ def gate_continuous(what, reqs, out, m, info, launched, cfg, cache, fused_attn=T
         raise AssertionError(f"{what}: launches {got_n}, want {want_n} ({steps} steps, {mixed} "
                              f"mixed)")
     log(f"{what}: launches {got_n} ({steps} steps, {mixed} mixed){held}")
+
+
+def rowinv_per_layer(cfg) -> int:
+    """rowinv_bmm launches a layer of one unfused read: q . k and p . v
+    (GQA), or the five absorbed products (MLA)."""
+    return 5 if cfg.family == "mla_moe" else 2
 
 
 def tokens_equal(want, got) -> str:
@@ -2882,19 +3006,22 @@ def _moved(tree, dev):
 
 
 def mixed_witness(torch, dev, cfg, policy, params, cpu: bool) -> None:
-    """Phase 14's witness for the partings at ties. From one serving state
-    at full width (phase 3's four requests served serialized on the paged
-    cache, unfused, for 6 steps: every slot decoding), one unfused decode
-    step and one mixed step of the same four decode lanes (width
-    MIXED_BUDGET, one real token each) run on copies of the cache. They
-    compute the same function: with ``cpu``, on the CPU (the plain versions,
-    on copies of the weights and the cache) their logits must be bit-equal.
-    Printed: how far the card's two part from each other and, with ``cpu``,
-    from the CPU's, in bf16 steps at the row's largest |logit|; and where
-    the card's arithmetic depends on the step's shape: the attention's f32
-    products (einsums, which cuBLAS runs with a kernel picked by the shape)
-    for one query row computed alone (S = 1, a decode step) and among
-    MIXED_BUDGET rows (a mixed step), and an RMS norm of 4 rows and of 64."""
+    """Phase 14's witness that a query row has the same bits in a decode
+    step and in a mixed step. From one serving state at full width (phase
+    3's four requests served serialized on the paged cache, unfused, for 6
+    steps: every slot decoding), one unfused decode step and one mixed step
+    of the same four decode lanes (width MIXED_BUDGET, one real token each)
+    run on copies of the cache. They compute the same function, and their
+    logits must be bit-equal on the card (gated); with ``cpu``, on the CPU
+    too (the plain versions, on copies of the weights and the cache; gated),
+    and how far the card's part from the CPU's is printed, in bf16 steps at
+    the row's largest |logit|. Then each of the unfused read's f32 products
+    (GQA: q . k and p . v; MLA: the five absorbed einsums) for one query row
+    alone (S = 1, a decode step) and among MIXED_BUDGET rows (a mixed step):
+    through ``ops.rowinv_einsum`` on the card bit-equal (gated); printed
+    beside it, what ``torch.einsum`` (cuBLAS, its kernel picked by the
+    shape) gives, and an RMS norm of 4 rows and of 64."""
+    from repro_torch.kernels import ops
     from repro_torch.models import model as M
     from repro_torch.models.common import rms_norm
     from repro_torch.serve import Request, SamplingParams, ServeEngine
@@ -2936,7 +3063,10 @@ def mixed_witness(torch, dev, cfg, policy, params, cpu: bool) -> None:
         return "bit-equal" if torch.equal(x, y) else (
             f"{float((x - y).abs().max()) / step:.2f} bf16 steps apart")
 
-    said = f"card decode vs card mixed {apart(dec, mix)}"
+    if not torch.equal(dec, mix):
+        raise AssertionError(f"witness {cfg.name}: on the card one unfused decode step and one "
+                             f"mixed step of the same lanes part: {apart(dec, mix)}")
+    said = "card decode vs card mixed bit-equal (gated)"
     if cpu:
         cdec, cmix = both(torch.device("cpu"), _moved(params, torch.device("cpu")))
         if not torch.equal(cdec, cmix):
@@ -2950,28 +3080,44 @@ def mixed_witness(torch, dev, cfg, policy, params, cpu: bool) -> None:
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device=dev)
 
-    def pair(name, f, x, ax_in, ax_out):
-        """``f`` (the model's einsum) of the first query row alone and among
-        the W rows of ``x`` (rows on axis ``ax_in`` in, ``ax_out`` out)."""
-        one = f(x.narrow(ax_in, 0, 1).contiguous()).narrow(ax_out, 0, 1)
-        among = f(x).narrow(ax_out, 0, 1)
-        shape.append(f"{name} " + ("bit-equal" if torch.equal(one, among) else
-                                   f"parts by {float((one - among).abs().max()):.3g}"))
+    def pair(name, spec, x, y, ax_in, ax_out):
+        """The model's product ``spec`` of the first query row of ``x``
+        alone and among its W rows (rows on axis ``ax_in`` in, ``ax_out``
+        out): through the kernel (gated bit-equal) and through
+        ``torch.einsum`` (printed)."""
+        def first(f, rows):
+            return f(spec, rows, y).narrow(ax_out, 0, 1)
+
+        def kernel(sp, a, b):
+            return ops.rowinv_einsum(sp, a, b, impl="cuda")
+
+        one = x.narrow(ax_in, 0, 1).contiguous()
+        if not torch.equal(first(kernel, one), first(kernel, x)):
+            raise AssertionError(f"witness {cfg.name}: rowinv_bmm gives {name} ({spec}) other "
+                                 f"bits for one query row alone than among {W}")
+        a, b = first(torch.einsum, one), first(torch.einsum, x)
+        shape.append(f"{name} bit-equal through rowinv_bmm (gated), through torch.einsum " + (
+            "bit-equal" if torch.equal(a, b) else f"parts by {float((a - b).abs().max()):.3g}"))
 
     shape: list = []
     if cfg.family == "mla_moe":  # the absorbed einsums of mla_apply's unfused read
-        q, w = rnd(B, W, cfg.n_heads, cfg.d_nope), rnd(cfg.n_heads, cfg.d_nope, cfg.kv_lora)
-        c = rnd(B, S_MAX, cfg.kv_lora)
-        lat = torch.einsum("bshd,hdc->bshc", q, w)
+        H = cfg.n_heads
+        qn, qr = rnd(B, W, H, cfg.d_nope), rnd(B, W, H, cfg.d_rope)
+        w_uk, w_uv = rnd(H, cfg.d_nope, cfg.kv_lora), rnd(H, cfg.d_v, cfg.kv_lora)
+        c, r = rnd(B, S_MAX, cfg.kv_lora), rnd(B, S_MAX, cfg.d_rope)
+        lat = torch.einsum("bshd,hdc->bshc", qn, w_uk)
         p = torch.softmax(torch.einsum("bshc,btc->bhst", lat, c) / 16, -1)
-        pair("q_nope . w_uk", lambda x: torch.einsum("bshd,hdc->bshc", x, w), q, 1, 1)
-        pair("q_lat . c", lambda x: torch.einsum("bshc,btc->bhst", x, c), lat, 1, 2)
-        pair("p . c", lambda x: torch.einsum("bhst,btc->bshc", x, c), p, 2, 1)
+        ctx = torch.einsum("bhst,btc->bshc", p, c)
+        pair("q_nope . w_uk", "bshd,hdc->bshc", qn, w_uk, 1, 1)
+        pair("q_lat . c", "bshc,btc->bhst", lat, c, 1, 2)
+        pair("q_rope . r", "bshd,btd->bhst", qr, r, 1, 2)
+        pair("p . c", "bhst,btc->bshc", p, c, 2, 1)
+        pair("ctx . w_uv", "bshc,hdc->bshd", ctx, w_uv, 1, 1)
     else:  # attn_apply's unfused read
         q, k, v = (rnd(B, n, cfg.n_heads, cfg.head_dim) for n in (W, S_MAX, S_MAX))
         p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) / 16, -1)
-        pair("q . k", lambda x: torch.einsum("bqhd,bkhd->bhqk", x, k), q, 1, 2)
-        pair("p . v", lambda x: torch.einsum("bhqk,bkhd->bqhd", x, v), p, 2, 1)
+        pair("q . k", "bqhd,bkhd->bhqk", q, k, 1, 2)
+        pair("p . v", "bhqk,bkhd->bqhd", p, v, 2, 1)
     x = (rnd(64, cfg.d_model) * 3).to(torch.bfloat16)
     scale = {"scale": rnd(cfg.d_model)}
     same = torch.equal(rms_norm(scale, x[:4]), rms_norm(scale, x)[:4])
@@ -3057,11 +3203,11 @@ def mpmm_mixed_row(torch, dev, cfg, params) -> dict:
 def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict, dict]:
     """Phase 14 (internlm2 w4a8 kv8, full width and depth, the weights of
     phase 3). The continuous engine reads the cache unfused in every mixed
-    step, so its streams are held (``gate_continuous`` with
-    ``held_to_serial``) to serialized runs that read it unfused too: phase
-    3's four greedy requests on slot and paged against phase 5's runs
-    (``serial``: cache -> (streams, metrics, rows)), phase 9's five on
-    prefix and phase 13's sampled four on paged (cut to CUT_LAYERS layers)
+    step, so each of its streams must equal (``gate_continuous`` with
+    ``held_equal``) a serialized run that reads it unfused too: phase 3's
+    four greedy requests on slot and paged against phase 5's runs
+    (``serial``: cache -> (streams, metrics)), phase 9's five on prefix and
+    phase 13's sampled four on paged (both cut to CUT_LAYERS layers)
     against serialized runs made here. One more continuous run, fused (its pure-decode steps
     through paged_attn), on phase 3's requests on paged: its launches and
     syncs are gated, its streams printed against phase 3's fused ones
@@ -3071,9 +3217,9 @@ def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict
     TTFT p50 and tokens/s; the device-idle share of 8 profiled steps of
     each engine on the paged cache, fused (the serialized engine's decode
     steps after its prefills; the continuous engine's mixed steps and its
-    last pure-decode steps). Returns the launches of the four greedy runs,
-    mpmm's per-mixed-step row and the sampled serialized run (its streams
-    and draws' logits, CUT_LAYERS layers), which phase 16 holds its sampled
+    last pure-decode steps). Returns the launches of the three full-depth
+    greedy runs, mpmm's per-mixed-step row and the sampled serialized run's
+    streams (CUT_LAYERS layers), which phase 16 holds its sampled
     speculative run to."""
     from collections import Counter
 
@@ -3090,31 +3236,32 @@ def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict
                              f"counted {len(ctl)}")
     log(f"host-sync control: a window around one .item() counts {len(ctl)}")
     mixed_witness(torch, dev, cfg, policy, params, cpu=False)
+    ccfg, cparams = cut(cfg, params)
     ser = dict(serial)
-    rows: dict = {}
-    out_p, m_p = serve(torch, dev, cfg, policy, params, "prefix", fused_attn=False,
-                       reqs=prefix_requests(cfg, Request), rows=rows)
-    ser["prefix"] = (out_p, m_p, rows)
+    out_p, m_p = serve(torch, dev, ccfg, policy, cparams, "prefix", fused_attn=False,
+                       reqs=prefix_requests(cfg, Request))
+    ser["prefix"] = (out_p, m_p)
     launches: Counter = Counter()
     cont: dict = {}
     for cache, reqs in (("slot", requests), ("paged", requests), ("prefix", prefix_requests)):
+        c_, p_ = (ccfg, cparams) if cache == "prefix" else (cfg, params)
         build.reset_launches()  # this continuous run starts here
-        out, m, info = continuous_serve(torch, dev, cfg, policy, params, cache, reqs(cfg, Request),
+        out, m, info = continuous_serve(torch, dev, c_, policy, p_, cache, reqs(cfg, Request),
                                         fused_attn=False)
         launched = dict(build.LAUNCHES)  # this continuous run ends here
-        launches.update(launched)
-        want, _, want_rows = ser[cache]
-        gate_continuous(f"continuous {cache}, unfused", reqs(cfg, Request), out, m, info,
-                        launched, cfg, cache, fused_attn=False, serial=(
-                            want, want_rows,
-                            replayer(torch, dev, cfg, policy, params, cache, False)))
+        if cache != "prefix":  # the kernels line's rows are full-depth mixed steps
+            launches.update(launched)
+        gate_continuous(f"continuous {cache}, unfused" + (
+                            f" ({CUT_LAYERS} layers)" if cache == "prefix" else ""),
+                        reqs(cfg, Request), out, m, info, launched, c_, cache, fused_attn=False,
+                        serial=ser[cache][0])
         cont[cache] = m
         del info
-    del ser, rows
+    del ser
 
     build.reset_launches()  # the fused continuous run starts here
     out, m, info = continuous_serve(torch, dev, cfg, policy, params, "paged",
-                                    requests(cfg, Request), keep_rows=False)
+                                    requests(cfg, Request))
     launched = dict(build.LAUNCHES)  # the fused continuous run ends here
     launches.update(launched)
     want_f, m_f = serial["paged fused"]
@@ -3131,16 +3278,13 @@ def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict
     del info
 
     sreqs = lambda: sampled_requests(requests(cfg, Request))  # noqa: E731
-    ser_rows: dict = {}
-    ccfg, cparams = cut(cfg, params)
-    ser_s, _ = serve(torch, dev, ccfg, policy, cparams, "paged", fused_attn=False, reqs=sreqs(),
-                     rows=ser_rows)
+    ser_s, _ = serve(torch, dev, ccfg, policy, cparams, "paged", fused_attn=False, reqs=sreqs())
     build.reset_launches()
     out, ms, info_s = continuous_serve(torch, dev, ccfg, policy, cparams, "paged", sreqs(),
                                        fused_attn=False)
     gate_continuous(f"continuous paged, unfused, sampled ({CUT_LAYERS} layers)", sreqs(), out,
-                    ms, info_s, dict(build.LAUNCHES), ccfg, "paged", fused_attn=False, serial=(
-                        ser_s, ser_rows, None))  # a sampled parting raises before a replay
+                    ms, info_s, dict(build.LAUNCHES), ccfg, "paged", fused_attn=False,
+                    serial=ser_s)
     del info_s
 
     card = gpu_line()
@@ -3173,15 +3317,14 @@ def continuous_path(torch, dev, cfg, policy, params, serial: dict) -> tuple[dict
         f"{cont['paged fused']['decode_steps']})")
     row = mpmm_mixed_row(torch, dev, cfg, params)
     log(f"phase 14 (continuous batching): {time.perf_counter() - t_phase:.1f} s")
-    return dict(launches), row, (ser_s, ser_rows)
+    return dict(launches), row, ser_s
 
 
-def continuous_mla(torch, dev, cfg, policy, params, unfused, unfused_rows, fused) -> None:
+def continuous_mla(torch, dev, cfg, policy, params, unfused, fused) -> None:
     """Phase 14's DeepSeek-V3 runs (three MLA-dense layers, full width):
     ``mixed_witness`` with the CPU's plain versions; phase 3's four greedy
-    requests on a continuous paged engine, unfused, held to phase 8's
-    unfused paged streams (``unfused``, their draws' logits
-    ``unfused_rows``), then fused (its pure-decode steps through
+    requests on a continuous paged engine, unfused, equal to phase 8's
+    unfused paged streams (``unfused``), then fused (its pure-decode steps through
     paged_mla_attn), its launches gated and its streams printed against
     phase 8's fused ones (``fused``)."""
     from repro_torch.kernels import build
@@ -3192,12 +3335,10 @@ def continuous_mla(torch, dev, cfg, policy, params, unfused, unfused_rows, fused
     out, m, info = continuous_serve(torch, dev, cfg, policy, params, "paged",
                                     requests(cfg, Request), fused_attn=False)
     gate_continuous("continuous MLA paged, unfused", requests(cfg, Request), out, m, info,
-                    dict(build.LAUNCHES), cfg, "paged", fused_attn=False, serial=(
-                        unfused, unfused_rows,
-                        replayer(torch, dev, cfg, policy, params, "paged", False)))
+                    dict(build.LAUNCHES), cfg, "paged", fused_attn=False, serial=unfused)
     build.reset_launches()  # the fused continuous MLA run starts here
     out, m, info = continuous_serve(torch, dev, cfg, policy, params, "paged",
-                                    requests(cfg, Request), keep_rows=False)
+                                    requests(cfg, Request))
     log(f"continuous MLA paged, fused: {tokens_equal(fused, out)} equal phase 8's fused "
         f"serialized streams (not held: a mix of unfused mixed and fused pure-decode steps)")
     gate_continuous("continuous MLA paged, fused", requests(cfg, Request), out, m, info,
@@ -3255,9 +3396,7 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
     del wparams
     build.reset_launches()  # the unfused MLA serving path starts here
     unf_slot, _ = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False)
-    unf_rows: dict = {}  # phase 14 holds its continuous MLA run to these draws
-    unf_paged, m_unf = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False,
-                             rows=unf_rows)
+    unf_paged, m_unf = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
     unf_launches = dict(build.LAUNCHES)  # the unfused MLA serving path ends here
     log(f"launches on the unfused MLA path: {unf_launches}")
     if unf_slot != unf_paged:
@@ -3273,9 +3412,8 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
         f"fused ones (not gated: the two softmax sum in another order)")
 
     prefix_path(torch, dev, cfg, policy, params, key="MLA ")
-    continuous_mla(torch, dev, cfg, policy, params, unf_paged, unf_rows, out_paged)  # phase 14's
-    spec_mla(torch, dev, cfg, policy, params, unf_paged, unf_rows)  # phase 16's
-    del unf_rows
+    continuous_mla(torch, dev, cfg, policy, params, unf_paged, out_paged)  # phase 14's
+    spec_mla(torch, dev, cfg, policy, params, unf_paged)  # phase 16's
     t0 = time.perf_counter()  # phase 15's round trip of the MLA layers and the MTP params
     round_trip(torch, dev, cfg, policy, params, "serve",
                f"{cfg.name} cut to {cfg.n_layers} layers with MTP, w4a8, serve", gpu_line())
@@ -3374,15 +3512,11 @@ def mla_path(torch, dev, policy, report) -> tuple[dict, dict]:
 
 def spec_serve(torch, dev, cfg, policy, params, cache, reqs, spec="self4"):
     """Serve ``reqs`` on a speculative engine (``spec``, SPEC_K drafts a
-    round; 4 slots, s_max 1024, pages of 16), keeping each draw's logits
-    row: a verify's offset j of slot s draws token ``_counters[s] + j`` of
-    its request (a later draw of the same token, after a rejection,
-    overwrites the row); the drafts' draws are not kept. Records each
+    round; 4 slots, s_max 1024, pages of 16). Records each
     round's host syncs (``serve.boundary.counting_syncs``), its launches by
     kernel and whether it drafted, and on a paged cache checks the pool
     after every step. Returns (streams, metrics, info)."""
     from repro_torch.kernels import build
-    from repro_torch.models import model as M
     from repro_torch.serve import ServeEngine
     from repro_torch.serve.boundary import counting_syncs
 
@@ -3390,20 +3524,8 @@ def spec_serve(torch, dev, cfg, policy, params, cache, reqs, spec="self4"):
                       page_size=PAGE_SIZE if cache != "slot" else None, spec=spec,
                       spec_k=SPEC_K, device=dev)
     W = SPEC_K + 1
-    info: dict = {"rounds": [], "rows": {}, "steps": 0}
-    rows, sample_tokens, spec_round, step = info["rows"], M.sample_tokens, eng._spec_round, eng.step
-
-    def recording(logits, *lanes, **kw):
-        f = logits.float()
-        if logits.shape[0] == 1:  # admission: the request that has no token yet
-            r = next(r for r in eng.slot_req if r is not None and not r.out)
-            rows[r.rid, 0] = f[0].clone()
-        elif logits.shape[0] == N_SLOTS * W:  # a verify
-            for s_, r in enumerate(eng.slot_req):
-                if r is not None:
-                    for j in range(W):
-                        rows[r.rid, int(eng._counters[s_]) + j] = f[s_ * W + j].clone()
-        return sample_tokens(logits, *lanes, **kw)
+    info: dict = {"rounds": [], "steps": 0}
+    spec_round, step = eng._spec_round, eng.step
 
     def counted_round():
         drafted = any(r is not None and eng.slot_remaining[s_] >= W
@@ -3422,14 +3544,10 @@ def spec_serve(torch, dev, cfg, policy, params, cache, reqs, spec="self4"):
         return more
 
     eng._spec_round, eng.step = counted_round, checked_step
-    M.sample_tokens = recording
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    try:
-        out = eng.run(reqs)
-    finally:
-        M.sample_tokens = sample_tokens
+    out = eng.run(reqs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     m = eng.metrics()
@@ -3441,7 +3559,7 @@ def spec_serve(torch, dev, cfg, policy, params, cache, reqs, spec="self4"):
         f"accepted length {spec_mean_len(m):.3f}, {m['cache/truncates']} truncates, step EMA "
         f"{m['step_ema_s'] * 1e3:.2f} ms, TTFT p50 {m['slo/ttft_p50_s']:.3f} s, TPOT p50 "
         f"{m['slo/tpot_p50_s'] * 1e3:.2f} ms, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, each draw's logits kept")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     want_len = {r.rid: r.max_new for r in reqs}
     for rid, t in out.items():
         if len(t) != want_len[rid] or not all(0 <= x < cfg.vocab_padded for x in t):
@@ -3462,8 +3580,10 @@ def gate_spec(what, cfg, cache, m, info, draft_cfg=None) -> None:
     (SPEC_K when a lane speculated) and for its verify: mpmm seven times a
     layer and once for the head (a draft model of its own: its own layers),
     paged_scatter and paged_gather once a layer on a paged cache (a draft
-    model's dense cache: none), paged_attn and paged_mla_attn never (the
-    drafts and the verify read the cache unfused)."""
+    model's dense cache: none), rowinv_bmm ``rowinv_per_layer`` times a
+    layer (the verify's k + 1 rows in one call a product), paged_attn and
+    paged_mla_attn never (the drafts and the verify read the cache
+    unfused)."""
     rounds = info["rounds"]
     if not rounds or len(rounds) != m["spec/rounds"]:
         raise AssertionError(f"{what}: {len(rounds)} rounds counted, {m['spec/rounds']} in the "
@@ -3476,11 +3596,14 @@ def gate_spec(what, cfg, cache, m, info, draft_cfg=None) -> None:
     Ld = L if draft_cfg is None else draft_cfg.n_layers
     movers = L if cache != "slot" else 0
     draft_movers = movers if draft_cfg is None else 0
+    rowinv, draft_rowinv = (rowinv_per_layer(cfg) * L,
+                            rowinv_per_layer(draft_cfg or cfg) * Ld)
     for i, (_, got, drafted) in enumerate(rounds):
         k = SPEC_K if drafted else 0
         want = {"mpmm": 7 * L + 1 + k * (7 * Ld + 1), "paged_attn": 0, "paged_mla_attn": 0,
                 "paged_scatter": movers + k * draft_movers,
-                "paged_gather": movers + k * draft_movers}
+                "paged_gather": movers + k * draft_movers,
+                "rowinv_bmm": rowinv + k * draft_rowinv}
         have = {n: got.get(n, 0) for n in want}
         if have != want:
             raise AssertionError(f"{what}: round {i} ({'drafted' if drafted else 'no drafts'}) "
@@ -3488,8 +3611,9 @@ def gate_spec(what, cfg, cache, m, info, draft_cfg=None) -> None:
     drafted = sum(d for _, _, d in rounds)
     log(f"{what}: {len(rounds)} rounds ({drafted} with {SPEC_K} draft steps), host syncs a round "
         f"{min(syncs)}-{max(syncs)} ({sum(syncs)} in all); launches a draft step: mpmm "
-        f"{7 * Ld + 1}, paged_scatter / paged_gather {draft_movers}; a verify: mpmm {7 * L + 1}, "
-        f"paged_scatter / paged_gather {movers}; paged_attn and paged_mla_attn none")
+        f"{7 * Ld + 1}, paged_scatter / paged_gather {draft_movers}, rowinv_bmm {draft_rowinv}; "
+        f"a verify: mpmm {7 * L + 1}, paged_scatter / paged_gather {movers}, rowinv_bmm "
+        f"{rowinv}; paged_attn and paged_mla_attn none")
 
 
 def spec_line(what, m, beside, card) -> None:
@@ -3549,15 +3673,15 @@ def spec_path(torch, dev, cfg, policy, params, serial, sampled_serial):
     """Phase 16 (right after phase 14, on phase 3's internlm2 w4a8 kv8
     weights): speculative decoding, ``ServeEngine(..., spec=..., spec_k=
     SPEC_K)``. Every draft step and every verify reads the cache unfused,
-    so each run is held (``held_to_serial``) to a serialized run that reads
-    it unfused: (a) self4 at full depth on slot and paged, phase 3's four
+    so each run's streams must equal (``held_equal``) a serialized run that
+    reads it unfused: (a) self4 at full depth on slot and paged, phase 3's four
     greedy requests, against phase 5's runs; (b) ``mixed_paper`` (its
     8-bit ``attn_out`` and head requantized to 4 bits: real rejections) at
     CUT_LAYERS, self4 on paged (phase 3's four) and on prefix (phase 9's
     five), against serialized runs made here, with truncates > 0 and the
     page pool conserved after every step; (c) phase 13's sampled four at
     CUT_LAYERS, self4 on paged, equal to phase 14's sampled serialized run
-    (``sampled_serial``: streams, rows); (d) ``DraftModel()`` (its reduced
+    (``sampled_serial``: its streams); (d) ``DraftModel()`` (its reduced
     draft at the full vocab) on paged at CUT_LAYERS, phase 3's two shortest
     requests, their prompts cut to DRAFT_PROMPTS tokens (the draft enters
     each prompt token by token). ``gate_spec`` on every
@@ -3585,13 +3709,11 @@ def spec_path(torch, dev, cfg, policy, params, serial, sampled_serial):
         build.reset_launches()  # this speculative run starts here
         out, m, info = spec_serve(torch, dev, cfg, policy, params, cache, requests(cfg, Request))
         launches.update(build.LAUNCHES)  # this speculative run ends here
-        want, m_unf, rows_w = serial[cache]
+        want, m_unf = serial[cache]
         what = f"spec {cache}, self4 ({cfg.name}, {policy.name})"
-        n = held_to_serial(what, requests(cfg, Request), want, out, rows_w, info["rows"],
-                           replayer(torch, dev, cfg, policy, params, cache, False))
+        held_equal(what, want, out)
         gate_spec(what, cfg, cache, m, info)
-        log(f"{what}: {n} partings from phase 5's unfused serialized streams (each at a tie, "
-            f"every tail held to a serialized replay)")
+        log(f"{what}: streams equal phase 5's unfused serialized ones")
         spec_line(what, m, {"serialized fused (phase 3)": serial[f"{cache} fused"][1],
                             "serialized unfused (phase 5)": m_unf}, card)
         del info
@@ -3601,27 +3723,24 @@ def spec_path(torch, dev, cfg, policy, params, serial, sampled_serial):
     mparams = M.init_params(torch.Generator(device=dev).manual_seed(SEED + 16), ccfg, mp,
                             device=dev)
     for cache, reqs in (("paged", requests), ("prefix", prefix_requests)):
-        rows_w: dict = {}
         want, m_w = serve(torch, dev, ccfg, mp, mparams, cache, fused_attn=False,
-                          reqs=reqs(ccfg, Request), rows=rows_w)
+                          reqs=reqs(ccfg, Request))
         out, m, info = spec_serve(torch, dev, ccfg, mp, mparams, cache, reqs(ccfg, Request))
         what = f"spec {cache}, self4 ({ccfg.name} cut to {CUT_LAYERS} layers, {mp.name})"
-        n = held_to_serial(what, reqs(ccfg, Request), want, out, rows_w, info["rows"],
-                           replayer(torch, dev, ccfg, mp, mparams, cache, False))
+        held_equal(what, want, out)
         gate_spec(what, ccfg, cache, m, info)
         if m["cache/truncates"] == 0:
             raise AssertionError(f"{what}: no truncate (lossy drafts must be rejected)")
-        log(f"{what}: {n} partings from the serialized streams; the pool conserved after each of "
+        log(f"{what}: streams equal the serialized ones; the pool conserved after each of "
             f"{info['steps']} steps; {m['cache/truncates']} truncates")
         spec_line(what, m, {"serialized unfused": m_w}, card)
-        del rows_w, info
+        del info
     del mparams
 
-    ser_s, ser_rows = sampled_serial
     sreqs = lambda: sampled_requests(requests(ccfg, Request))  # noqa: E731
     out, m, info = spec_serve(torch, dev, ccfg, policy, cparams, "paged", sreqs())
     what = f"spec paged, self4, sampled ({CUT_LAYERS} layers)"
-    held_to_serial(what, sreqs(), ser_s, out, ser_rows, info["rows"], None)
+    held_equal(what, sampled_serial, out)
     gate_spec(what, ccfg, "paged", m, info)
     log(f"{what}: streams equal phase 14's sampled serialized ones")
     del info
@@ -3630,20 +3749,17 @@ def spec_path(torch, dev, cfg, policy, params, serial, sampled_serial):
     # requests, their prompts cut to DRAFT_PROMPTS tokens
     dreqs = lambda: [Request(rid=r.rid, prompt=r.prompt[:n], max_new=r.max_new)  # noqa: E731
                      for r, n in zip(requests(ccfg, Request), DRAFT_PROMPTS)]
-    rows_w = {}
-    want, m_w = serve(torch, dev, ccfg, policy, cparams, "paged", fused_attn=False, reqs=dreqs(),
-                      rows=rows_w)
+    want, m_w = serve(torch, dev, ccfg, policy, cparams, "paged", fused_attn=False, reqs=dreqs())
     draft = DraftModel()
     out, m, info = spec_serve(torch, dev, ccfg, policy, cparams, "paged", dreqs(), spec=draft)
     what = (f"spec paged, DraftModel ({draft.cfg.name}: {draft.cfg.n_layers} layers, d_model "
             f"{draft.cfg.d_model}, vocab {draft.cfg.vocab}; target {CUT_LAYERS} layers; phase "
             f"3's two shortest requests, prompts cut to {DRAFT_PROMPTS} tokens)")
-    n = held_to_serial(what, dreqs(), want, out, rows_w, info["rows"],
-                       replayer(torch, dev, ccfg, policy, cparams, "paged", False))
+    held_equal(what, want, out)
     gate_spec(what, ccfg, "paged", m, info, draft_cfg=draft.cfg)
-    log(f"{what}: {n} partings from the serialized streams")
+    log(f"{what}: streams equal the serialized ones")
     spec_line(what, m, {"serialized unfused": m_w}, card)
-    del rows_w, info, draft
+    del info, draft
 
     spec_round_ms(torch, dev, cfg, policy, params)
     M_ = N_SLOTS * (SPEC_K + 1)
@@ -3654,21 +3770,200 @@ def spec_path(torch, dev, cfg, policy, params, serial, sampled_serial):
     return dict(launches), row
 
 
-def spec_mla(torch, dev, cfg, policy, params, unfused, unfused_rows) -> None:
+def spec_mla(torch, dev, cfg, policy, params, unfused) -> None:
     """Phase 16's DeepSeek-V3 run (three MLA-dense layers, full width, right
-    after phase 14's): self4 on paged, phase 3's four greedy requests held
-    to phase 8's unfused paged run (``unfused``, its draws' logits
-    ``unfused_rows``), ``gate_spec``."""
+    after phase 14's): self4 on paged, phase 3's four greedy requests equal
+    to phase 8's unfused paged run (``unfused``), ``gate_spec``."""
     from repro_torch.serve import Request
 
     t0 = time.perf_counter()
     out, m, info = spec_serve(torch, dev, cfg, policy, params, "paged", requests(cfg, Request))
     what = f"spec MLA paged, self4 ({cfg.name} cut to {cfg.n_layers} layers)"
-    n = held_to_serial(what, requests(cfg, Request), unfused, out, unfused_rows, info["rows"],
-                       replayer(torch, dev, cfg, policy, params, "paged", False))
+    held_equal(what, unfused, out)
     gate_spec(what, cfg, "paged", m, info)
-    log(f"{what}: {n} partings from phase 8's unfused streams; phase 16 (DeepSeek-V3): "
+    log(f"{what}: streams equal phase 8's unfused ones; phase 16 (DeepSeek-V3): "
         f"{time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------- phase 17
+
+
+def redraw_norms_and_biases(torch, params, seed: int):
+    """Every norm ``scale`` / ``bias`` and linear ``b`` of ``params``
+    redrawn in place from ``seed`` (scales around 1, biases around 0): the
+    placeholder init leaves them at 1 and 0, where a bias the path dropped
+    would not show. Returns how many leaves were redrawn."""
+    g = torch.Generator(device=next(iter(_leaves(params))).device).manual_seed(seed)
+    n = 0
+
+    def walk(node, key=None):
+        nonlocal n
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, k)
+        elif isinstance(node, list):
+            for v in node:
+                walk(v, key)
+        elif key in ("scale", "bias", "b") and node.dtype == torch.float32:
+            r = torch.randn(node.shape, generator=g, device=node.device) * 0.2
+            node.copy_(r + 1 if key == "scale" else r)
+            n += 1
+
+    walk(params)
+    return n
+
+
+def variant_params(torch, dev, cfg, policy, seed):
+    """Seeded w4a8 params of ``cfg`` on the card, norms and biases redrawn."""
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(seed), cfg, policy, device=dev)
+    n = redraw_norms_and_biases(torch, params, seed)
+    torch.cuda.synchronize()
+    nbytes = sum(a.numel() * a.element_size() for a in _leaves(params))
+    log(f"params: {cfg.name}, {cfg.n_layers} layers ({cfg.n_heads} / {cfg.kv_heads} heads of "
+        f"{cfg.head_dim}, d_model {cfg.d_model}, norm {cfg.norm}, qkv bias {cfg.qkv_bias}, "
+        f"window {cfg.window}, vocab {cfg.vocab} padded to {cfg.vocab_padded}), w4a8, "
+        f"{nbytes / 1e9:.2f} GB, {n} norm and bias leaves redrawn, "
+        f"{time.perf_counter() - t0:.1f} s to draw on the card")
+    return params
+
+
+def variant_fused(torch, dev, cfg, policy, params, what) -> tuple[dict, dict]:
+    """Phase 3's four requests on the slot and the paged cache, fused:
+    streams equal; paged_attn once a layer a decode step, paged_scatter once
+    a layer a decode step of the paged run, mpmm at least seven times a
+    layer a decode step. Returns (the paged streams, the launches)."""
+    from repro_torch.kernels import build
+
+    build.reset_launches()  # this variant's fused serving path starts here
+    out_slot, m_slot = serve(torch, dev, cfg, policy, params, "slot")
+    slot_launches = dict(build.LAUNCHES)
+    out_paged, m_paged = serve(torch, dev, cfg, policy, params, "paged")
+    launches = dict(build.LAUNCHES)  # this variant's fused serving path ends here
+    if out_slot != out_paged:
+        raise AssertionError(f"{what}: slot and paged token streams differ")
+    L, steps = cfg.n_layers, m_slot["decode_steps"] + m_paged["decode_steps"]
+    if launches.get("paged_attn", 0) != L * steps:
+        raise AssertionError(f"{what}: {launches.get('paged_attn', 0)} paged_attn launches, want "
+                             f"one a layer a decode step ({L * steps})")
+    if launches.get("mpmm", 0) < 7 * L * steps:
+        raise AssertionError(f"{what}: {launches.get('mpmm', 0)} mpmm launches, want at least "
+                             f"seven a layer a decode step ({7 * L * steps})")
+    once_a_layer("paged_scatter", launches.get("paged_scatter", 0)
+                 - slot_launches.get("paged_scatter", 0), m_paged, cfg, f"{what}, paged")
+    log(f"{what}: slot and paged streams identical, fused; launches {launches}")
+    return out_paged, launches
+
+
+def dense_variants_path(torch, dev, policy, report) -> list:
+    """Phase 17 (after phases 16 and 15 and the MLA path, on weights of its
+    own, norms and biases redrawn): the dense variants at published widths.
+    h2o-danube-1.8b at full depth (24 layers, 32 / 8 heads of 80, window
+    4096): phase 3's four requests on slot and paged, fused (streams equal;
+    ``variant_fused``'s launches), then unfused (streams equal; paged_gather
+    once a layer a decode step of the paged run, rowinv_bmm twice a layer a
+    decode step or prefill chunk); the fused streams printed against the
+    unfused ones, not gated (the two softmax sum in other orders). Then one
+    whole-prompt ``prefill_step`` of phase 11's four prompts into a dense
+    kv8 cache (flash_mha at D 80, once a layer; logits finite) and one
+    fused decode step from it, whose paged_attn calls record each layer's
+    query and cache; ``qkv_decode`` at D 80 runs every layer's attention
+    again (once a layer), within ``row_tol`` (ATTN_TOL at the row's own
+    sizes, as phase 12) of its plain version. Then flash_mha's time per
+    prefill_step and qkv_decode's per call at danube's heads (the kernels
+    line's D 80 rows). qwen1.5-4b (q / k / v biases, vocab 151936 padded to
+    152064 through mpmm's head) and stablelm-3b (LayerNorm, vocab 50304
+    padded to 50432) at published widths cut to CUT_LAYERS: phase 3's four
+    requests on slot and paged, fused, streams equal. Returns the kernels
+    line's D 80 rows."""
+    from repro_torch import configs
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import qkv_decode as QD
+    from repro_torch.models import model as M
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    cfg = configs.get_arch(D80_ARCH)
+    params = variant_params(torch, dev, cfg, policy, SEED + 20)
+    fused, _ = variant_fused(torch, dev, cfg, policy, params, cfg.name)
+    build.reset_launches()  # danube's unfused serving path starts here
+    unf_slot, m_us = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False)
+    unf_paged, m_up = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
+    unf = dict(build.LAUNCHES)  # danube's unfused serving path ends here
+    if unf_slot != unf_paged:
+        raise AssertionError(f"{cfg.name}: unfused slot and paged token streams differ")
+    once_a_layer("paged_gather", unf.get("paged_gather", 0), m_up, cfg,
+                 f"{cfg.name}, unfused paged")
+    calls = sum(m["decode_steps"] + m["prefill_jit_calls"] for m in (m_us, m_up))
+    if unf.get("rowinv_bmm", 0) != 2 * cfg.n_layers * calls or unf.get("paged_attn", 0):
+        raise AssertionError(f"{cfg.name}, unfused: launches {unf}; want rowinv_bmm two a layer "
+                             f"a step or prefill chunk ({2 * cfg.n_layers * calls}), paged_attn "
+                             f"none")
+    log(f"{cfg.name}: unfused slot and paged streams identical; launches {unf}; "
+        f"{tokens_equal(fused, unf_paged)} of the unfused streams equal the fused ones (not "
+        f"gated: the fused and unfused softmax sum in other orders)")
+
+    toks = whole_prompts(torch, dev, cfg)
+    caches = M.init_cache(cfg, policy, N_SLOTS, S_MAX, device=dev)
+    build.reset_launches()  # danube's prefill_step starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = M.prefill_step(params, {"tokens": toks}, caches, cfg, policy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pre = dict(build.LAUNCHES)  # danube's prefill_step ends here
+    if pre.get("flash_mha", 0) != cfg.n_layers or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"{cfg.name} prefill_step: launches {pre}, want flash_mha once a "
+                             f"layer; logits finite: {bool(torch.isfinite(logits.float()).all())}")
+    nxt = M.sample_tokens(logits[:, -1], [0.0] * N_SLOTS)[:, None]
+    pos = torch.full((N_SLOTS,), PREFILL_LEN, dtype=torch.int32, device=dev)
+    seen, paged_attn = [], ops.paged_attn
+
+    def record(q, k, k_s, v, v_s, p, **kw):
+        seen.append((q, k, k_s, v, v_s))
+        return paged_attn(q, k, k_s, v, v_s, p, **kw)
+
+    ops.paged_attn = record
+    try:
+        M.decode_step(params, nxt, pos, caches, cfg, policy, fused_attn=True)
+    finally:
+        ops.paged_attn = paged_attn
+    build.reset_launches()  # danube's qkv_decode path starts here
+    outs = [QD.qkv_decode(q, k, ks, v, vs, PREFILL_LEN, bits=8) for q, k, ks, v, vs in seen]
+    torch.cuda.synchronize()
+    qkv = dict(build.LAUNCHES)  # danube's qkv_decode path ends here
+    if qkv.get("qkv_decode", 0) != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: qkv_decode launched {qkv}, want once a layer")
+    worst = 0.0
+    for i, (out, (q, k, ks, v, vs)) in enumerate(zip(outs, seen)):
+        tol = row_tol(torch, q, k, ks, v, vs, PREFILL_LEN)
+        err = (out - QD.qkv_decode_plain(q, k, ks, v, vs, PREFILL_LEN, bits=8)).abs()
+        if not torch.isfinite(out).all() or bool((err > tol).any()):
+            raise AssertionError(f"{cfg.name} layer {i}: qkv_decode parts from its plain version "
+                                 f"by {float((err / tol).max()):.3f} of row_tol")
+        worst = max(worst, float((err / tol).max()))
+    log(f"{cfg.name}: prefill_step of {N_SLOTS} x {PREFILL_LEN} tokens {wall:.3f} s wall, "
+        f"flash_mha (D {cfg.head_dim}) {pre['flash_mha']} launches; qkv_decode (D "
+        f"{cfg.head_dim}, kv8) over that dense cache at pos {PREFILL_LEN}: {qkv['qkv_decode']} "
+        f"launches, within row_tol of its plain version (largest {worst:.3f} of it)")
+    del seen, outs, caches, params
+    flash = dict(flash_step_row(torch, dev, cfg), at=f"prefill_step, {cfg.name} (D 80)")
+    qrow = dict(qkv_decode_row(torch, dev, cfg), at=f"per call, {cfg.name} (D 80)")
+    rows = [kernel_row(flash, pre, report), kernel_row(qrow, qkv, report)]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for name in VARIANTS[1:]:
+        ccfg = dataclasses.replace(configs.get_arch(name), n_layers=CUT_LAYERS)
+        cparams = variant_params(torch, dev, ccfg, policy, SEED + 21)
+        variant_fused(torch, dev, ccfg, policy, cparams, f"{ccfg.name} ({CUT_LAYERS} layers)")
+        del cparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 17 (dense variants): {time.perf_counter() - t_phase:.1f} s; {card}")
+    return rows
 
 
 # --------------------------------------------------------------- phase 15
@@ -3884,6 +4179,7 @@ def main() -> int:
     check_wdqmm(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
     check_flash_mha(torch, dev, cfg, report)
     check_qkv_decode(torch, dev, cfg, report)
+    check_rowinv(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     t0 = time.perf_counter()
@@ -3909,11 +4205,8 @@ def main() -> int:
     ref_launches = reference_layer_path(torch, dev)
 
     build.reset_launches()  # the unfused paged read starts here
-    drawn = {"slot": {}, "paged": {}}  # each draw's logits, for phase 14
-    unf_slot, m_unf_slot = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False,
-                                 rows=drawn["slot"])
-    unf_paged, m_unf = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False,
-                             rows=drawn["paged"])
+    unf_slot, m_unf_slot = serve(torch, dev, cfg, policy, params, "slot", fused_attn=False)
+    unf_paged, m_unf = serve(torch, dev, cfg, policy, params, "paged", fused_attn=False)
     unf_launches = dict(build.LAUNCHES)  # the unfused paged read ends here
     log(f"launches on the unfused path: {unf_launches}")
     if unf_slot != unf_paged:
@@ -3922,12 +4215,20 @@ def main() -> int:
         raise AssertionError("kernel paged_gather was not launched on the unfused paged path")
     for name in ("paged_scatter", "paged_gather"):
         once_a_layer(name, unf_launches[name], m_unf, cfg, "the unfused paged serving path")
+    # every unfused decode step and every prefill chunk (which reads the
+    # cache unfused) runs q . k and p . v through rowinv_bmm once a layer
+    calls = sum(m["decode_steps"] + m["prefill_jit_calls"] for m in (m_unf_slot, m_unf))
+    if unf_launches.get("rowinv_bmm", 0) != 2 * cfg.n_layers * calls:
+        raise AssertionError(f"the unfused path: {unf_launches.get('rowinv_bmm', 0)} rowinv_bmm "
+                             f"launches, want two a layer a step or prefill chunk "
+                             f"({2 * cfg.n_layers * calls})")
     same = sum(a == b for rid in out_paged for a, b in zip(out_paged[rid], unf_paged[rid]))
     log(f"unfused slot and unfused paged token streams identical; {same} of "
         f"{sum(len(t) for t in out_paged.values())} tokens equal the fused paged streams "
         f"(not gated: the fused and unfused softmax sum in another order)")
     launches.update({k: ref_launches.get(k, 0) for k in ("conv2d", "qntpack")})
     launches["paged_gather"] = unf_launches["paged_gather"]
+    launches["rowinv_bmm"] = unf_launches["rowinv_bmm"]
 
     prefix_launches, _ = prefix_path(torch, dev, cfg, policy, params)
     launches["paged_copy"] = prefix_launches["paged_copy"]
@@ -3944,8 +4245,7 @@ def main() -> int:
     rows.insert(4, kernel_row(flash_row, prefill_launches, report))
     qkv_row, qkv_launches = dense_cache_path(torch, dev, cfg, policy, params, report)
     sampled_path(torch, dev, cfg, policy, params)
-    serial = {"slot": (unf_slot, m_unf_slot, drawn["slot"]),
-              "paged": (unf_paged, m_unf, drawn["paged"]),
+    serial = {"slot": (unf_slot, m_unf_slot), "paged": (unf_paged, m_unf),
               "slot fused": (out_slot, m_slot), "paged fused": (out_paged, m_paged)}
     cont_launches, mixed_row, sampled_serial = continuous_path(torch, dev, cfg, policy, params,
                                                                serial)
@@ -3954,13 +4254,16 @@ def main() -> int:
     rows.insert(3, kernel_row(verify_row, spec_launches, report))
     del sampled_serial
     checkpoint_path(torch, dev, cfg, policy, params, out_slot, out_paged)
-    del params, serial, drawn
+    del params, serial
     gc.collect()
     torch.cuda.empty_cache()
 
     mla_row, mla_launches = mla_path(torch, dev, policy, report)
     rows.append(kernel_row(mla_row, mla_launches, report))
     rows.append(kernel_row(qkv_row, qkv_launches, report))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += dense_variants_path(torch, dev, policy, report)
     log(gpu_line())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,10 +8,20 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import deepseek_v3_671b, internlm2_1p8b, refconv
+from repro_torch.configs import (
+    deepseek_v3_671b,
+    h2o_danube_1p8b,
+    internlm2_1p8b,
+    qwen1p5_4b,
+    refconv,
+    stablelm_3b,
+)
 from repro_torch.models.model import ArchConfig
 
-ARCHS: dict[str, ArchConfig] = {m.ARCH.name: m.ARCH for m in (deepseek_v3_671b, internlm2_1p8b)}
+ARCHS: dict[str, ArchConfig] = {
+    m.ARCH.name: m.ARCH
+    for m in (deepseek_v3_671b, internlm2_1p8b, h2o_danube_1p8b, qwen1p5_4b, stablelm_3b)
+}
 #: the paper's Reference Layer (a conv shape, not an LM architecture)
 REFCONV = refconv.ARCH
 

@@ -1,0 +1,8 @@
+"""qwen1.5-4b [dense]: 40L d_model=2560 20H (kv=20) d_ff=6912
+vocab=151936, QKV bias [hf:Qwen/Qwen1.5 family]. head_dim=128."""
+from repro_torch.models.model import ArchConfig
+
+ARCH = ArchConfig(
+    name="qwen1.5-4b", family="dense", n_layers=40, d_model=2560,
+    n_heads=20, kv_heads=20, d_ff=6912, vocab=151936, qkv_bias=True,
+)

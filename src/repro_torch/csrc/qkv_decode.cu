@@ -106,8 +106,8 @@ struct Smem {
   }
 };
 
-// BPL bytes of a lane's chunk of a staged row as 32-bit words (the last
-// word's high bytes unused when BPL < 4)
+// BPL bytes of a lane's chunk of a staged row as 32-bit words, little
+// endian (the last word's high bytes unused; w starts zeroed)
 template <int BPL>
 __device__ __forceinline__ void read_chunk(const unsigned char* p, uint32_t (&w)[(BPL + 3) / 4]) {
   if constexpr (BPL == 16) {
@@ -120,8 +120,11 @@ __device__ __forceinline__ void read_chunk(const unsigned char* p, uint32_t (&w)
     w[0] = *reinterpret_cast<const uint32_t*>(p);
   } else if constexpr (BPL == 2) {
     w[0] = *reinterpret_cast<const uint16_t*>(p);
-  } else {
+  } else if constexpr (BPL == 1) {
     w[0] = *p;
+  } else {  // D 80: 10 bytes a lane at kv8, 5 at kv4, on no word boundary
+#pragma unroll
+    for (int i = 0; i < BPL; ++i) w[i / 4] |= (uint32_t)p[i] << (8 * (i % 4));
   }
 }
 
@@ -356,7 +359,7 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
 // q (B, Hq, D) f32; kq / vq (B, S, Hkv, D * bits / 8) int8 codes (bits 8, or
 // 4: two signed nibbles a byte, element 2i low), 16-byte aligned; ks / vs
 // (B, S, Hkv) f32; out (B, Hq, D) f32; all contiguous; part f32 scratch of
-// B * Hkv * ceil(S / KPS) * (Hq / Hkv) * (D + 2) floats. D in {16, 128},
+// B * Hkv * ceil(S / KPS) * (Hq / Hkv) * (D + 2) floats. D in {16, 80, 128},
 // bits in {8, 4}, Hq a multiple of Hkv, S >= 1; keys with index > pos are
 // masked (pos < 0: all of them, the mean of v). Launches the split pass and
 // the merge; returns cudaGetLastError() after them, or
@@ -369,6 +372,8 @@ extern "C" int qkv_decode_launch(const void* q, const void* kq, const void* ks, 
 #define QKV_ARGS q, kq, ks, vq, vs, out, part, B, Hq, Hkv, S, pos, scale, st
   if (D == 16 && bits == 8) return launch<16, 8>(QKV_ARGS);
   if (D == 16 && bits == 4) return launch<16, 4>(QKV_ARGS);
+  if (D == 80 && bits == 8) return launch<80, 8>(QKV_ARGS);  // h2o-danube-1.8b, stablelm-3b
+  if (D == 80 && bits == 4) return launch<80, 4>(QKV_ARGS);
   if (D == 128 && bits == 8) return launch<128, 8>(QKV_ARGS);  // internlm2-1.8b
   if (D == 128 && bits == 4) return launch<128, 4>(QKV_ARGS);
 #undef QKV_ARGS

@@ -29,7 +29,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 #: one shared library per source; the C entry points each one exports
 SOURCES = ("mpmm", "wdqmm", "paged_attn", "paged_mla_attn", "flash_mha", "paged_scatter",
-           "paged_gather", "paged_copy", "qntpack", "conv2d", "qkv_decode")
+           "paged_gather", "paged_copy", "qntpack", "conv2d", "qkv_decode", "rowinv_bmm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -21,7 +21,11 @@ width w), ``paged_gather``,
 gather or scatter call moves a group of up to four leaves in one launch, a
 copy call any number of leaves),
 ``paged_attn`` and ``paged_mla_attn`` (one cell per KV width each),
-``flash_mha`` (one cell: f32 math over bf16 or f32 operands).
+``flash_mha`` (one cell: f32 math over bf16 or f32 operands): the
+kernels of the reference's Pallas call sites. Beside them, ``rowinv_bmm``
+(one cell): the port's own kernel for the f32 einsums of the unfused
+attention, which the reference leaves to XLA (:data:`PORT_OWN_OPS`, held
+to both implementations apart from that gate).
 """
 
 from __future__ import annotations
@@ -69,6 +73,10 @@ IMPLS = ("cuda", "torch")
 #: KV-cache storage widths (bf16, int8, packed int4); paged_attn and
 #: paged_mla_attn key on them.
 KV_BITS = (None, 8, 4)
+
+#: the port's own kernels: no Pallas call site of the reference stands
+#: behind them, so they stay out of the TPU kernels' coverage gate
+PORT_OWN_OPS = ("rowinv_bmm",)
 
 
 def register(op: str, *, x_bits: Optional[int] = None, w_bits: Optional[int] = None,
@@ -122,7 +130,8 @@ def validate_coverage() -> None:
     cover all 27 permutations, qntpack every output width, wdqmm every
     weight width, the page movers
     (paged_gather, paged_scatter, paged_copy) and flash_mha one cell each,
-    paged_attn and paged_mla_attn every KV width, on both implementations."""
+    paged_attn and paged_mla_attn every KV width, on both implementations;
+    and, apart, the port's own kernels (:data:`PORT_OWN_OPS`) one cell each."""
     missing: list[str] = []
     for impl in IMPLS:
         for op in ("mpmm", "conv2d"):
@@ -144,6 +153,8 @@ def validate_coverage() -> None:
             for b in KV_BITS:
                 if b not in have_kv:
                     missing.append(f"{op}[kv={b}]@{impl}")
+        missing += [f"{op}@{impl} (the port's own)" for op in PORT_OWN_OPS
+                    if not coverage(op, impl)]
     if missing:
         raise RuntimeError(f"kernel matrix has {len(missing)} unregistered cells: {missing}")
 
@@ -193,6 +204,7 @@ def _register_library() -> None:
         paged_scatter_leaves_ref,
     )
     from repro_torch.kernels.qntpack import qntpack_cuda
+    from repro_torch.kernels.rowinv import rowinv_einsum_cuda, rowinv_einsum_ref
     from repro_torch.kernels.ref import (
         conv2d_ref,
         flash_mha_ref,
@@ -234,6 +246,8 @@ def _register_library() -> None:
     register("paged_copy", impl="torch", fn=paged_copy_leaves_ref, name="paged_copy_ref")
     register("flash_mha", impl="cuda", fn=flash_mha_cuda, name="flash_mha")
     register("flash_mha", impl="torch", fn=flash_mha_ref, name="flash_mha_ref")
+    register("rowinv_bmm", impl="cuda", fn=rowinv_einsum_cuda, name="rowinv_bmm")
+    register("rowinv_bmm", impl="torch", fn=rowinv_einsum_ref, name="rowinv_bmm_ref")
     for kv_bits in KV_BITS:
         tag = "bf16" if kv_bits is None else f"kv{kv_bits}"
         register("paged_attn", w_bits=kv_bits, impl="cuda",

@@ -4,7 +4,9 @@
 leaves in one launch: ``paged_gather_leaves``, ``paged_scatter_leaves``),
 ``paged_copy`` (one leaf, or any number in one launch:
 ``paged_copy_leaves``), ``paged_attn``,
-``paged_mla_attn`` and ``flash_mha``, plus the quantize-and-pack helpers.
+``paged_mla_attn`` and ``flash_mha``, the port's own ``rowinv_einsum``
+(the unfused attention's f32 products, row-invariant on the card), plus
+the quantize-and-pack helpers.
 
 Every call routes through the dispatch registry. ``impl="auto"`` launches
 the CUDA kernel for CUDA tensors and uses the plain PyTorch version for CPU
@@ -282,6 +284,21 @@ def flash_mha(
     transposed here."""
     entry = dispatch.lookup("flash_mha", device=q.device, impl=impl)
     return entry.fn(q, k, v, causal=causal, window=window)
+
+
+def rowinv_einsum(
+    spec: str,  # a two-operand einsum, e.g. "bqhd,bkhd->bhqk"
+    a: torch.Tensor,  # f32, the query rows' operand (row letter q or s)
+    b: torch.Tensor,  # f32
+    *,
+    impl: Impl = "auto",
+) -> torch.Tensor:
+    """``torch.einsum(spec, a, b)`` in f32. On the card through the
+    rowinv_bmm kernel: every output one FMA chain over the contraction in
+    order, so a query row has the same bits whatever number of rows is
+    computed beside it; on CPU tensors the einsum itself."""
+    entry = dispatch.lookup("rowinv_bmm", device=a.device, impl=impl)
+    return entry.fn(spec, a, b)
 
 
 # ------------------------------------------------------- quantize-and-pack IO

@@ -239,7 +239,6 @@ def attn_apply(
     attend_cached: bool = False,
     block_table: Optional[torch.Tensor] = None,
     fused: bool = False,
-    _rowwise: bool = False,
 ):
     """Returns (y, cache). Without a cache the whole sequence attends
     causally through the flash_mha kernel. With a dense cache and S > 1
@@ -250,13 +249,12 @@ def attn_apply(
     kernel (dense or paged cache); otherwise the step attends through the
     dequantized cache in one softmax pass (a paged cache is gathered into
     logical rows first), which is also the ``attend_cached`` path of chunked
-    prefill. ``_rowwise`` (internal: only the speculative verify sets it)
-    runs that softmax one query row at a time, each as
-    a decode step (S = 1) runs it: the f32 einsums sum in an order that
-    depends on the number of query rows (cuBLAS, and the CPU's BLAS, pick
-    their kernel by shape), so a row then has a decode step's bits (the
-    speculative verify's rule: its accepted rows must be the serialized
-    engine's)."""
+    prefill, of a continuous mixed step and of a speculative verify. Its
+    f32 products go through ``ops.rowinv_einsum``: on the card a query row
+    gets the same bits whatever number of rows the step computes (a decode
+    step's one, a mixed step's or a verify's window), so those engines
+    emit the serialized engine's tokens; on the CPU they are the einsums
+    themselves."""
     B, S, _ = x.shape
     lp_qkv, lp_out = policy.of("attn_qkv"), policy.of("attn_out")
     q = linear_apply(params["wq"], x, lp_qkv, impl=impl).reshape(B, S, cfg.n_heads, cfg.head_dim)
@@ -295,18 +293,14 @@ def attn_apply(
         k_idx = torch.arange(kd.shape[1], device=x.device)
         qpos = pos_b[:, None] + torch.arange(S, device=x.device)[None]  # (B, S)
 
-        def attend(qr, qp):  # query rows (B, s, H, hd) at positions qp (B, s)
-            s = torch.einsum("bqhd,bkhd->bhqk", qr.to(torch.float32), kk)
-            s = s / (cfg.head_dim**0.5)
-            valid = k_idx[None, None, :] <= qp[:, :, None]  # (B, s, Sk)
-            if cfg.window is not None:
-                valid &= (qp[:, :, None] - k_idx[None, None, :]) < cfg.window
-            s = s.masked_fill(~valid[:, None], BIG_NEG)
-            p = torch.softmax(s, dim=-1)
-            return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(x.dtype)
-
-        y = (torch.cat([attend(q[:, j:j + 1].contiguous(), qpos[:, j:j + 1]) for j in range(S)],
-                       dim=1) if _rowwise else attend(q, qpos))
+        s = ops.rowinv_einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kk, impl=impl)
+        s = s / (cfg.head_dim**0.5)
+        valid = k_idx[None, None, :] <= qpos[:, :, None]  # (B, S, Sk)
+        if cfg.window is not None:
+            valid &= (qpos[:, :, None] - k_idx[None, None, :]) < cfg.window
+        s = s.masked_fill(~valid[:, None], BIG_NEG)
+        p = torch.softmax(s, dim=-1)
+        y = ops.rowinv_einsum("bhqk,bkhd->bqhd", p, vv, impl=impl).to(x.dtype)
 
     y = y.reshape(B, S, cfg.q_dim)
     return linear_apply(params["wo"], y, lp_out, impl=impl), cache
@@ -365,7 +359,6 @@ def mla_apply(
     attend_cached: bool = False,
     block_table: Optional[torch.Tensor] = None,
     fused: bool = False,
-    _rowwise: bool = False,
 ):
     """MLA over the latent cache, serving branches. Returns (y, cache).
 
@@ -376,8 +369,8 @@ def mla_apply(
     which W_uv is applied here. Otherwise (unfused decode, and the
     ``attend_cached`` chunks of prefill) the latents are dequantized (a
     paged cache gathered first through paged_gather) and attended with the
-    absorbed einsums of the reference; ``_rowwise`` runs them one query row
-    at a time, as :func:`attn_apply` does."""
+    absorbed einsums of the reference, through ``ops.rowinv_einsum`` as in
+    :func:`attn_apply`."""
     B, S, _ = x.shape
     H = cfg.n_heads
     lp, lp_out = policy.of("attn_qkv"), policy.of("attn_out")
@@ -433,21 +426,16 @@ def mla_apply(
         t_idx = torch.arange(c_all.shape[1], device=x.device)
         qpos = pos_b[:, None] + torch.arange(S, device=x.device)[None]  # (B, S)
 
-        def attend(qn, qr, qp):  # query rows (B, s, H, .) at positions qp (B, s)
-            q_lat = torch.einsum("bshd,hdc->bshc", qn.to(torch.float32), w_uk)
-            s_lat = torch.einsum("bshc,btc->bhst", q_lat, c_all)
-            # rope score: every head shares the single rope key
-            s_rope = torch.einsum("bshd,btd->bhst", qr.to(torch.float32), r_f)
-            s = (s_lat + s_rope) / ((cfg.d_nope + cfg.d_rope) ** 0.5)
-            valid = t_idx[None, None, :] <= qp[:, :, None]
-            s = s.masked_fill(~valid[:, None], BIG_NEG)
-            p = torch.softmax(s, dim=-1)
-            ctx = torch.einsum("bhst,btc->bshc", p, c_all)
-            return torch.einsum("bshc,hdc->bshd", ctx, w_uv).to(x.dtype)  # (B, s, H, d_v)
-
-        y = (torch.cat([attend(q_nope[:, j:j + 1].contiguous(), q_rope[:, j:j + 1].contiguous(),
-                               qpos[:, j:j + 1]) for j in range(S)], dim=1)
-             if _rowwise else attend(q_nope, q_rope, qpos))
+        q_lat = ops.rowinv_einsum("bshd,hdc->bshc", q_nope.to(torch.float32), w_uk, impl=impl)
+        s_lat = ops.rowinv_einsum("bshc,btc->bhst", q_lat, c_all, impl=impl)
+        # rope score: every head shares the single rope key
+        s_rope = ops.rowinv_einsum("bshd,btd->bhst", q_rope.to(torch.float32), r_f, impl=impl)
+        s = (s_lat + s_rope) / ((cfg.d_nope + cfg.d_rope) ** 0.5)
+        valid = t_idx[None, None, :] <= qpos[:, :, None]
+        s = s.masked_fill(~valid[:, None], BIG_NEG)
+        p = torch.softmax(s, dim=-1)
+        ctx = ops.rowinv_einsum("bhst,btc->bshc", p, c_all, impl=impl)
+        y = ops.rowinv_einsum("bshc,hdc->bshd", ctx, w_uv, impl=impl).to(x.dtype)  # (B,S,H,d_v)
 
     y = y.reshape(B, S, H * cfg.d_v)
     return linear_apply(params["wo"], y, lp_out, impl=impl), cache

@@ -67,6 +67,10 @@ class ArchConfig:
     norm: str = "rms"
     act: str = "silu"
     rope_theta: float = 10_000.0
+    # stablelm: 0.25. Carried to mirror the reference's config, where no code
+    # reads it (rotary runs over the whole head there): the port applies full
+    # rotary too, or it would part from the reference
+    rope_pct: float = 1.0
     # moe
     n_experts: int = 0
     top_k: int = 0
@@ -203,12 +207,12 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, policy: PrecisionPolicy, 
 
 
 def _run_stack(params, x, pos, cfg: ArchConfig, policy, *, impl, caches=None, cache_pos=None,
-               attend_cached=False, block_tables=None, fused_attn=False, rowwise=False):
+               attend_cached=False, block_tables=None, fused_attn=False):
     """The layer stack; ``caches`` None runs it without a cache (the
-    whole-sequence forward). ``rowwise``: see ``attention.attn_apply``."""
+    whole-sequence forward)."""
     _, nfn = NORMS[cfg.norm]
     kw = dict(impl=impl, cache_pos=cache_pos, attend_cached=attend_cached,
-              block_table=block_tables, fused=fused_attn, _rowwise=rowwise)
+              block_table=block_tables, fused=fused_attn)
     if caches is None:
         caches = [None] * len(params["layers"])
     for lp, cache, kind in zip(params["layers"], caches, _layer_kinds(cfg), strict=True):
@@ -496,11 +500,11 @@ def spec_verify_step(params: dict, tokens: torch.Tensor, pos, n_real, temps, top
     (B, W = k+1) is ``[last emitted, draft_0, .., draft_{k-1}]`` for a
     speculating lane (``n_real[b] == W``), a right-padded decode lane
     (``n_real[b] == 1``) or idle (0). The forward and the per-lane pad scrub
-    are :func:`mixed_step`'s, with the softmax over the cache run one query
-    row at a time (``rowwise``): each accepted row then has the bits a
-    serialized decode step gives it, on the card too, so the cache rows a
-    round keeps and the tokens it emits are the serialized engine's. The
-    head runs over all W positions, and every
+    are :func:`mixed_step`'s: all W query rows attend in one call, and on
+    the card (``ops.rowinv_einsum``) each accepted row has the bits a
+    serialized decode step gives it, so the cache rows a round keeps and the
+    tokens it emits are the serialized engine's. The head runs over all W
+    positions, and every
     offset is sampled in the same call through :func:`sample_tokens`: offset
     j of lane b draws at counter ``counters[b] + j``, the emission index the
     serialized engine would use there, on the flattened (B * W) lanes. The
@@ -510,7 +514,7 @@ def spec_verify_step(params: dict, tokens: torch.Tensor, pos, n_real, temps, top
     Returns the targets (B, W) int32 on the device; offsets past a lane's
     ``n_real`` hold tokens the caller never reads."""
     x, _ = _window_stack(params, tokens, pos, n_real, caches, cfg, policy, impl=impl,
-                         block_tables=block_tables, page_size=page_size, rowwise=True,
+                         block_tables=block_tables, page_size=page_size,
                          refusal="speculative verify unsupported for family {family!r} "
                                  "(supported: {supported}); these families lack the "
                                  "position-indexed cache the multi-token write needs")
@@ -530,10 +534,10 @@ def spec_verify_step(params: dict, tokens: torch.Tensor, pos, n_real, temps, top
 
 def _window_stack(params: dict, tokens: torch.Tensor, pos, n_real, caches: list,
                   cfg: ArchConfig, policy: PrecisionPolicy, *, impl, block_tables, page_size,
-                  refusal: str, rowwise: bool = False):
+                  refusal: str):
     """The forward :func:`mixed_step` and :func:`spec_verify_step` share:
     embed the (B, W) window, run the stack through the cache at ``pos``
-    (``attend_cached``; ``rowwise``: the softmax one query row at a time),
+    (``attend_cached``),
     then scrub each lane's rows past ``n_real`` (the caches are written in
     place). Returns (hidden rows (B, W, d) before the final norm,
     ``n_real`` as a (B,) int32 tensor on the device)."""
@@ -548,7 +552,7 @@ def _window_stack(params: dict, tokens: torch.Tensor, pos, n_real, caches: list,
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(B)
     n_real = torch.as_tensor(n_real, dtype=torch.int32, device=dev).reshape(B)
     x = _run_stack(params, x, _positions(pos, B, W, dev), cfg, policy, impl=impl, caches=caches,
-                   cache_pos=pos, attend_cached=True, block_tables=block_tables, rowwise=rowwise)
+                   cache_pos=pos, attend_cached=True, block_tables=block_tables)
     _scrub_lanes(caches, pos, n_real, W, block_tables, page_size)
     return x, n_real
 

@@ -130,11 +130,15 @@ class KernelStatsAccumulator:
 
     def op_stats(self) -> dict:
         """``kernels/<op>_calls`` per op, and ``kernels/<op>_s`` (always 0.0:
-        per-op timing comes with the tracer, not ported yet)."""
+        per-op timing comes with the tracer, not ported yet). The ops are the
+        reference's: the port's own kernels (``dispatch.PORT_OWN_OPS``, the
+        unfused attention's products, which the reference leaves to XLA)
+        have no key here; ``kernels.build.LAUNCHES`` counts them."""
         self.harvest()
         calls: collections.Counter = collections.Counter()
         for k, v in self._counts.items():
-            calls[k.op] += v
+            if k.op not in dispatch.PORT_OWN_OPS:
+                calls[k.op] += v
         out: dict = {}
         for op in sorted(calls):
             out[f"kernels/{op}_calls"] = calls[op]

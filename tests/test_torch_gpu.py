@@ -1060,7 +1060,8 @@ def test_weight_only_engine_on_cuda_matches_cpu(dev, policy_name):
 #: read through (B, H, S, D) strides, a window without causality, GQA 2
 #: over two q tiles, windows whose last row sees one key (Sq = Sk + window - 1);
 #: then bf16 at D 16 (the tensor-core P . V of the reduced configs), causal,
-#: windowed over three q tiles, and windowed without causality
+#: windowed over three q tiles, and windowed without causality; then D 80
+#: (h2o-danube-1.8b's and stablelm-3b's heads) in bf16 and f32
 FLASH_CASES = [
     (2, 35, 35, 2, 2, 16, torch.float32, "bshd", True, None),
     (2, 35, 35, 4, 2, 16, torch.float32, "bshd", True, None),
@@ -1077,6 +1078,11 @@ FLASH_CASES = [
     (2, 35, 35, 4, 2, 16, torch.bfloat16, "bshd", True, None),
     (2, 130, 130, 2, 1, 16, torch.bfloat16, "bhsd", True, 10),
     (1, 60, 30, 4, 1, 16, torch.bfloat16, "bshd", False, 31),
+    (2, 300, 300, 32, 8, 80, torch.bfloat16, "bshd", True, None),
+    (2, 200, 200, 32, 32, 80, torch.bfloat16, "bhsd", True, 70),
+    (2, 100, 300, 32, 8, 80, torch.bfloat16, "bshd", True, None),
+    (2, 35, 35, 4, 2, 80, torch.float32, "bshd", True, None),
+    (1, 70, 90, 4, 1, 80, torch.float32, "bhsd", False, 20),
 ]
 
 
@@ -1132,14 +1138,14 @@ def test_flash_mha_bf16_at_model_scale(dev):
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v", "qkv"])
-@pytest.mark.parametrize("D", [16, 128])
+@pytest.mark.parametrize("D", [16, 128, 80])
 def test_flash_mha_bf16_narrow_rows(dev, which, D):
     """Operands whose rows start 4 bytes past a 16-byte boundary take the
     kernel's 4-byte staging path: within FLASH_TOL of the plain version,
     twice bit-identical, and bit-identical to the 16-byte path on the same
     values (both stage the same bytes)."""
     g = torch.Generator().manual_seed(D)
-    Hq, Hkv = (16, 8) if D == 128 else (4, 2)
+    Hq, Hkv = {128: (16, 8), 80: (32, 8)}.get(D, (4, 2))
     q, k, v = _flash_operands(g, dev, 2, 150, 150, Hq, Hkv, D, torch.bfloat16, "bshd")
     wide = ops.flash_mha(q, k, v, causal=True, window=70, impl="cuda")
     q2, k2, v2 = (_offset(t, 4) if name in which else t for name, t in zip("qkv", (q, k, v)))
@@ -1238,7 +1244,8 @@ def test_forward_and_prefill_step_on_cuda_match_cpu(dev):
 # ------------------------------------------------------------- qkv_decode
 
 #: (B, S, Hq, Hkv, D, bits, pos, bs): the reference test's shapes and pos
-#: edges, then internlm2's full shape at kv8 and kv4
+#: edges, then internlm2's full shape at kv8 and kv4, then h2o-danube-1.8b's
+#: (32 / 8 heads of 80: 80-byte rows at kv8, 40 at kv4)
 QKV_CASES = ([(2, 32, 2 * gqa, 2, 16, bits, pos, bs)
               for bits, gqa, pos, bs in ((8, 1, 30, 8), (8, 2, 12, 8), (4, 1, 31, 8),
                                          (8, 2, -1, 8), (4, 2, 0, 32), (8, 1, 8, 8))]
@@ -1246,7 +1253,9 @@ QKV_CASES = ([(2, 32, 2 * gqa, 2, 16, bits, pos, bs)
                 for pos in (0, 511, 1023, -1)]
              + [(3, 100, 16, 8, 128, 8, 70, 100)]  # S below one run of keys, not a multiple of 8
              + [(4, 1024, 16, 8, 128, 8, 900, 512),  # pos inside the last run of keys
-                (2, 128, 16, 8, 128, 4, 127, 128)])  # exactly one run of keys
+                (2, 128, 16, 8, 128, 4, 127, 128)]  # exactly one run of keys
+             + [(4, 1024, 32, 8, 80, bits, pos, 512) for bits in (8, 4)  # danube's heads
+                for pos in (0, 511, 900, 1023, -1)])
 
 
 def _qkv_operands(g, dev, B, S, Hq, Hkv, D, bits):
@@ -1542,8 +1551,8 @@ def test_spec_engine_on_cuda_holds_to_unfused_and_syncs_once_a_round(dev):
     """Speculative decoding on the card (reduced internlm2-1.8b, self4 under
     w4a8 and mixed_paper's lossy self-draft, paged, ``spec_k=3``): the
     greedy streams equal the non-speculative unfused engine's on the card
-    (the verify's softmax runs one query row at a time, as a decode step's,
-    so its rows have the same bits). Each round makes at most one host sync
+    (the verify's k + 1 rows attend in one call through the row-invariant
+    rowinv_bmm kernel, so each has a decode step's bits). Each round makes at most one host sync
     (drafts and targets come back in one copy); the drafts and the verify
     read the cache unfused (paged_gather, no paged_attn)."""
     from repro_torch.serve.boundary import counting_syncs
@@ -1576,6 +1585,7 @@ def test_spec_engine_on_cuda_holds_to_unfused_and_syncs_once_a_round(dev):
         m = eng.metrics()
         assert m["spec/rounds"] == len(syncs) and m["spec/accepted"] > 0
         assert build.LAUNCHES["paged_attn"] == 0 and build.LAUNCHES["paged_gather"] > 0
+        assert build.LAUNCHES["rowinv_bmm"] > 0
 
 
 def test_checkpoint_round_trip_lands_on_cuda(dev, tmp_path):
@@ -1620,3 +1630,175 @@ def test_checkpoint_round_trip_lands_on_cuda(dev, tmp_path):
         assert build.LAUNCHES["mpmm"] > 0 and build.LAUNCHES["paged_scatter"] > 0
         if mode == "train":
             assert streams(convert_model_to_serving(got, policy)) == streams(got)
+
+
+# ------------------------------------------------------------- rowinv_bmm
+
+#: the unfused attention's seven f32 products at the serving shapes: letter
+#: sizes of internlm2-1.8b's GQA read (4 slots, 16 heads of 128, 1024 cache
+#: rows) and DeepSeek-V3's absorbed MLA read (128 heads, kv_lora 512,
+#: d_nope 128, d_rope 64, d_v 128); the row letter (q or s) takes 1..64
+ROWINV_CASES = [
+    ("bqhd,bkhd->bhqk", dict(b=4, h=16, d=128, k=1024)),
+    ("bhqk,bkhd->bqhd", dict(b=4, h=16, d=128, k=1024)),
+    ("bshd,hdc->bshc", dict(b=4, h=128, d=128, c=512)),
+    ("bshc,btc->bhst", dict(b=4, h=128, c=512, t=1024)),
+    ("bshd,btd->bhst", dict(b=4, h=128, d=64, t=1024)),
+    ("bhst,btc->bshc", dict(b=4, h=128, t=1024, c=512)),
+    ("bshc,hdc->bshd", dict(b=4, h=128, c=512, d=128)),
+]
+ROW_COUNTS = (1, 5, 16, 64)
+
+
+def _rowinv_operands(g, dev, spec, sizes, rows):
+    from repro_torch.kernels.rowinv import plan
+
+    p = plan(spec)
+    size = dict(sizes, **{p.m: rows})
+    return [torch.randn([size[c] for c in letters], generator=g).to(dev)
+            for letters in (p.a, p.b)]
+
+
+@pytest.mark.parametrize("spec,sizes", ROWINV_CASES, ids=[c[0] for c in ROWINV_CASES])
+def test_rowinv_kernel_row_invariant_and_within_tol(dev, spec, sizes):
+    """The first query row alone has the same bits as among 5, 16 and 64
+    rows (and read through a strided view of the 64); every call within
+    TOL * (1 + max |einsum|) of ``torch.einsum`` and of the exact (f64)
+    product; the same call twice bit-identical; one launch a call."""
+    from repro_torch.kernels.rowinv import TOL, plan
+
+    p = plan(spec)
+    g = torch.Generator().manual_seed(len(spec) + sum(sizes.values()))
+    a, b = _rowinv_operands(g, dev, spec, sizes, max(ROW_COUNTS))
+    ax, ox = p.a.index(p.m), p.out.index(p.m)
+    first = None
+    for rows in ROW_COUNTS:
+        part = a.narrow(ax, 0, rows).contiguous()
+        n0 = build.LAUNCHES["rowinv_bmm"]
+        got = ops.rowinv_einsum(spec, part, b, impl="cuda")
+        assert build.LAUNCHES["rowinv_bmm"] == n0 + 1
+        assert torch.equal(got, ops.rowinv_einsum(spec, part, b, impl="cuda"))
+        want = torch.einsum(spec, part, b)
+        exact = torch.einsum(spec, part.double(), b.double())
+        bound = TOL * (1 + float(want.abs().max()))
+        assert float((got - want).abs().max()) <= bound, rows
+        assert float((got.double() - exact).abs().max()) <= bound, rows
+        row = got.narrow(ox, 0, 1)
+        if first is None:
+            first = row
+        assert torch.equal(row, first), rows
+    strided = ops.rowinv_einsum(spec, a, b, impl="cuda").narrow(ox, 0, 1)
+    assert torch.equal(strided, first)
+
+
+def test_rowinv_kernel_refuses_what_it_cannot_take(dev):
+    """Non-f32 operands, operands on two devices and an einsum that is not
+    one batched product raise; nothing falls back to the einsum."""
+    g = torch.Generator().manual_seed(9)
+    a, b = _rowinv_operands(g, dev, *ROWINV_CASES[0], 2)
+    n0 = build.LAUNCHES["rowinv_bmm"]
+    with pytest.raises(TypeError):
+        ops.rowinv_einsum(ROWINV_CASES[0][0], a.half(), b, impl="cuda")
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.rowinv_einsum(ROWINV_CASES[0][0], a, b.cpu(), impl="cuda")
+    with pytest.raises(ValueError, match="contraction"):
+        ops.rowinv_einsum("bqhd,bkhd->bhqkd", a, b, impl="cuda")
+    assert build.LAUNCHES["rowinv_bmm"] == n0
+
+
+def test_unfused_decode_and_mixed_step_bit_equal_on_cuda(dev):
+    """Reduced internlm2-1.8b and DeepSeek-V3 (its two MLA layers), w4a8,
+    paged: one unfused decode step and one mixed step of the same four
+    decode lanes (width 16, one real token each) from copies of one cache
+    give bit-equal logits on the card, the products through rowinv_bmm."""
+    rng = np.random.RandomState(2)
+    for arch in ("internlm2-1.8b", "deepseek-v3-671b"):
+        cfg = configs.reduced(configs.get_arch(arch))
+        if cfg.family == "mla_moe":
+            cfg = dataclasses.replace(cfg, dense_layers=2)
+        policy = get_policy("w4a8")
+        params = M.init_params(torch.Generator(device=dev).manual_seed(4), cfg, policy,
+                               device=dev)
+        caches = M.init_paged_cache(cfg, policy, 17, 16, device=dev)
+        for layer in caches:
+            for a in layer.values():
+                a.copy_(torch.from_numpy((rng.standard_normal(tuple(a.shape)) * 20)
+                                         .clip(-100, 100)).to(a.dtype))
+        bt = torch.arange(1, 17, dtype=torch.int32, device=dev).reshape(4, 4)
+        pos = torch.tensor([3, 17, 40, 60], dtype=torch.int32, device=dev)
+        toks = torch.tensor([5, 9, 11, 200], dtype=torch.int32, device=dev)
+
+        def copy():
+            return [{k: a.clone() for k, a in layer.items()} for layer in caches]
+
+        build.reset_launches()
+        dec = M.decode_step(params, toks[:, None], pos, copy(), cfg, policy, block_tables=bt,
+                            fused_attn=False)[:, -1]
+        wide = torch.zeros(4, 16, dtype=torch.int32, device=dev)
+        wide[:, 0] = toks
+        mix = M.mixed_step(params, wide, pos, torch.ones_like(pos), copy(), cfg, policy,
+                           block_tables=bt, page_size=16)[:, 0]
+        per_layer = 5 if cfg.family == "mla_moe" else 2
+        assert build.LAUNCHES["rowinv_bmm"] == 2 * per_layer * cfg.n_layers
+        assert torch.equal(dec, mix), arch
+
+
+# ------------------------------------------- h2o-danube-1.8b's window at D 80
+
+
+def test_paged_attn_and_flash_mha_window_4096_over_4608_keys(dev):
+    """h2o-danube-1.8b's published window of 4096 over more keys than it
+    covers (32 / 8 heads of 80): paged_attn at kv8, kv4 and bf16 over 288
+    pages of 16 rows (slots at 4607, 4100 and 4095), and flash_mha over one
+    sequence of 4608 in bf16, each within 1e-5 of its plain version and
+    twice bit-identical."""
+    g = torch.Generator().manual_seed(4096)
+    for bits in (8, 4, None):
+        *args, bt = _paged_case(g, dev, bits, 80, 16, 4, Hkv=8, pos=[4607, 4100, 4095], nb=288)
+        a = ops.paged_attn(*args, bits=bits, block_table=bt, window=4096, impl="cuda")
+        again = ops.paged_attn(*args, bits=bits, block_table=bt, window=4096, impl="cuda")
+        b = ops.paged_attn(*args, bits=bits, block_table=bt, window=4096, impl="torch")
+        assert torch.equal(a, again), bits
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    q, k, v = _flash_operands(g, dev, 1, 4608, 4608, 32, 8, 80, torch.bfloat16, "bshd")
+    a = ops.flash_mha(q, k, v, causal=True, window=4096, impl="cuda")
+    again = ops.flash_mha(q, k, v, causal=True, window=4096, impl="cuda")
+    b = ops.flash_mha(q, k, v, causal=True, window=4096, impl="torch")
+    assert torch.equal(a, again)
+    torch.testing.assert_close(a, b, atol=FLASH_TOL, rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["kv8", "kv4"])
+def test_page_movers_at_head_dim_80(dev, bits):
+    """A layer's leaves of h2o-danube-1.8b (8 kv heads of 80: 640-byte K/V
+    rows at kv8, 320 at kv4, f32 scales) through paged_scatter (S_new 1 and
+    16), paged_gather and paged_copy, one launch a group each, bit-exact
+    with the plain versions (the scatter's scratch page excluded)."""
+    g = torch.Generator().manual_seed(80 + bits)
+    P_, ps, B, nb = 33, 16, 4, 8
+    r = 8 // bits
+
+    def leaves(lead):
+        kv = [(torch.randn((*lead, 8, 80 // r), generator=g) * 40).clamp(-100, 100)
+              .to(torch.int8).to(dev) for _ in range(2)]
+        return kv + [torch.rand((*lead, 8), generator=g).to(dev) for _ in range(2)]
+
+    pools = leaves((P_, ps))
+    bt = (torch.randperm(P_ - 1, generator=g)[: B * nb] + 1).reshape(B, nb).to(torch.int32)
+    bt = bt.to(dev)
+    pos = torch.tensor([0, 37, nb * ps - 8, 70], dtype=torch.int32, device=dev)
+    for s_new in (1, 16):
+        news = leaves((B, s_new))
+        got = ops.paged_scatter_leaves([p.clone() for p in pools], news, pos, bt, impl="cuda")
+        want = ops.paged_scatter_leaves([p.clone() for p in pools], news, pos, bt, impl="torch")
+        for a, w in zip(got, want):
+            assert _same_bytes(a[1:], w[1:]), s_new
+    for a, w in zip(ops.paged_gather_leaves(pools, bt, impl="cuda"),
+                    ops.paged_gather_leaves(pools, bt, impl="torch")):
+        assert _same_bytes(a, w)
+    s, d = torch.tensor([3, 5], dtype=torch.int32), torch.tensor([7, 9], dtype=torch.int32)
+    n0 = build.LAUNCHES["paged_copy"]
+    got = ops.paged_copy_leaves([p.clone() for p in pools], s, d, impl="cuda")
+    assert build.LAUNCHES["paged_copy"] == n0 + 1
+    for a, w in zip(got, ops.paged_copy_leaves([p.clone() for p in pools], s, d, impl="torch")):
+        assert _same_bytes(a, w)
