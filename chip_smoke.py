@@ -26,6 +26,9 @@ Phases, in order (any failure ends the run with a nonzero exit):
      the Tab. 1 shape and a ragged one, phi aligned and off the 16-byte
      grid, ascending and shuffled thresholds, paged_gather on every cache
      leaf and one launch a group on the same leaf sets (all bit-exact);
+     mpmm over experts (one launch a call, bit-exact to the plain version
+     applied expert by expert) at EXPERT_SHAPES on cells (8, 4, 8) and
+     (8, 2, 8); flash_mha and qkv_decode at D 64 (below);
   3. the serving path: ServeEngine serving internlm2-1.8b at full width under
      policy w4a8 with an 8-bit KV cache (weights from a seeded
      torch.Generator on the card), 4 greedy requests, first on the slot cache
@@ -298,6 +301,25 @@ Phases, in order (any failure ends the run with a nonzero exit):
      page movers on danube's D 80 leaves at kv8 and kv4; and rowinv_bmm at
      the seven products' serving shapes with 1, 5, 16 and 64 query rows
      (the first row bit-identical, within 1e-5 * (1 + max |einsum|)).
+ 18. the Mixture-of-Experts (run last, on weights of its own, norms
+     redrawn): granite-moe-1b-a400m at published widths and full depth (24
+     layers, 32 experts top-8 of width 512, 16 / 8 heads of 64, vocab 49155
+     padded to 49408), w4a8 with kv8: phase 3's four requests on slot and
+     paged, fused, then unfused (streams equal in each pair; three batched
+     expert launches a MoE layer for each decode step and prefill chunk);
+     the decode step's breakdown and the batched products' device time a
+     decode step against their bound (the kernels line's mpmm_experts
+     row); one whole-prompt ``prefill_step`` of phase 11's four prompts
+     (flash_mha at D 64, the grouped dispatch: 32 groups, the experts at M
+     = 768) and ``qkv_decode`` at D 64 on that dense cache (the D 64 rows);
+     granite under mixed_paper (experts at w2) at CUT_LAYERS, slot and
+     paged, fused, streams equal; DeepSeek-V3 at published widths cut to
+     its three dense layers and its first expert layer (256 experts top-8,
+     a shared expert), w4a8 with the 8-bit latent cache, slot and paged,
+     fused, streams equal, its expert layer's batched products a decode
+     step against their bytes bound. Phase 2 holds flash_mha and
+     qkv_decode at granite's heads (D 64; kv8 and kv4) within ATTN_TOL of
+     their plain versions and twice bit-identical.
 
 Phases 3, 4, 5, 8, 9, 10, 11, 12, 13 and 15 each start with every launch count
 at 0 (phase 8 once for its fused runs, once for its unfused runs, once for
@@ -311,7 +333,9 @@ the kernels line gives each kernel the count of its own path (paged_copy:
 phase 9's prefix run; wdqmm: phase 10's slot and paged runs; flash_mha:
 phase 11's prefill_step; qkv_decode: phase 12; rowinv_bmm: phase 5's
 unfused runs, whose count is gated; the D 80 rows of flash_mha and
-qkv_decode: phase 17's prefill_step and qkv_decode calls). Each of phase 14's
+qkv_decode: phase 17's prefill_step and qkv_decode calls; the D 64 rows:
+phase 18's; mpmm_experts: phase 18's fused granite runs and its
+DeepSeek-V3 runs, each reset before it). Each of phase 14's
 continuous runs starts at 0 too, and so does each of phase 16's two
 full-depth runs. mpmm has four rows, told apart by their "at": per decode
 step (phase 3's launches), per prefill_step (phase 11's prefill_step
@@ -348,8 +372,18 @@ F32_FLOPS_PER_S = 67e12
 #: (tests/test_paged_attn.py)
 ATTN_TOL = 1e-5
 #: the MLA path: DeepSeek-V3 at its published widths, cut to its three dense
-#: (MLA) layers; every deeper layer carries the experts the port lacks
+#: (MLA) layers (phase 18 adds its first expert layer)
 MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 3
+#: phase 18: granite-moe-1b-a400m at published widths and full depth (32
+#: experts top-8 of width 512, 16 / 8 heads of 64), then DeepSeek-V3 cut to
+#: its three dense layers and its first expert layer (256 experts top-8 and
+#: a shared expert)
+MOE_ARCH, MOE_MLA_LAYERS = "granite-moe-1b-a400m", 4
+#: phase 2: the MoE's batched expert products (E, M, K, N): granite's gate /
+#: up and down at a decode step (capacity 4) and at a whole 4 x 512
+#: prefill_step (32 groups of 24 rows), DeepSeek-V3's at a decode step
+EXPERT_SHAPES = ((32, 4, 1024, 512), (32, 4, 512, 1024), (32, 768, 1024, 512),
+                 (256, 4, 7168, 2048), (256, 4, 2048, 7168))
 #: phase 17: the dense variants. h2o-danube-1.8b at full depth (head dim 80,
 #: a sliding window of 4096), qwen1.5-4b and stablelm-3b at CUT_LAYERS
 D80_ARCH = "h2o-danube-1.8b"
@@ -537,6 +571,41 @@ def check_mpmm(torch, dev, cfg, report):
     log(f"  sass: {len(imma)} mpmm kernels, {min(imma.values())}-{max(imma.values())} IMMA each")
     if not imma or min(imma.values()) == 0:
         raise AssertionError(f"mpmm kernels without tensor-core (IMMA) instructions: {imma}")
+
+
+def check_mpmm_experts(torch, dev, report):
+    """mpmm over experts against its plain version (``mpmm_ref`` applied
+    expert by expert), bit-exact, one launch a call: EXPERT_SHAPES on the
+    expert cells of w4a8 (8, 4, 8) and mixed_paper (8, 2, 8), signed 8-bit
+    activations, f32 out, each expert with its own out-scale."""
+    from repro_torch.kernels import build, ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    n, worst = 0, 0.0
+    for E, M_, K, N in EXPERT_SHAPES:
+        for wb in (4, 2):
+            x_p = torch.randint(-128, 128, (E, M_, K), generator=g, device=dev,
+                                dtype=torch.int32).to(torch.int8)
+            w_p = torch.randint(-128, 128, (E, N, K * wb // 8), generator=g, device=dev,
+                                dtype=torch.int32).to(torch.int8)
+            scale = torch.rand((E,), generator=g, device=dev) * 1e-3
+            kw = dict(x_bits=8, w_bits=wb, y_bits=8, x_signed=True, out_kind="f32",
+                      out_scale=scale)
+            n0 = build.LAUNCHES["mpmm_experts"]
+            a = ops.mpmm(x_p, w_p, None, impl="cuda", **kw)
+            launched = build.LAUNCHES["mpmm_experts"] - n0
+            b = ops.mpmm(x_p, w_p, None, impl="torch", **kw)
+            torch.cuda.synchronize()
+            if launched != 1 or tuple(a.shape) != (E, M_, N) or not torch.equal(a, b):
+                raise AssertionError(f"mpmm over experts (E, M, K, N) = {(E, M_, K, N)} w{wb}: "
+                                     f"{launched} launches, shape {tuple(a.shape)}, bit-exact "
+                                     f"{torch.equal(a, b)}")
+            n += 1
+            worst = max(worst, float((a - b).abs().max()))
+            del x_p, w_p, a, b
+    report["mpmm_experts"] = {"max_abs_err": worst, "checks": n}
+    log(f"mpmm over experts: {n} comparisons bit-exact, one launch each ((E, M, K, N) in "
+        f"{EXPERT_SHAPES}, cells (8, 4, 8) and (8, 2, 8))")
 
 
 def check_wdqmm(torch, dev, cfg, mcfg, report):
@@ -1200,7 +1269,9 @@ def check_flash_mha(torch, dev, cfg, report):
     operands 4 bytes past a 16-byte boundary (the 4-byte staging path; also
     bit-identical to the 16-byte path on the same values); then
     h2o-danube-1.8b's heads (D 80) in bf16 and f32, strided, on the 4-byte
-    path and at its window of 4096 over one sequence of WINDOW_KEYS. Both
+    path and at its window of 4096 over one sequence of WINDOW_KEYS; then
+    granite-moe-1b-a400m's (D 64) in bf16 (also at the model's sizes) and
+    f32, strided and windowed, on the 4-byte path. Both
     refuse a window that leaves a row with no key (Sq 300, Sk 100, window 50). The
     bf16 kernel's SASS must hold tensor-core (HMMA) instructions, the f32
     kernel's none."""
@@ -1236,6 +1307,15 @@ def check_flash_mha(torch, dev, cfg, report):
               ((2, 100, 300, dq, dkv, dd, bf16, "bhsd"), True, 70, {}),
               ((2, 150, 150, dq, dkv, dd, bf16, "bshd"), True, 70, dict(offset=4)),
               ((1, WINDOW_KEYS, WINDOW_KEYS, dq, dkv, dd, bf16, "bshd"), True, dw, {})]
+    # granite-moe-1b-a400m's heads (16 / 8 of 64): its prefill_step's shape,
+    # at the model's sizes, f32 ragged, strided and windowed, the 4-byte path
+    gcfg = configs.get_arch(MOE_ARCH)
+    gq, gkv, gd = gcfg.n_heads, gcfg.kv_heads, gcfg.head_dim
+    cases += [((N_SLOTS, 512, 512, gq, gkv, gd, bf16, "bshd"), True, None, {}),
+              ((N_SLOTS, 512, 512, gq, gkv, gd, bf16, "bshd"), True, None, model),
+              ((2, 100, 100, gq, gkv, gd, f32, "bshd"), True, None, {}),
+              ((2, 100, 300, gq, gkv, gd, bf16, "bhsd"), True, 70, {}),
+              ((2, 150, 150, gq, gkv, gd, bf16, "bshd"), True, 70, dict(offset=4))]
     worst = 0.0
     for (B, Sq, Sk, hq, hkv, d, dtype, layout), causal, window, extra in cases:
         q, k, v = flash_case(torch, g, dev, B, Sq, Sk, hq, hkv, d, dtype, layout, **extra)
@@ -1299,7 +1379,8 @@ def check_qkv_decode(torch, dev, cfg, report):
     full shape (B 4, S 1024, 16 / 8 heads, D 128, kv8 and kv4, pos 0, 511
     and 1023, and 900: inside the last run of keys); one run of keys (S 100
     and S = KEYS_PER_SPLIT, kv8 and kv4); h2o-danube-1.8b's heads (32 / 8 of
-    80: 80-byte rows at kv8, 40 at kv4) at internlm2's positions."""
+    80: 80-byte rows at kv8, 40 at kv4) and granite-moe-1b-a400m's (16 / 8
+    of 64: 8 code bytes a lane at kv8) at internlm2's positions."""
     from repro_torch import configs
     from repro_torch.kernels import qkv_decode as QD
 
@@ -1314,6 +1395,9 @@ def check_qkv_decode(torch, dev, cfg, report):
     cases += [(3, 100, Hq, Hkv, D, 8, 70, 100), (2, kps, Hq, Hkv, D, 4, kps - 1, kps)]
     dcfg = configs.get_arch(D80_ARCH)  # h2o-danube-1.8b: 32 / 8 heads of 80
     cases += [(N_SLOTS, S_MAX, dcfg.n_heads, dcfg.kv_heads, dcfg.head_dim, bits, pos, 512)
+              for bits in (8, 4) for pos in (0, 511, 900, 1023)]
+    gcfg = configs.get_arch(MOE_ARCH)  # granite-moe-1b-a400m: 16 / 8 heads of 64
+    cases += [(N_SLOTS, S_MAX, gcfg.n_heads, gcfg.kv_heads, gcfg.head_dim, bits, pos, 512)
               for bits in (8, 4) for pos in (0, 511, 900, 1023)]
     worst = 0.0
     for B, S, hq, hkv, d, bits, pos, bs in cases:
@@ -1668,10 +1752,10 @@ def device_ms(fn, reps: int = 5, warmup: int = 2, names=None) -> tuple[float, fl
                 pad.add_(1)
             torch.cuda.synchronize()
             prof.step()
-            n0 = sum(build.LAUNCHES.values())
+            n0 = build.total_launches()
             fn()
             torch.cuda.synchronize()
-            launched = sum(build.LAUNCHES.values()) - n0
+            launched = build.total_launches() - n0
             prof.step()
         seen = [e for e in prof.key_averages()
                 if (getattr(e, "self_device_time_total", 0) or 0) > 0
@@ -3814,7 +3898,8 @@ def redraw_norms_and_biases(torch, params, seed: int):
 
 
 def variant_params(torch, dev, cfg, policy, seed):
-    """Seeded w4a8 params of ``cfg`` on the card, norms and biases redrawn."""
+    """Seeded params of ``cfg`` under ``policy`` on the card, norms and
+    biases redrawn."""
     from repro_torch.models import model as M
 
     t0 = time.perf_counter()
@@ -3824,7 +3909,7 @@ def variant_params(torch, dev, cfg, policy, seed):
     nbytes = sum(a.numel() * a.element_size() for a in _leaves(params))
     log(f"params: {cfg.name}, {cfg.n_layers} layers ({cfg.n_heads} / {cfg.kv_heads} heads of "
         f"{cfg.head_dim}, d_model {cfg.d_model}, norm {cfg.norm}, qkv bias {cfg.qkv_bias}, "
-        f"window {cfg.window}, vocab {cfg.vocab} padded to {cfg.vocab_padded}), w4a8, "
+        f"window {cfg.window}, vocab {cfg.vocab} padded to {cfg.vocab_padded}), {policy.name}, "
         f"{nbytes / 1e9:.2f} GB, {n} norm and bias leaves redrawn, "
         f"{time.perf_counter() - t0:.1f} s to draw on the card")
     return params
@@ -3855,6 +3940,74 @@ def variant_fused(torch, dev, cfg, policy, params, what) -> tuple[dict, dict]:
                  - slot_launches.get("paged_scatter", 0), m_paged, cfg, f"{what}, paged")
     log(f"{what}: slot and paged streams identical, fused; launches {launches}")
     return out_paged, launches
+
+
+def whole_prompt_rows(torch, dev, cfg, policy, params, report, tag, expert_launches=0) -> list:
+    """One whole-prompt ``prefill_step`` of phase 11's four prompts into a
+    dense kv8 cache (flash_mha once a layer; logits finite; with
+    ``expert_launches``, that many batched expert products too) and one
+    fused decode step from it, whose paged_attn calls record each layer's
+    query and cache; ``qkv_decode`` runs every layer's attention again (once
+    a layer), within ``row_tol`` (ATTN_TOL at the row's own sizes, as phase
+    12) of its plain version. Then flash_mha's time per prefill_step and
+    qkv_decode's per call at ``cfg``'s heads. Returns the kernels line's two
+    rows, tagged ``tag``."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import qkv_decode as QD
+    from repro_torch.models import model as M
+
+    toks = whole_prompts(torch, dev, cfg)
+    caches = M.init_cache(cfg, policy, N_SLOTS, S_MAX, device=dev)
+    build.reset_launches()  # this prefill_step starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = M.prefill_step(params, {"tokens": toks}, caches, cfg, policy)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pre = dict(build.LAUNCHES)  # this prefill_step ends here
+    if (pre.get("flash_mha", 0) != cfg.n_layers or pre.get("mpmm_experts", 0) != expert_launches
+            or not torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{cfg.name} prefill_step: launches {pre}, want flash_mha once a "
+                             f"layer and {expert_launches} batched expert products; logits "
+                             f"finite: {bool(torch.isfinite(logits.float()).all())}")
+    nxt = M.sample_tokens(logits[:, -1], [0.0] * N_SLOTS)[:, None]
+    pos = torch.full((N_SLOTS,), PREFILL_LEN, dtype=torch.int32, device=dev)
+    seen, paged_attn = [], ops.paged_attn
+
+    def record(q, k, k_s, v, v_s, p, **kw):
+        seen.append((q, k, k_s, v, v_s))
+        return paged_attn(q, k, k_s, v, v_s, p, **kw)
+
+    ops.paged_attn = record
+    try:
+        M.decode_step(params, nxt, pos, caches, cfg, policy, fused_attn=True)
+    finally:
+        ops.paged_attn = paged_attn
+    build.reset_launches()  # this qkv_decode path starts here
+    outs = [QD.qkv_decode(q, k, ks, v, vs, PREFILL_LEN, bits=8) for q, k, ks, v, vs in seen]
+    torch.cuda.synchronize()
+    qkv = dict(build.LAUNCHES)  # this qkv_decode path ends here
+    if qkv.get("qkv_decode", 0) != cfg.n_layers:
+        raise AssertionError(f"{cfg.name}: qkv_decode launched {qkv}, want once a layer")
+    worst = 0.0
+    for i, (out, (q, k, ks, v, vs)) in enumerate(zip(outs, seen)):
+        tol = row_tol(torch, q, k, ks, v, vs, PREFILL_LEN)
+        err = (out - QD.qkv_decode_plain(q, k, ks, v, vs, PREFILL_LEN, bits=8)).abs()
+        if not torch.isfinite(out).all() or bool((err > tol).any()):
+            raise AssertionError(f"{cfg.name} layer {i}: qkv_decode parts from its plain version "
+                                 f"by {float((err / tol).max()):.3f} of row_tol")
+        worst = max(worst, float((err / tol).max()))
+    log(f"{cfg.name}: prefill_step of {N_SLOTS} x {PREFILL_LEN} tokens {wall:.3f} s wall, "
+        f"flash_mha (D {cfg.head_dim}) {pre['flash_mha']} launches, batched expert products "
+        f"{pre.get('mpmm_experts', 0)}; qkv_decode (D {cfg.head_dim}, kv8) over that dense "
+        f"cache at pos {PREFILL_LEN}: {qkv['qkv_decode']} launches, within row_tol of its plain "
+        f"version (largest {worst:.3f} of it)")
+    del seen, outs, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash = dict(flash_step_row(torch, dev, cfg), at=f"prefill_step, {cfg.name} ({tag})")
+    qrow = dict(qkv_decode_row(torch, dev, cfg), at=f"per call, {cfg.name} ({tag})")
+    return [kernel_row(flash, pre, report), kernel_row(qrow, qkv, report)]
 
 
 def dense_variants_path(torch, dev, policy, report) -> list:
@@ -3905,53 +4058,8 @@ def dense_variants_path(torch, dev, policy, report) -> list:
         f"{tokens_equal(fused, unf_paged)} of the unfused streams equal the fused ones (not "
         f"gated: the fused and unfused softmax sum in other orders)")
 
-    toks = whole_prompts(torch, dev, cfg)
-    caches = M.init_cache(cfg, policy, N_SLOTS, S_MAX, device=dev)
-    build.reset_launches()  # danube's prefill_step starts here
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, _ = M.prefill_step(params, {"tokens": toks}, caches, cfg, policy)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    pre = dict(build.LAUNCHES)  # danube's prefill_step ends here
-    if pre.get("flash_mha", 0) != cfg.n_layers or not torch.isfinite(logits.float()).all():
-        raise AssertionError(f"{cfg.name} prefill_step: launches {pre}, want flash_mha once a "
-                             f"layer; logits finite: {bool(torch.isfinite(logits.float()).all())}")
-    nxt = M.sample_tokens(logits[:, -1], [0.0] * N_SLOTS)[:, None]
-    pos = torch.full((N_SLOTS,), PREFILL_LEN, dtype=torch.int32, device=dev)
-    seen, paged_attn = [], ops.paged_attn
-
-    def record(q, k, k_s, v, v_s, p, **kw):
-        seen.append((q, k, k_s, v, v_s))
-        return paged_attn(q, k, k_s, v, v_s, p, **kw)
-
-    ops.paged_attn = record
-    try:
-        M.decode_step(params, nxt, pos, caches, cfg, policy, fused_attn=True)
-    finally:
-        ops.paged_attn = paged_attn
-    build.reset_launches()  # danube's qkv_decode path starts here
-    outs = [QD.qkv_decode(q, k, ks, v, vs, PREFILL_LEN, bits=8) for q, k, ks, v, vs in seen]
-    torch.cuda.synchronize()
-    qkv = dict(build.LAUNCHES)  # danube's qkv_decode path ends here
-    if qkv.get("qkv_decode", 0) != cfg.n_layers:
-        raise AssertionError(f"{cfg.name}: qkv_decode launched {qkv}, want once a layer")
-    worst = 0.0
-    for i, (out, (q, k, ks, v, vs)) in enumerate(zip(outs, seen)):
-        tol = row_tol(torch, q, k, ks, v, vs, PREFILL_LEN)
-        err = (out - QD.qkv_decode_plain(q, k, ks, v, vs, PREFILL_LEN, bits=8)).abs()
-        if not torch.isfinite(out).all() or bool((err > tol).any()):
-            raise AssertionError(f"{cfg.name} layer {i}: qkv_decode parts from its plain version "
-                                 f"by {float((err / tol).max()):.3f} of row_tol")
-        worst = max(worst, float((err / tol).max()))
-    log(f"{cfg.name}: prefill_step of {N_SLOTS} x {PREFILL_LEN} tokens {wall:.3f} s wall, "
-        f"flash_mha (D {cfg.head_dim}) {pre['flash_mha']} launches; qkv_decode (D "
-        f"{cfg.head_dim}, kv8) over that dense cache at pos {PREFILL_LEN}: {qkv['qkv_decode']} "
-        f"launches, within row_tol of its plain version (largest {worst:.3f} of it)")
-    del seen, outs, caches, params
-    flash = dict(flash_step_row(torch, dev, cfg), at=f"prefill_step, {cfg.name} (D 80)")
-    qrow = dict(qkv_decode_row(torch, dev, cfg), at=f"per call, {cfg.name} (D 80)")
-    rows = [kernel_row(flash, pre, report), kernel_row(qrow, qkv, report)]
+    rows = whole_prompt_rows(torch, dev, cfg, policy, params, report, "D 80")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3963,6 +4071,154 @@ def dense_variants_path(torch, dev, policy, report) -> list:
         gc.collect()
         torch.cuda.empty_cache()
     log(f"phase 17 (dense variants): {time.perf_counter() - t_phase:.1f} s; {card}")
+    return rows
+
+
+# --------------------------------------------------------------- phase 18
+
+
+def experts_row(torch, dev, cfg, policy, params, at) -> dict:
+    """mpmm over experts per decode step of N_SLOTS slots: every MoE
+    layer's three batched expert products at M = the step's capacity (one
+    dispatch group), over each layer's own packed weights (granite's 604 MB
+    and DeepSeek-V3's 5.6 GB a layer: the 50 MB L2 holds none of them
+    between uses), each expert with its own out-scale; beside its bound (the
+    packed weights read once, the activations and the f32 outputs), its
+    plain version and one ``torch.bmm`` a projection in bf16 over the
+    expert weights dequantized ahead of time (``torch._int_mm`` refuses M
+    <= 16)."""
+    from repro_torch.core import pack as P
+    from repro_torch.kernels import ops
+    from repro_torch.models import ffn
+
+    lp, mcfg = policy.of("expert"), cfg.moe_cfg
+    E, Mr, rw = mcfg.n_experts, ffn.moe_capacity(N_SLOTS, mcfg), 8 // lp.w_bits
+    projs = [layer["moe"][k] for layer in params["layers"] if "moe" in layer
+             for k in ("gate", "up", "down")]
+
+    def K_of(p):
+        return p["w_packed"].shape[-1] * rw
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    xs = {K: torch.randint(-128, 128, (E, Mr, K), generator=g, device=dev,
+                           dtype=torch.int32).to(torch.int8) for K in {K_of(p) for p in projs}}
+    kw = dict(x_bits=lp.x_bits, w_bits=lp.w_bits, y_bits=8, x_signed=True, out_kind="f32")
+
+    def step(impl):
+        return lambda: [ops.mpmm(xs[K_of(p)], p["w_packed"], None, out_scale=p["eps_w"],
+                                 impl=impl, **kw) for p in projs]
+
+    t, tw, how = device_ms(step("cuda"), names=("mpmm_kernel",))
+    tp, tpw, _ = device_ms(step("torch"), reps=2, warmup=1)
+    wts = []
+    for p in projs:  # (E, K, N) bf16, dequantized an expert at a time
+        w = torch.empty((E, K_of(p), p["w_packed"].shape[1]), dtype=torch.bfloat16, device=dev)
+        for e in range(E):
+            w[e] = (P.unpack(p["w_packed"][e], lp.w_bits, signed=True).float()
+                    * p["eps_w"][e]).to(torch.bfloat16).t()
+        wts.append(w)
+    xb = {K: x.to(torch.bfloat16) for K, x in xs.items()}
+    tl, tlw, _ = device_ms(lambda: [torch.bmm(xb[w.shape[1]], w) for w in wts])
+    del wts, xb
+    nops = sum(2 * E * Mr * p["w_packed"].shape[1] * K_of(p) for p in projs)
+    wbytes = sum(p["w_packed"].numel() for p in projs)
+    nbytes = wbytes + sum(E * Mr * K_of(p) + 4 * E * Mr * p["w_packed"].shape[1] + 4 * E
+                          for p in projs)
+    log(f"  mpmm over experts, {at} ({len(projs)} batched calls, E={E}, M={Mr}, cell "
+        f"({lp.x_bits}, {lp.w_bits}, 8), f32 out): {t:.4f} ms device ({how}), {tw:.3f} ms wall; "
+        f"plain {tp:.3f} ms device, {tpw:.3f} ms wall; torch.bmm (bf16, weights dequantized "
+        f"ahead of time) {tl:.4f} ms device, {tlw:.3f} ms wall; {wbytes / 1e9:.4f} GB of packed "
+        f"weights, {nbytes / 1e9:.4f} GB in all ({nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), "
+        f"{nops / 1e9:.2f} G int8 operations ({nops / INT8_OPS_PER_S * 1e3:.5f} ms); "
+        f"{nbytes / (t * 1e-3) / 1e12:.2f} TB/s")
+    return dict(name="mpmm_experts", at=at, route="cuda", source="src/repro_torch/csrc/mpmm.cu",
+                replaces="src/repro/kernels/mpmm.py:122", ms=t, plain_ms=tp, bytes=nbytes,
+                work=[(nops, INT8_OPS_PER_S)], library_ms=tl)
+
+
+def moe_serve(torch, dev, cfg, policy, params, what, fused_attn=True) -> tuple[dict, dict]:
+    """Phase 3's four requests on the slot and the paged cache: streams
+    equal; three batched expert products a MoE layer for each decode step
+    and each prefill chunk. Returns (the paged streams, the launches)."""
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+
+    n_moe = sum(k in M.MOE_KINDS for k in M._layer_kinds(cfg))
+    build.reset_launches()  # this MoE serving path starts here
+    out_slot, m_slot = serve(torch, dev, cfg, policy, params, "slot", fused_attn=fused_attn)
+    out_paged, m_paged = serve(torch, dev, cfg, policy, params, "paged", fused_attn=fused_attn)
+    launches = dict(build.LAUNCHES)  # this MoE serving path ends here
+    if out_slot != out_paged:
+        raise AssertionError(f"{what}: slot and paged token streams differ")
+    forwards = sum(m["decode_steps"] + m["prefill_jit_calls"] for m in (m_slot, m_paged))
+    if launches.get("mpmm_experts", 0) != 3 * n_moe * forwards:
+        raise AssertionError(f"{what}: {launches.get('mpmm_experts', 0)} batched expert "
+                             f"products, want three a MoE layer a decode step or prefill chunk "
+                             f"(3 x {n_moe} x {forwards})")
+    log(f"{what}: slot and paged streams identical; {launches['mpmm_experts']} batched expert "
+        f"products (three a MoE layer for each of {forwards} decode steps and prefill chunks); "
+        f"launches {launches}")
+    return out_paged, launches
+
+
+def moe_path(torch, dev, policy, report) -> list:
+    """Phase 18 (run last, on weights of its own, norms redrawn): the MoE.
+    granite-moe-1b-a400m at published widths and full depth (24 layers, 32
+    experts top-8 of width 512, 16 / 8 heads of 64), w4a8 with kv8: phase
+    3's four requests on slot and paged, fused, then unfused (``moe_serve``
+    each: streams equal, three batched expert products a MoE layer a decode
+    step or prefill chunk); fused against unfused printed, not gated; the
+    decode step's breakdown (wall, device busy, by kernel) and the batched
+    products' device time a decode step against its bound. One whole-prompt
+    ``prefill_step`` of phase 11's four prompts (flash_mha at D 64 once a
+    layer; the MoE's grouped dispatch, 32 groups, the experts at M = 768,
+    three batched products a layer) and ``qkv_decode`` at D 64 over that
+    cache (``whole_prompt_rows``). granite under mixed_paper (experts w2) at
+    CUT_LAYERS: slot and paged, fused, streams equal. DeepSeek-V3 at
+    published widths cut to its three dense layers and its first expert
+    layer (256 experts top-8, a shared expert), w4a8 with the 8-bit latent
+    cache: slot and paged, fused, streams equal, and its expert layer's
+    batched products a decode step against their bytes bound. Returns the
+    kernels line's rows."""
+    from repro_torch import configs
+    from repro_torch.core.policy import get_policy
+
+    t_phase = time.perf_counter()
+    card = gpu_line()
+    cfg = configs.get_arch(MOE_ARCH)
+    params = variant_params(torch, dev, cfg, policy, SEED + 30)
+    fused, launches = moe_serve(torch, dev, cfg, policy, params, cfg.name)
+    unf, _ = moe_serve(torch, dev, cfg, policy, params, f"{cfg.name}, unfused", fused_attn=False)
+    log(f"{cfg.name}: {tokens_equal(fused, unf)} of the unfused streams equal the fused ones "
+        f"(not gated: the fused and unfused softmax sum in other orders)")
+    step_breakdown(torch, dev, cfg, policy, params)
+    rows = [kernel_row(experts_row(torch, dev, cfg, policy, params,
+                                   f"per decode step, {cfg.name} experts"), launches, report)]
+    rows += whole_prompt_rows(torch, dev, cfg, policy, params, report, "D 64",
+                              expert_launches=3 * cfg.n_layers)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mixed = get_policy("mixed_paper")
+    ccfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    cparams = variant_params(torch, dev, ccfg, mixed, SEED + 31)
+    moe_serve(torch, dev, ccfg, mixed, cparams, f"{ccfg.name} ({CUT_LAYERS} layers, mixed_paper)")
+    del cparams
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dcfg = dataclasses.replace(configs.get_arch(MLA_ARCH), n_layers=MOE_MLA_LAYERS)
+    dparams = variant_params(torch, dev, dcfg, policy, SEED + 32)
+    _, d_launches = moe_serve(torch, dev, dcfg, policy, dparams,
+                              f"{dcfg.name} ({MOE_MLA_LAYERS} layers, the last with experts)")
+    rows.append(kernel_row(experts_row(torch, dev, dcfg, policy, dparams,
+                                       f"per decode step, {dcfg.name} expert layer"),
+                           d_launches, report))
+    del dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 18 (MoE): {time.perf_counter() - t_phase:.1f} s; {card}")
     return rows
 
 
@@ -4169,6 +4425,7 @@ def main() -> int:
     policy = get_policy("w4a8")
     report: dict = {}
     check_mpmm(torch, dev, cfg, report)
+    check_mpmm_experts(torch, dev, report)
     check_paged_scatter(torch, dev, cfg, configs.get_arch(MLA_ARCH), report)
     check_paged_attn(torch, dev, cfg, report)
     check_conv2d(torch, dev, report)
@@ -4264,6 +4521,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows += dense_variants_path(torch, dev, policy, report)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += moe_path(torch, dev, policy, report)
     log(gpu_line())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,8 +14,9 @@ group's stacked tensor).
 The reference stacks each scan group's layers on a leading axis (its groups
 are the contiguous runs of one layer kind, ``model._scan_groups``); the
 bridge unstacks them into the port's per-layer list, and
-``params_to_reference`` stacks them back. Scan groups of GQA layers (kind
-``dense``) and of MLA layers (kind ``mla_dense``) both unstack the same way;
+``params_to_reference`` stacks them back. Scan groups of every layer kind
+(``dense``, ``moe``, ``mla_dense``, ``mla_moe``) unstack the same way: a
+MoE group's (count, E, ...) expert leaves become each layer's (E, ...);
 the MTP params (``mtp_block``, ``mtp_proj``, ``mtp_norm``) are single trees
 and cross as they are.
 

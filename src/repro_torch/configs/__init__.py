@@ -1,8 +1,7 @@
 """Architecture registry (counterpart of ``repro.configs``): ``get_arch``
 resolves a name, ``reduced()`` shrinks a config to a CPU-test size of the
-same family. The port serves the dense family and the MLA layers of the
-mla_moe family (its expert layers are not ported); the registry holds the
-configurations ported so far."""
+same family. The port serves the dense, moe and mla_moe families; the
+registry holds the configurations ported so far."""
 
 from __future__ import annotations
 
@@ -10,6 +9,7 @@ import dataclasses
 
 from repro_torch.configs import (
     deepseek_v3_671b,
+    granite_moe_1b,
     h2o_danube_1p8b,
     internlm2_1p8b,
     qwen1p5_4b,
@@ -20,7 +20,8 @@ from repro_torch.models.model import ArchConfig
 
 ARCHS: dict[str, ArchConfig] = {
     m.ARCH.name: m.ARCH
-    for m in (deepseek_v3_671b, internlm2_1p8b, h2o_danube_1p8b, qwen1p5_4b, stablelm_3b)
+    for m in (deepseek_v3_671b, granite_moe_1b, internlm2_1p8b, h2o_danube_1p8b, qwen1p5_4b,
+              stablelm_3b)
 }
 #: the paper's Reference Layer (a conv shape, not an LM architecture)
 REFCONV = refconv.ARCH

@@ -173,7 +173,9 @@ def quantize_act(x: torch.Tensor, beta, bits: int) -> tuple[torch.Tensor, torch.
 def quantize_act_signed(x: torch.Tensor, beta, bits: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Signed activation quantization (LM hidden states), stored offset-binary
     (q + 2^(b-1)) as uint8 so the packed layout matches the unsigned kernels
-    (the kernel subtracts the offset)."""
+    (the kernel subtracts the offset). ``beta`` is a scalar, or a tensor
+    that broadcasts against ``x`` (the experts' (E, 1, 1): one clip range
+    an expert, as the reference's vmap gives them); eps has its shape."""
     half = 1 << (bits - 1)
     eps = _f32_scalar(beta, x.device) / half
     q = torch.clamp(torch.round(x / eps), -half, half - 1)

@@ -621,7 +621,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
 // q (B, Sq, Hq, D), k and v (B, Sk, Hkv, D), bf16 (is_f32 == 0) or f32, each
 // addressed through its batch, sequence and head strides in elements
 // (strides: q's three, then k's, then v's; d contiguous); out (B, Sq, Hq, D)
-// f32 contiguous. D in {16, 80, 128}; Hq a multiple of Hkv; Sq, Sk >= 1.
+// f32 contiguous. D in {16, 64, 80, 128}; Hq a multiple of Hkv; Sq, Sk >= 1.
 // causal != 0 masks kpos > qpos; window <= 0 means no window. Every query
 // row must see a key (a window needs Sq < Sk + window; the wrapper checks):
 // a row with none gets 0 or a mean of v depending on its tile. vec != 0
@@ -636,6 +636,8 @@ extern "C" int flash_mha_launch(const void* q, const void* k, const void* v, voi
   switch (D * 2 + (is_f32 != 0)) {
     case 16 * 2:  // the reduced configs
       return launch_bf16<16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, causal, window, scale, vec, s);
+    case 64 * 2:  // granite-moe-1b-a400m
+      return launch_bf16<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, causal, window, scale, vec, s);
     case 80 * 2:  // h2o-danube-1.8b, stablelm-3b
       return launch_bf16<80>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, causal, window, scale, vec, s);
     case 128 * 2:  // internlm2-1.8b, qwen1.5-4b
@@ -643,6 +645,8 @@ extern "C" int flash_mha_launch(const void* q, const void* k, const void* v, voi
                               s);
     case 16 * 2 + 1:
       return launch_f32<16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, causal, window, scale, s);
+    case 64 * 2 + 1:
+      return launch_f32<64>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, causal, window, scale, s);
     case 80 * 2 + 1:
       return launch_f32<80>(q, k, v, out, B, Hq, Hkv, Sq, Sk, st, causal, window, scale, s);
     case 128 * 2 + 1:

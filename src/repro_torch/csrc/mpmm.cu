@@ -7,6 +7,11 @@
 // runtime arguments. The kernel masks its own ragged M/N/K edges, so callers
 // pass unpadded operands, and takes every shape and alignment.
 //
+// Experts (the MoE's mpmm_pallas under jax.vmap): E products of contiguous
+// (E, M, K) x (E, N, K) operands in ONE launch, the expert the grid's third
+// axis; block (x, y, e) offsets its operands and its output by expert e's
+// stride and scales an f32 output by scale[e]. A 2-D call is E = 1.
+//
 // Arithmetic (bit-exact with kernels/ref.py::mpmm_ref):
 //   * products of the integer operands accumulate in int32 on the tensor
 //     cores, mma.sync m16n8k32 (s8 x s8, or u8 x s8 for unsigned 8-bit
@@ -145,6 +150,12 @@ mpmm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
   const long long xpitch = (long long)K * XB / 8;
   const long long wpitch = (long long)K * WB / 8;
   const int nst = (K + C::SK - 1) / C::SK;
+  // expert e's operands and output (contiguous experts; e = 0 for 2-D calls)
+  const int e = blockIdx.z;
+  x += (long long)e * M * xpitch;
+  w += (long long)e * N * wpitch;
+  out = static_cast<int8_t*>(out) +
+        (long long)e * M * (out_kind == 2 ? N / (8 / y_bits) : 4LL * N);
 
   auto load = [&](int st) {
     uint8_t* s = smem + (st % STAGES) * C::STAGE;
@@ -261,7 +272,7 @@ mpmm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
     if (row >= M || col >= N) continue;
     const int v = tile[r * CT + c];
     if (out_kind == 0) {
-      static_cast<float*>(out)[(long long)row * N + col] = __fmul_rn(__int2float_rn(v), scale[0]);
+      static_cast<float*>(out)[(long long)row * N + col] = __fmul_rn(__int2float_rn(v), scale[e]);
     } else {
       static_cast<int*>(out)[(long long)row * N + col] = v;
     }
@@ -269,14 +280,14 @@ mpmm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
 }
 
 template <int XB, int WB, bool XU8, class T>
-int launch(const void* x, const void* w, const void* rqv, const void* scale, void* out, int M,
-           int N, int K, int y_bits, int x_signed, int out_kind, int vec_x, int vec_w,
+int launch(const void* x, const void* w, const void* rqv, const void* scale, void* out, int E,
+           int M, int N, int K, int y_bits, int x_signed, int out_kind, int vec_x, int vec_w,
            cudaStream_t stream) {
   using C = Cfg<XB, WB, T>;
   auto kernel = mpmm_kernel<XB, WB, XU8, T>;
   static const cudaError_t attr = mma_pipe::allow_smem(kernel, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM);
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, E);
   kernel<<<grid, T::THREADS, C::SMEM, stream>>>(
       static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
       static_cast<const int*>(rqv), static_cast<const float*>(scale), out, M, N, K, y_bits,
@@ -298,13 +309,15 @@ using Prefill = mma_pipe::Tile<4, 4, 2, 4, 1, 1, 128, 3>;  // 128 x 128 block ti
 
 template <int XB, int WB, bool XU8>
 int launch_shape(const void* x, const void* w, const void* rqv, const void* scale, void* out,
-                 int M, int N, int K, int y_bits, int x_signed, int out_kind,
+                 int E, int M, int N, int K, int y_bits, int x_signed, int out_kind,
                  cudaStream_t stream) {
   // 16-byte copies where every row of an operand starts on a 16-byte
-  // boundary; byte loads into the same shared-memory image otherwise
+  // boundary (every expert's too: its offset is a multiple of the row
+  // pitch); byte loads into the same shared-memory image otherwise
   const int vec_x = (long long)K * XB / 8 % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const int vec_w = (long long)K * WB / 8 % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-#define MPMM_ARGS x, w, rqv, scale, out, M, N, K, y_bits, x_signed, out_kind, vec_x, vec_w, stream
+#define MPMM_ARGS \
+  x, w, rqv, scale, out, E, M, N, K, y_bits, x_signed, out_kind, vec_x, vec_w, stream
   if (M <= 4) {
     if (N < 8192) return launch<XB, WB, XU8, DecodeNarrow<4>>(MPMM_ARGS);
     return launch<XB, WB, XU8, DecodeWide<4>>(MPMM_ARGS);
@@ -320,31 +333,33 @@ int launch_shape(const void* x, const void* w, const void* rqv, const void* scal
 // Unsigned 8-bit ifmaps go to the tensor cores as u8; every other ifmap as s8.
 template <int XB, int WB>
 int launch_cell(const void* x, const void* w, const void* rqv, const void* scale, void* out,
-                int M, int N, int K, int y_bits, int x_signed, int out_kind,
+                int E, int M, int N, int K, int y_bits, int x_signed, int out_kind,
                 cudaStream_t stream) {
   if constexpr (XB == 8) {
     if (!x_signed) {
-      return launch_shape<XB, WB, true>(x, w, rqv, scale, out, M, N, K, y_bits, x_signed,
+      return launch_shape<XB, WB, true>(x, w, rqv, scale, out, E, M, N, K, y_bits, x_signed,
                                         out_kind, stream);
     }
   }
-  return launch_shape<XB, WB, false>(x, w, rqv, scale, out, M, N, K, y_bits, x_signed,
+  return launch_shape<XB, WB, false>(x, w, rqv, scale, out, E, M, N, K, y_bits, x_signed,
                                      out_kind, stream);
 }
 
 }  // namespace
 
-// x (M, K*x_bits/8) and w (N, K*w_bits/8) packed int8; rqv int32
-// [shift, bias, thresholds...] (read only for out_kind 2); scale f32[1] (read
-// only for out_kind 0). out: f32 (M, N) | int32 (M, N) | int8 (M, N*y_bits/8).
-// Any M, N, K and alignment. Returns cudaGetLastError() after the launch.
+// x (E, M, K*x_bits/8) and w (E, N, K*w_bits/8) packed int8, contiguous (E = 1:
+// one 2-D product); rqv int32 [shift, bias, thresholds...] (read only for
+// out_kind 2); scale f32[E] (read only for out_kind 0). out: f32 (E, M, N) |
+// int32 (E, M, N) | int8 (E, M, N*y_bits/8). Any M, N, K and alignment, E <=
+// 65535. Returns cudaGetLastError() after the launch.
 extern "C" int mpmm_launch(const void* x, const void* w, const void* rqv, const void* scale,
-                           void* out, int M, int N, int K, int x_bits, int w_bits,
+                           void* out, int E, int M, int N, int K, int x_bits, int w_bits,
                            int y_bits, int x_signed, int out_kind, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MPMM_CASE(XB, WB)                                                                  \
   case XB * 16 + WB:                                                                       \
-    return launch_cell<XB, WB>(x, w, rqv, scale, out, M, N, K, y_bits, x_signed, out_kind, s);
+    return launch_cell<XB, WB>(x, w, rqv, scale, out, E, M, N, K, y_bits, x_signed, out_kind, \
+                               s);
   switch (x_bits * 16 + w_bits) {
     MPMM_CASE(8, 8) MPMM_CASE(8, 4) MPMM_CASE(8, 2)
     MPMM_CASE(4, 8) MPMM_CASE(4, 4) MPMM_CASE(4, 2)

@@ -359,7 +359,7 @@ int launch(const void* q, const void* kq, const void* ks, const void* vq, const 
 // q (B, Hq, D) f32; kq / vq (B, S, Hkv, D * bits / 8) int8 codes (bits 8, or
 // 4: two signed nibbles a byte, element 2i low), 16-byte aligned; ks / vs
 // (B, S, Hkv) f32; out (B, Hq, D) f32; all contiguous; part f32 scratch of
-// B * Hkv * ceil(S / KPS) * (Hq / Hkv) * (D + 2) floats. D in {16, 80, 128},
+// B * Hkv * ceil(S / KPS) * (Hq / Hkv) * (D + 2) floats. D in {16, 64, 80, 128},
 // bits in {8, 4}, Hq a multiple of Hkv, S >= 1; keys with index > pos are
 // masked (pos < 0: all of them, the mean of v). Launches the split pass and
 // the merge; returns cudaGetLastError() after them, or
@@ -372,6 +372,8 @@ extern "C" int qkv_decode_launch(const void* q, const void* kq, const void* ks, 
 #define QKV_ARGS q, kq, ks, vq, vs, out, part, B, Hq, Hkv, S, pos, scale, st
   if (D == 16 && bits == 8) return launch<16, 8>(QKV_ARGS);
   if (D == 16 && bits == 4) return launch<16, 4>(QKV_ARGS);
+  if (D == 64 && bits == 8) return launch<64, 8>(QKV_ARGS);  // granite-moe-1b-a400m
+  if (D == 64 && bits == 4) return launch<64, 4>(QKV_ARGS);
   if (D == 80 && bits == 8) return launch<80, 8>(QKV_ARGS);  // h2o-danube-1.8b, stablelm-3b
   if (D == 80 && bits == 4) return launch<80, 4>(QKV_ARGS);
   if (D == 128 && bits == 8) return launch<128, 8>(QKV_ARGS);  // internlm2-1.8b

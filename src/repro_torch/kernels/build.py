@@ -46,10 +46,18 @@ SOURCE_SECONDS: dict[str, float] = {}
 #: launch succeeds (never by the plain versions): the proof that a run went
 #: through the kernels
 LAUNCHES: collections.Counter = collections.Counter()
+#: counts that tell apart launches already counted under their kernel's
+#: name (mpmm's batched expert products, also counted as ``mpmm``)
+SUBCOUNTS = ("mpmm_experts",)
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def total_launches() -> int:
+    """Kernel launches so far, each once (``SUBCOUNTS`` left out)."""
+    return sum(n for k, n in LAUNCHES.items() if k not in SUBCOUNTS)
 
 
 def build_root() -> pathlib.Path:

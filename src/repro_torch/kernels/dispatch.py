@@ -14,7 +14,9 @@ Two implementations per cell:
 tensors, the plain version for CPU tensors. There is no fallback: on a CUDA
 device a kernel that does not build or launch raises.
 
-Ops in the registry: ``mpmm`` and ``conv2d`` (all 27 (x, w, y) cells),
+Ops in the registry: ``mpmm`` (all 27 (x, w, y) cells; a call over a
+leading expert axis, the MoE's experts, is one dispatch of its cell) and
+``conv2d`` (all 27 cells),
 ``qntpack`` (one cell per output width y), ``wdqmm`` (one cell per weight
 width w), ``paged_gather``,
 ``paged_scatter`` and ``paged_copy`` (one storage-agnostic cell each; a

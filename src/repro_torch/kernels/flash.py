@@ -27,7 +27,7 @@ from repro_torch.kernels.ref import flash_mha_check_rows, flash_mha_ref  # noqa:
 #: its fused attention kernels and their twins (tests/test_paged_attn.py)
 TOL = 1e-5
 #: head widths the kernel is instantiated for
-HEAD_DIMS = (16, 80, 128)
+HEAD_DIMS = (16, 64, 80, 128)
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
              + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])

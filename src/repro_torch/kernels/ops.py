@@ -35,8 +35,8 @@ PAGED_ATTN_BS = 16
 
 
 def mpmm(
-    x_p: torch.Tensor,  # (M, K/rx) packed ifmaps
-    w_p: torch.Tensor,  # (N, K/rw) packed signed weights
+    x_p: torch.Tensor,  # (M, K/rx) packed ifmaps, or (E, M, K/rx) for E experts
+    w_p: torch.Tensor,  # (N, K/rw) packed signed weights, or (E, N, K/rw)
     rq: Optional[Q.RequantParams],
     *,
     x_bits: int,
@@ -49,7 +49,10 @@ def mpmm(
 ) -> torch.Tensor:
     """The paper's MatMul + fused QntPack over any of the 27 permutations.
     ``out_scale`` (f32 scalar, a tensor on the operands' device on the hot
-    path) scales the f32 output."""
+    path) scales the f32 output. With a leading expert axis on both
+    operands (the reference's ``mpmm`` under ``jax.vmap``) the E products
+    are one kernel launch and one dispatch, ``out_scale`` an (E,) vector
+    (expert e's output scaled by entry e); returns (E, M, ...)."""
     if rq is None and out_kind == "packed":
         rq = Q.make_requant_params(y_bits=y_bits, eps_phi=2**-8, eps_y=1.0)
     entry = dispatch.lookup("mpmm", device=x_p.device, x_bits=x_bits, w_bits=w_bits,
@@ -59,8 +62,9 @@ def mpmm(
                         out_scale=out_scale)
     dev = x_p.device
     rqv = requant_vector(rq).to(dev) if out_kind == "packed" else None
-    scale = (torch.as_tensor(out_scale, dtype=torch.float32, device=dev).reshape(1)
-             if out_kind == "f32" else None)
+    E = x_p.shape[0] if x_p.dim() == 3 else 1
+    scale = (torch.as_tensor(out_scale, dtype=torch.float32, device=dev).reshape(-1)
+             .expand(E).contiguous() if out_kind == "f32" else None)
     return entry.fn(x_p, w_p, rqv, scale, x_signed=x_signed, out_kind=out_kind)
 
 

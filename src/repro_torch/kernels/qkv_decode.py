@@ -35,7 +35,7 @@ from repro_torch.kernels.ref import BIG_NEG, qkv_decode_plain
 #: its fused attention kernels and their twins (tests/test_paged_attn.py)
 TOL = 1e-5
 #: head widths the kernel is instantiated for
-HEAD_DIMS = (16, 80, 128)
+HEAD_DIMS = (16, 64, 80, 128)
 #: keys a block of the split pass takes (csrc/qkv_decode.cu: KPS); the
 #: scratch holds one partial a (sequence, kv head, run of keys)
 KEYS_PER_SPLIT = 128

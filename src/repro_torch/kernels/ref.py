@@ -37,7 +37,19 @@ def mpmm_ref(
     out_scale=1.0,  # eps_x * eps_w, for out_kind == "f32"
 ) -> torch.Tensor:
     """y[m, n] = requant(sum_k w[n, k] x[m, k]); ``x_signed``: ifmaps stored
-    offset-binary (q + 2^(b-1)), recovered before accumulating."""
+    offset-binary (q + 2^(b-1)), recovered before accumulating.
+
+    With a leading expert axis, ``x_p`` (E, M, K/rx) and ``w_p`` (E, N, K/rw)
+    (the reference's ``mpmm`` under ``jax.vmap``), it is applied expert by
+    expert, each with ``out_scale[e]`` (an (E,) vector, or one scalar for
+    all), and returns (E, M, ...)."""
+    if x_p.dim() == 3:
+        scale = torch.as_tensor(out_scale, dtype=torch.float32, device=x_p.device).reshape(-1)
+        return torch.stack([
+            mpmm_ref(x_p[e], w_p[e], rq, x_bits=x_bits, w_bits=w_bits, y_bits=y_bits,
+                     x_signed=x_signed, out_kind=out_kind,
+                     out_scale=scale[e if scale.numel() > 1 else 0])
+            for e in range(x_p.shape[0])])
     x = P.unpack(x_p, x_bits, signed=False).to(torch.float64)  # (M, K)
     if x_signed:
         x = x - (1 << (x_bits - 1))

@@ -1,14 +1,17 @@
 """Architecture assembly for serving (counterpart of ``repro.models.model``):
-the dense family, and the MLA layers of the mla_moe family.
+the dense family, the moe family (GQA attention with a Mixture-of-Experts
+feed-forward) and the mla_moe family (MLA layers, dense then MoE).
 
 Params are plain nested dicts of tensors: ``embed``, ``final_norm``,
 ``head`` and ``layers``, a list with one block dict per layer (the
 reference stacks layers on a leading scan axis; the port loops over them),
 plus ``mtp_block`` / ``mtp_proj`` / ``mtp_norm`` when ``cfg.mtp`` (the
 reference's training-only multi-token-prediction head; serving never reads
-them). Each layer's kind (``dense`` or ``mla_dense``) follows from the
-config (:func:`_layer_kinds`). Caches are a list with one dict per layer:
-``{"k", "k_s", "v", "v_s"}`` for GQA layers, ``{"c", "c_s", "r"}`` for MLA
+them). Each layer's kind (``dense``, ``moe``, ``mla_dense`` or
+``mla_moe``) follows from the config (:func:`_layer_kinds`); a MoE layer
+holds ``moe`` (``models.ffn.moe_init``) where a dense one holds ``mlp``.
+Caches are a list with one dict per layer: ``{"k", "k_s", "v", "v_s"}``
+for GQA layers, ``{"c", "c_s", "r"}`` for MLA
 layers; dense (n_slots, s_max, ...) stripes, or a shared (n_pages,
 page_size, ...) pool addressed by block tables. Caches are written in
 place.
@@ -19,8 +22,9 @@ PrecisionPolicy. Ported: ``init_params`` (serve and train mode), ``init_cache``,
 ``prefill_step``, ``decode_step``, ``prefill_chunk``,
 ``prefill_into_slot``, ``prefill_into_pages``, ``mixed_step`` (continuous
 batching), ``spec_verify_step`` (speculative decoding) and ``sample_tokens``.
-Mixture-of-Experts layers (``mla_moe``, the moe family) are not ported:
-a config that has one raises at ``init_params`` / ``init_cache``.
+Weight-only expert layers are not ported: a policy that quantizes the
+``expert`` class weight-only raises at ``init_params(mode="serve")`` and
+at engine construction (:func:`check_policy`).
 """
 
 from __future__ import annotations
@@ -48,13 +52,13 @@ from repro_torch.models.attention import (
     row_window,
 )
 from repro_torch.models.common import NORMS, embed_apply, embed_init
-from repro_torch.models.ffn import MLPCfg, mlp_apply, mlp_init
+from repro_torch.models.ffn import MLPCfg, MoECfg, mlp_apply, mlp_init, moe_apply, moe_init
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # the port serves "dense" and the MLA layers of "mla_moe"
+    family: str  # the port serves "dense", "moe" and "mla_moe"
     n_layers: int
     d_model: int
     n_heads: int
@@ -112,14 +116,20 @@ class ArchConfig:
     def mlp_cfg(self) -> MLPCfg:
         return MLPCfg(self.d_model, self.d_ff, self.act, gated=self.act != "gelu")
 
+    @property
+    def moe_cfg(self) -> MoECfg:
+        return MoECfg(d_model=self.d_model, n_experts=self.n_experts, top_k=self.top_k,
+                      d_ff_expert=self.moe_d_ff or self.d_ff, n_shared=self.n_shared,
+                      d_ff_shared=self.shared_d_ff, act=self.act)
+
 
 #: Families the port can prefill in chunks and page (the reference also
-#: covers moe and vlm; those families are not ported yet). An mla_moe
-#: config is served when all its layers are MLA-dense (see _check_family).
-PREFILL_CHUNKABLE_FAMILIES = ("dense", "mla_moe")
-PAGEABLE_FAMILIES = ("dense", "mla_moe")
+#: pages vlm, which is not ported yet).
+PREFILL_CHUNKABLE_FAMILIES = ("dense", "moe", "mla_moe")
+PAGEABLE_FAMILIES = ("dense", "moe", "mla_moe")
 #: layer kinds the port builds
-PORTED_KINDS = ("dense", "mla_dense")
+PORTED_KINDS = ("dense", "moe", "mla_dense", "mla_moe")
+MOE_KINDS = ("moe", "mla_moe")
 
 
 def _layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -127,6 +137,8 @@ def _layer_kinds(cfg: ArchConfig) -> list[str]:
     families the port knows)."""
     if cfg.family == "dense":
         return ["dense"] * cfg.n_layers
+    if cfg.family == "moe":
+        return ["moe"] * cfg.n_layers
     if cfg.family == "mla_moe":
         return (["mla_dense"] * cfg.dense_layers
                 + ["mla_moe"] * (cfg.n_layers - cfg.dense_layers))
@@ -134,15 +146,27 @@ def _layer_kinds(cfg: ArchConfig) -> list[str]:
 
 
 def _check_family(cfg: ArchConfig) -> list[str]:
-    """The layer kinds of ``cfg``; raises if one is not ported (an
-    ``mla_moe`` layer needs the MoE feed-forward: never a dense stand-in)."""
+    """The layer kinds of ``cfg``; raises if one is not ported."""
     kinds = _layer_kinds(cfg)
     missing = sorted(set(kinds) - set(PORTED_KINDS))
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: layer kind(s) {missing} are not ported yet (Mixture-of-Experts); "
+            f"{cfg.name}: layer kind(s) {missing} are not ported yet; "
             f"the port builds {PORTED_KINDS}")
     return kinds
+
+
+def check_policy(cfg: ArchConfig, policy: PrecisionPolicy) -> None:
+    """Refuse, before any weight is drawn or any step runs, a policy whose
+    ``expert`` class is weight-only on a config with MoE layers: the
+    reference runs those experts through a vmapped wdqmm, which the port
+    does not have."""
+    lp = policy.of("expert")
+    if lp.quantized and not lp.act_quantized and set(_layer_kinds(cfg)) & set(MOE_KINDS):
+        raise NotImplementedError(
+            f"{cfg.name}: policy {policy.name!r} quantizes the experts weight-only "
+            f"(w{lp.w_bits}, bf16 activations), which the port does not serve; quantize "
+            "their activations too (e.g. w4a8) or keep them bf16")
 
 
 def _mlp_cfg(cfg: ArchConfig, kind: str) -> MLPCfg:
@@ -167,14 +191,16 @@ def _scan_groups(cfg: ArchConfig) -> list[tuple[str, int]]:
 def _block_init(gen, cfg: ArchConfig, policy, kind: str, mode: str, device, dtype) -> dict:
     ninit, _ = NORMS[cfg.norm]
     kw = dict(mode=mode, device=device, dtype=dtype)
-    attn = (mla_init(gen, cfg.mla_cfg, policy, **kw) if kind == "mla_dense"
+    attn = (mla_init(gen, cfg.mla_cfg, policy, **kw) if kind.startswith("mla")
             else attn_init(gen, cfg.attn_cfg, policy, **kw))
-    return {
-        "norm1": ninit(cfg.d_model, device=device),
-        "norm2": ninit(cfg.d_model, device=device),
-        "attn": attn,
-        "mlp": mlp_init(gen, _mlp_cfg(cfg, kind), policy, **kw),
-    }
+    p = {"norm1": ninit(cfg.d_model, device=device),
+         "norm2": ninit(cfg.d_model, device=device),
+         "attn": attn}
+    if kind in MOE_KINDS:
+        p["moe"] = moe_init(gen, cfg.moe_cfg, policy, **kw)
+    else:
+        p["mlp"] = mlp_init(gen, _mlp_cfg(cfg, kind), policy, **kw)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, policy: PrecisionPolicy, *,
@@ -190,6 +216,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, policy: PrecisionPolicy, 
     device = resolve_device(device)
     if mode == "serve":
         dispatch.ensure_policy_supported(policy)
+        check_policy(cfg, policy)
     ninit, _ = NORMS[cfg.norm]
     params: dict = {
         "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, device=device, dtype=dtype),
@@ -209,22 +236,28 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, policy: PrecisionPolicy, 
 def _run_stack(params, x, pos, cfg: ArchConfig, policy, *, impl, caches=None, cache_pos=None,
                attend_cached=False, block_tables=None, fused_attn=False):
     """The layer stack; ``caches`` None runs it without a cache (the
-    whole-sequence forward)."""
+    whole-sequence forward). Returns (x, the summed MoE aux loss, f32)."""
     _, nfn = NORMS[cfg.norm]
     kw = dict(impl=impl, cache_pos=cache_pos, attend_cached=attend_cached,
               block_table=block_tables, fused=fused_attn)
     if caches is None:
         caches = [None] * len(params["layers"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, cache, kind in zip(params["layers"], caches, _layer_kinds(cfg), strict=True):
         h = nfn(lp["norm1"], x)
-        if kind == "mla_dense":
+        if kind.startswith("mla"):
             a, _ = mla_apply(lp["attn"], h, pos, cfg.mla_cfg, policy, cache=cache, **kw)
         else:
             a, _ = attn_apply(lp["attn"], h, pos, cfg.attn_cfg, policy, cache=cache, **kw)
         x = x + a
         h = nfn(lp["norm2"], x)
-        x = x + mlp_apply(lp["mlp"], h, _mlp_cfg(cfg, kind), policy, impl=impl)
-    return x
+        if kind in MOE_KINDS:
+            m, a_l = moe_apply(lp["moe"], h, cfg.moe_cfg, policy, impl=impl)
+            aux = aux + a_l
+        else:
+            m = mlp_apply(lp["mlp"], h, _mlp_cfg(cfg, kind), policy, impl=impl)
+        x = x + m
+    return x, aux
 
 
 def init_cache(cfg: ArchConfig, policy: PrecisionPolicy, batch: int, s_max: int, *,
@@ -234,7 +267,8 @@ def init_cache(cfg: ArchConfig, policy: PrecisionPolicy, batch: int, s_max: int,
     kinds = _check_family(cfg)
     device = resolve_device(device)
     bits = policy.kv_cache_bits
-    return [mla_cache_init(batch, s_max, cfg.mla_cfg, bits, device=device) if kind == "mla_dense"
+    return [mla_cache_init(batch, s_max, cfg.mla_cfg, bits, device=device)
+            if kind.startswith("mla")
             else cache_init(batch, s_max, cfg.kv_heads, cfg.head_dim, bits, device=device)
             for kind in kinds]
 
@@ -259,8 +293,8 @@ def _whole_sequence(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                     policy: PrecisionPolicy, *, impl, caches=None) -> torch.Tensor:
     """The body ``forward`` and ``prefill_step`` share: embed ``tokens``
     (B, S) at positions 0..S-1 and run the layer stack, writing ``caches``
-    from position 0 when given. Returns the hidden rows before the final
-    norm."""
+    from position 0 when given. Returns (the hidden rows before the final
+    norm, the summed MoE aux loss)."""
     x = embed_apply(params["embed"], tokens).to(torch.bfloat16)
     B, S = tokens.shape
     return _run_stack(params, x, _positions(0, B, S, x.device), cfg, policy, impl=impl,
@@ -269,20 +303,21 @@ def _whole_sequence(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 
 def forward(params: dict, batch: dict, cfg: ArchConfig, policy: PrecisionPolicy, *,
             mode: str = "serve", impl: ops.Impl = "auto"):
-    """Whole-sequence forward of the dense family in serve mode (scoring,
-    teacher-forced evaluation): ``batch["tokens"]`` (B, S) at positions
-    0..S-1, causal attention through the flash_mha kernel, no cache.
-    Returns (logits (B, S, V) in the activation dtype, aux) with the
-    reference's ``aux["moe_aux"]`` (0.0 for the dense family). The train
-    mode (QAT) is not ported; MLA layers raise in ``mla_apply``."""
+    """Whole-sequence forward in serve mode (scoring, teacher-forced
+    evaluation): ``batch["tokens"]`` (B, S) at positions 0..S-1, causal
+    attention through the flash_mha kernel, no cache. Returns (logits (B,
+    S, V) in the activation dtype, aux) with the reference's
+    ``aux["moe_aux"]``, the MoE layers' aux losses summed (0.0 without
+    one). The train mode (QAT) is not ported; MLA layers raise in
+    ``mla_apply``."""
     if mode != "serve":
         raise NotImplementedError(f"forward(mode={mode!r}): only the serve mode is ported "
                                   "(QAT training is not)")
     _, nfn = NORMS[cfg.norm]
-    x = nfn(params["final_norm"], _whole_sequence(params, batch["tokens"], cfg, policy,
-                                                  impl=impl))
-    logits = linear_apply(params["head"], x, policy.of("head"), impl=impl)
-    return logits, {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    x, aux = _whole_sequence(params, batch["tokens"], cfg, policy, impl=impl)
+    logits = linear_apply(params["head"], nfn(params["final_norm"], x), policy.of("head"),
+                          impl=impl)
+    return logits, {"moe_aux": aux}
 
 
 def prefill_step(params: dict, batch: dict, caches: list, cfg: ArchConfig,
@@ -293,7 +328,7 @@ def prefill_step(params: dict, batch: dict, caches: list, cfg: ArchConfig,
     the flash_mha kernel. Returns (last-token logits (B, 1, V), caches); the
     final norm and the head run on the last row only."""
     _, nfn = NORMS[cfg.norm]
-    x = _whole_sequence(params, batch["tokens"], cfg, policy, impl=impl, caches=caches)
+    x, _ = _whole_sequence(params, batch["tokens"], cfg, policy, impl=impl, caches=caches)
     x_last = nfn(params["final_norm"], x[:, -1:])
     return linear_apply(params["head"], x_last, policy.of("head"), impl=impl), caches
 
@@ -309,8 +344,8 @@ def decode_step(params: dict, tokens: torch.Tensor, pos, caches: list, cfg: Arch
     x = embed_apply(params["embed"], tokens).to(torch.bfloat16)
     B, S = tokens.shape
     pos_ids = _positions(pos, B, S, x.device)
-    x = _run_stack(params, x, pos_ids, cfg, policy, impl=impl, caches=caches, cache_pos=pos,
-                   block_tables=block_tables, fused_attn=fused_attn)
+    x, _ = _run_stack(params, x, pos_ids, cfg, policy, impl=impl, caches=caches,
+                      cache_pos=pos, block_tables=block_tables, fused_attn=fused_attn)
     x = nfn(params["final_norm"], x)
     return linear_apply(params["head"], x, policy.of("head"), impl=impl)
 
@@ -398,8 +433,8 @@ def prefill_chunk(params: dict, tokens: torch.Tensor, pos, caches: list, cfg: Ar
     x = embed_apply(params["embed"], tokens).to(torch.bfloat16)
     B, S = tokens.shape
     pos_ids = _positions(pos, B, S, x.device)
-    x = _run_stack(params, x, pos_ids, cfg, policy, impl=impl, caches=caches, cache_pos=pos,
-                   attend_cached=True)
+    x, _ = _run_stack(params, x, pos_ids, cfg, policy, impl=impl, caches=caches,
+                      cache_pos=pos, attend_cached=True)
     if not head:
         return None
     li = S - 1 if last_idx is None else int(last_idx)
@@ -551,8 +586,9 @@ def _window_stack(params: dict, tokens: torch.Tensor, pos, n_real, caches: list,
     dev = x.device
     pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).reshape(B)
     n_real = torch.as_tensor(n_real, dtype=torch.int32, device=dev).reshape(B)
-    x = _run_stack(params, x, _positions(pos, B, W, dev), cfg, policy, impl=impl, caches=caches,
-                   cache_pos=pos, attend_cached=True, block_tables=block_tables)
+    x, _ = _run_stack(params, x, _positions(pos, B, W, dev), cfg, policy, impl=impl,
+                      caches=caches, cache_pos=pos, attend_cached=True,
+                      block_tables=block_tables)
     _scrub_lanes(caches, pos, n_real, W, block_tables, page_size)
     return x, n_real
 

@@ -167,6 +167,7 @@ class ServeEngine:
             fused_attn = cfg.family in M.PREFILL_CHUNKABLE_FAMILIES
         self.fused_attn = bool(fused_attn)
         dispatch.ensure_policy_supported(policy)
+        M.check_policy(cfg, policy)
         self.mixed = bool(mixed)
         if self.mixed and (prefill == "stepwise" or not ChunkedPrefill.supports(cfg)):
             raise ValueError(

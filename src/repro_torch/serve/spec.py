@@ -34,7 +34,7 @@ import torch
 from repro_torch import configs, host_copy
 from repro_torch.core import pack as P
 from repro_torch.core import quant as Q
-from repro_torch.core.linear import _NAME_TO_CLASS
+from repro_torch.core.linear import layer_class
 from repro_torch.core.policy import LayerPrecision, PrecisionPolicy
 from repro_torch.kernels import dispatch
 from repro_torch.models import model as M
@@ -72,9 +72,10 @@ def requantize_params_w4(params: dict, policy: PrecisionPolicy) -> dict:
     bits and scale ``eps_w`` by ``qmax_old / 7``, so the dequantized
     magnitude is kept. The tree is walked as
     ``core.linear.convert_model_to_serving`` walks it (a linear is a dict
-    holding ``w_packed`` under a name of ``_NAME_TO_CLASS``). Layers already
-    at 4 bits, and unquantized ones, are returned as they are: the draft
-    tree holds the target's tensors there."""
+    holding ``w_packed`` under a name ``core.linear.layer_class`` knows; a
+    MoE node's experts are class ``expert``, their (E,) ``eps_w`` scaled
+    alike). Layers already at 4 bits, and unquantized ones, are returned
+    as they are: the draft tree holds the target's tensors there."""
     spec4 = Q.WGT_SPECS[4]
 
     def repack(node: dict, lp: LayerPrecision) -> dict:
@@ -87,16 +88,17 @@ def requantize_params_w4(params: dict, policy: PrecisionPolicy) -> dict:
         out["eps_w"] = node["eps_w"].to(torch.float32) * (spec_old.qmax / spec4.qmax)
         return out
 
-    def walk(node, parent=""):
+    def walk(node, parent="", owner=""):
         if isinstance(node, dict):
-            if "w_packed" in node and parent in _NAME_TO_CLASS:
-                lp = policy.of(_NAME_TO_CLASS[parent])
+            cls = layer_class(parent, owner)
+            if "w_packed" in node and cls is not None:
+                lp = policy.of(cls)
                 if not lp.quantized or lp.w_bits == 4:
                     return node
                 return repack(node, lp)
-            return {k: walk(v, k) for k, v in node.items()}
+            return {k: walk(v, k, parent) for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v, parent) for v in node]
+            return [walk(v, parent, owner) for v in node]
         return node
 
     return walk(params)

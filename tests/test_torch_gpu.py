@@ -128,6 +128,61 @@ def test_mpmm_kernel_bit_exact_at_prefill_size(dev, NK):
     assert torch.equal(a[:4], ops.mpmm(x_p[:4], _misaligned(w_p), None, impl="cuda", **kw))
 
 
+#: the MoE's batched expert products (E, M, K, N): granite-moe-1b-a400m's
+#: gate / up and down at a decode step (capacity 4) and at a whole 4 x 512
+#: prefill (32 groups of 24 rows), DeepSeek-V3's at a decode step
+EXPERT_SHAPES = [(32, 4, 1024, 512), (32, 4, 512, 1024), (32, 768, 1024, 512),
+                 (256, 4, 7168, 2048), (256, 4, 2048, 7168)]
+
+
+@pytest.mark.parametrize("wb", [4, 2], ids=["w4a8", "mixed_paper"])
+@pytest.mark.parametrize("shape", EXPERT_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_mpmm_experts_bit_exact(dev, shape, wb):
+    """Every expert's product in ONE launch, bit-exact to the plain version
+    applied expert by expert, each expert with its own out-scale: the
+    expert cells of w4a8 (8, 4, 8) and mixed_paper (8, 2, 8), signed 8-bit
+    activations, f32 out."""
+    E, M_, K, N = shape
+    g = torch.Generator(device=dev).manual_seed(E + M_ + K + wb)
+    x_p = torch.randint(-128, 128, (E, M_, K), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.int8)
+    w_p = torch.randint(-128, 128, (E, N, K * wb // 8), generator=g, device=dev,
+                        dtype=torch.int32).to(torch.int8)
+    scale = torch.rand((E,), generator=g, device=dev) * 1e-3
+    kw = dict(x_bits=8, w_bits=wb, y_bits=8, x_signed=True, out_kind="f32", out_scale=scale)
+    n0 = build.LAUNCHES["mpmm"]
+    a = ops.mpmm(x_p, w_p, None, impl="cuda", **kw)
+    assert build.LAUNCHES["mpmm"] - n0 == 1
+    assert a.shape == (E, M_, N) and a.dtype == torch.float32
+    for e in range(E):
+        want = ops.mpmm(x_p[e], w_p[e], None, impl="torch", **{**kw, "out_scale": scale[e]})
+        assert torch.equal(a[e], want), e
+
+
+def test_mpmm_experts_every_cell_and_kind(dev):
+    """Three experts over every (x, w, y) cell and output kind, at ragged
+    shapes (a partial row and column tile, K off 16-byte rows, both tile
+    regimes): each expert's slice equals the 2-D kernel on its operands."""
+    g = torch.Generator().manual_seed(3)
+    for M_, N, K in ((3, 24, 44), (150, 72, 200)):
+        for xb, wb, yb in PERMUTATIONS:
+            if K % (8 // xb) or K % (8 // wb):
+                continue
+            ops_ = [_operands(g, dev, M_, N, K, xb, wb) for _ in range(3)]
+            x_p = torch.stack([o[0] for o in ops_])
+            w_p = torch.stack([o[1] for o in ops_])
+            rq = Q.make_requant_params(y_bits=yb, eps_phi=2.0**-9, eps_y=1.0, lam=2.0)
+            scale = torch.tensor([0.01, 0.02, 0.03], device=dev)
+            for kind in ("packed", "int32", "f32"):
+                if kind == "packed" and N % (8 // yb):
+                    continue
+                kw = dict(x_bits=xb, w_bits=wb, y_bits=yb, x_signed=True, out_kind=kind)
+                a = ops.mpmm(x_p, w_p, rq, impl="cuda", out_scale=scale, **kw)
+                for e in range(3):
+                    assert torch.equal(a[e], ops.mpmm(x_p[e], w_p[e], rq, impl="cuda",
+                                                      out_scale=scale[e], **kw)), (xb, wb, kind)
+
+
 #: paged_attn's card shapes (D, page size, G, pages a slot): every head dim,
 #: page size and group the kernel must take; the 40-page table gives the
 #: merge ten splits
@@ -435,6 +490,39 @@ def test_mla_engine_kv4_narrow_latent_rows(dev):
         for cache in ("slot", "paged"):
             got = outs[fused, "cuda", cache]
             assert got == cpu, (fused, cache, _first_difference(got, cpu))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-v3-671b"])
+def test_moe_engine_streams_on_the_card(dev, arch):
+    """Reduced granite-moe (two MoE layers) and reduced DeepSeek-V3 (an
+    MLA-dense and an mla_moe layer), w4a8, kv8: greedy streams on the card
+    identical on slot and paged caches, fused, and equal to the same
+    engine's CPU run (plain versions); every decode step and prefill chunk
+    runs three batched expert launches a MoE layer."""
+    cfg = configs.reduced(configs.get_arch(arch))
+    n_moe = sum(k in M.MOE_KINDS for k in M._layer_kinds(cfg))
+    policy = get_policy("w4a8")
+    params = M.init_params(torch.Generator().manual_seed(3), cfg, policy, device="cpu")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, cfg.vocab, size=n).astype(np.int32) for n in (3, 9, 5, 2, 7)]
+    outs = {}
+    for device, cache in (("cpu", "paged"), ("cuda", "slot"), ("cuda", "paged")):
+        build.reset_launches()
+        eng = ServeEngine(params if device == "cpu" else _to(params, dev), cfg, policy,
+                          n_slots=2, s_max=32, prefill_chunk=4, cache=cache,
+                          page_size=16 if cache == "paged" else None, device=device)
+        outs[device, cache] = eng.run(
+            [Request(rid=i, prompt=pr, max_new=6) for i, pr in enumerate(prompts)])
+        if device == "cuda":
+            m = eng.metrics()
+            forwards = m["decode_steps"] + m["prefill_jit_calls"]
+            assert build.LAUNCHES["mpmm_experts"] == 3 * n_moe * forwards, (
+                build.LAUNCHES["mpmm_experts"], n_moe, forwards)
+    cpu = outs["cpu", "paged"]
+    assert all(len(t) == 6 for t in cpu.values())
+    for cache in ("slot", "paged"):
+        got = outs["cuda", cache]
+        assert got == cpu, (cache, _first_difference(got, cpu))
 
 
 def test_paged_scatter_kernel_bit_exact(dev):
@@ -1061,7 +1149,8 @@ def test_weight_only_engine_on_cuda_matches_cpu(dev, policy_name):
 #: over two q tiles, windows whose last row sees one key (Sq = Sk + window - 1);
 #: then bf16 at D 16 (the tensor-core P . V of the reduced configs), causal,
 #: windowed over three q tiles, and windowed without causality; then D 80
-#: (h2o-danube-1.8b's and stablelm-3b's heads) in bf16 and f32
+#: (h2o-danube-1.8b's and stablelm-3b's heads) in bf16 and f32; then D 64
+#: (granite-moe-1b-a400m's heads: its whole 4 x 512 prompt, ragged, f32)
 FLASH_CASES = [
     (2, 35, 35, 2, 2, 16, torch.float32, "bshd", True, None),
     (2, 35, 35, 4, 2, 16, torch.float32, "bshd", True, None),
@@ -1083,6 +1172,10 @@ FLASH_CASES = [
     (2, 100, 300, 32, 8, 80, torch.bfloat16, "bshd", True, None),
     (2, 35, 35, 4, 2, 80, torch.float32, "bshd", True, None),
     (1, 70, 90, 4, 1, 80, torch.float32, "bhsd", False, 20),
+    (4, 512, 512, 16, 8, 64, torch.bfloat16, "bshd", True, None),
+    (2, 100, 300, 16, 8, 64, torch.bfloat16, "bhsd", True, 70),
+    (2, 35, 35, 4, 2, 64, torch.float32, "bshd", True, None),
+    (1, 70, 90, 4, 1, 64, torch.float32, "bhsd", False, 20),
 ]
 
 
@@ -1245,7 +1338,8 @@ def test_forward_and_prefill_step_on_cuda_match_cpu(dev):
 
 #: (B, S, Hq, Hkv, D, bits, pos, bs): the reference test's shapes and pos
 #: edges, then internlm2's full shape at kv8 and kv4, then h2o-danube-1.8b's
-#: (32 / 8 heads of 80: 80-byte rows at kv8, 40 at kv4)
+#: (32 / 8 heads of 80: 80-byte rows at kv8, 40 at kv4), then
+#: granite-moe-1b-a400m's (16 / 8 heads of 64: 8 code bytes a lane at kv8)
 QKV_CASES = ([(2, 32, 2 * gqa, 2, 16, bits, pos, bs)
               for bits, gqa, pos, bs in ((8, 1, 30, 8), (8, 2, 12, 8), (4, 1, 31, 8),
                                          (8, 2, -1, 8), (4, 2, 0, 32), (8, 1, 8, 8))]
@@ -1255,6 +1349,8 @@ QKV_CASES = ([(2, 32, 2 * gqa, 2, 16, bits, pos, bs)
              + [(4, 1024, 16, 8, 128, 8, 900, 512),  # pos inside the last run of keys
                 (2, 128, 16, 8, 128, 4, 127, 128)]  # exactly one run of keys
              + [(4, 1024, 32, 8, 80, bits, pos, 512) for bits in (8, 4)  # danube's heads
+                for pos in (0, 511, 900, 1023, -1)]
+             + [(4, 1024, 16, 8, 64, bits, pos, 512) for bits in (8, 4)  # granite's heads
                 for pos in (0, 511, 900, 1023, -1)])
 
 

@@ -128,16 +128,27 @@ def test_config_mirrors_the_reference():
 
 def test_moe_layers_raise_never_substitute():
     """A config with an ``mla_moe`` layer (the reference's ``reduced()``
-    alone) raises NotImplementedError at every constructor; no dense MLP
-    stands in for the experts."""
+    alone) builds that layer's experts at every constructor, never a dense
+    MLP in their place (the MoE is ported, tests/test_torch_moe*.py); a
+    policy whose experts the port cannot serve (weight-only) raises
+    NotImplementedError at ``init_params`` and at engine construction."""
+    from repro_torch.core.policy import BF16, LayerPrecision, PrecisionPolicy
+
     cfg = tconfigs.reduced(tconfigs.get_arch(ARCH))
     assert TM._layer_kinds(cfg) == ["mla_dense", "mla_moe"]
-    for make in (lambda: TM.init_params(torch.Generator(), cfg, TPOLICY, device="cpu"),
-                 lambda: TM.init_cache(cfg, TPOLICY, 1, 16, device="cpu"),
-                 lambda: TM.init_paged_cache(cfg, TPOLICY, 3, 16, device="cpu"),
-                 lambda: SlotCache(cfg, TPOLICY, n_slots=1, s_max=16, device="cpu"),
-                 lambda: PagedKVCache(cfg, TPOLICY, n_slots=1, s_max=16, device="cpu")):
-        with pytest.raises(NotImplementedError, match="mla_moe"):
+    params = TM.init_params(torch.Generator(), cfg, TPOLICY, device="cpu")
+    assert "moe" in params["layers"][1] and "mlp" not in params["layers"][1]
+    for caches in (TM.init_cache(cfg, TPOLICY, 1, 16, device="cpu"),
+                   TM.init_paged_cache(cfg, TPOLICY, 3, 16, device="cpu"),
+                   SlotCache(cfg, TPOLICY, n_slots=1, s_max=16, device="cpu").caches,
+                   PagedKVCache(cfg, TPOLICY, n_slots=1, s_max=16, device="cpu").caches):
+        assert [sorted(c) for c in caches] == [["c", "c_s", "r"]] * 2
+    wo = PrecisionPolicy(name="experts_w4only", default=LayerPrecision(8, 4, 8),
+                         per_class={"router": BF16, "expert": LayerPrecision(None, 4, None)},
+                         kv_cache_bits=8)
+    for make in (lambda: TM.init_params(torch.Generator(), cfg, wo, device="cpu"),
+                 lambda: ServeEngine(params, cfg, wo, n_slots=1, s_max=16, device="cpu")):
+        with pytest.raises(NotImplementedError, match="weight-only"):
             make()
     if not torch.cuda.is_available():  # device=None means CUDA here too
         with pytest.raises(RuntimeError, match="CUDA"):

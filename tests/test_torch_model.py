@@ -292,5 +292,5 @@ def test_sample_tokens_greedy_first_maximum():
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         TM.init_params(torch.Generator(), TTINY.__class__(
-            name="x", family="moe", n_layers=1, d_model=8, n_heads=2, kv_heads=2, d_ff=8,
+            name="x", family="rwkv", n_layers=1, d_model=8, n_heads=2, kv_heads=2, d_ff=8,
             vocab=16), TPOLICY, device="cpu")
